@@ -1,0 +1,135 @@
+"""Network -> simulator-spec compilation (port of ``repro.core.simspec``).
+
+:func:`compile_network` freezes a :class:`~repro_torch.core.queueing.ClosedNetwork`
+at one hit ratio into flat arrays (:class:`SimSpec`) that an event loop
+indexes with station ids; :func:`stack_specs` stacks a grid of them along a
+leading lane axis.  The arrays are built in numpy exactly as the JAX
+package builds them and then placed on the requested device as tensors.
+
+:class:`SimResult` is the closed-loop summary the simulator returns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.queueing import QUEUE, ClosedNetwork
+
+# Sentinels: "idle / not ready" times and "not enqueued" sequence numbers.
+INF_NS = np.int32(2**31 - 1)
+BIG_SEQ = np.int32(2**31 - 1)
+
+_DIST_IDS = {"det": 0, "exp": 1, "pareto": 2}
+
+
+class SimSpec(NamedTuple):
+    """A closed network compiled to tensors at one (or a grid of) p_hit."""
+
+    is_queue: torch.Tensor  # (K,) bool
+    svc_ns: torch.Tensor  # (K,) f32 mean service in ns
+    dist_id: torch.Tensor  # (K,) i32
+    dist_params: torch.Tensor  # (K, 4) f32: alpha, lo, hi, raw_mean (pareto)
+    branch_cum: torch.Tensor  # (B,) f32 cumulative branch probabilities
+    visits: torch.Tensor  # (B, L) i32 station indices, -1 padded
+    servers: torch.Tensor  # (K,) i32 FCFS server count (1 for think stations)
+    disk_rank: torch.Tensor  # (K,) i32 backing-store group id, -1 for non-disks
+    mpl: int
+
+
+def _bounded_pareto_mean(alpha: float, lo: float, hi: float) -> float:
+    if abs(alpha - 1.0) < 1e-9:
+        return lo * hi / (hi - lo) * math.log(hi / lo)
+    num = lo**alpha * alpha * (lo ** (1 - alpha) - hi ** (1 - alpha))
+    den = (alpha - 1.0) * (1.0 - (lo / hi) ** alpha)
+    return num / den
+
+
+def compile_network(net: ClosedNetwork, p_hit: float,
+                    device: str = "cuda") -> SimSpec:
+    """Freeze a network at a given hit ratio into simulator tensors."""
+    dev = resolve_device(device)
+    names = [s.name for s in net.stations]
+    idx = {n: i for i, n in enumerate(names)}
+    K = len(names)
+    is_queue = np.array([s.kind == QUEUE for s in net.stations], dtype=bool)
+    svc_ns = np.array(
+        [s.mean_service(p_hit) * 1e3 for s in net.stations], dtype=np.float32
+    )
+    dist_id = np.array([_DIST_IDS[s.dist] for s in net.stations], dtype=np.int32)
+    dist_params = np.zeros((K, 4), dtype=np.float32)
+    for i, s in enumerate(net.stations):
+        if s.dist == "pareto":
+            alpha, lo, hi = s.dist_params
+            dist_params[i] = (alpha, lo, hi, _bounded_pareto_mean(alpha, lo, hi))
+        else:
+            dist_params[i] = (1.0, 1.0, 1.0, 1.0)
+
+    probs = np.array([b.probability(p_hit) for b in net.branches], dtype=np.float64)
+    if not math.isclose(probs.sum(), 1.0, abs_tol=1e-5):
+        raise ValueError(f"branch probs sum to {probs.sum()} at p={p_hit}")
+    probs = np.maximum(probs, 0.0)
+    branch_cum = np.cumsum(probs / probs.sum()).astype(np.float32)
+
+    L = max(len(b.visits) for b in net.branches)
+    if min(len(b.visits) for b in net.branches) == 0:
+        raise ValueError("empty branch routes are not supported")
+    visits = np.full((len(net.branches), L), -1, dtype=np.int32)
+    for bi, b in enumerate(net.branches):
+        for vi, v in enumerate(b.visits):
+            visits[bi, vi] = idx[v]
+    if is_queue[visits[:, 0]].any():
+        # init places all mpl jobs straight into service at their first
+        # station; a queue-first route would bypass the busy accounting.
+        raise ValueError("branch routes must start at a think station")
+
+    servers = np.array(
+        [s.servers if s.kind == QUEUE else 1 for s in net.stations],
+        dtype=np.int32,
+    )
+
+    # A station is a backing store if it is named "disk" (bare or a
+    # per-shard "sK:disk" replica); each gets its own rank.
+    disk_rank = np.full(K, -1, dtype=np.int32)
+    rank = 0
+    for i, name in enumerate(names):
+        if name.split(":")[-1] == "disk":
+            disk_rank[i] = rank
+            rank += 1
+
+    def t(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev)
+
+    return SimSpec(
+        is_queue=t(is_queue), svc_ns=t(svc_ns), dist_id=t(dist_id),
+        dist_params=t(dist_params), branch_cum=t(branch_cum),
+        visits=t(visits), servers=t(servers), disk_rank=t(disk_rank),
+        mpl=net.mpl,
+    )
+
+
+def stack_specs(specs: Sequence[SimSpec]) -> SimSpec:
+    """Stack per-p_hit specs along a leading lane axis."""
+    mpl = specs[0].mpl
+    if any(s.mpl != mpl for s in specs):
+        raise ValueError("stacked specs must share one mpl")
+    return SimSpec(
+        *[torch.stack([getattr(s, f) for s in specs])
+          for f in SimSpec._fields[:-1]],
+        mpl=mpl,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimResult:
+    """Closed-loop summary: mean throughput and CI95 across seeds."""
+
+    p_hit: np.ndarray
+    throughput: np.ndarray  # requests/µs == M req/s
+    ci95: np.ndarray  # 95% CI half-width across seeds
+    n_requests: int
