@@ -133,3 +133,7 @@ class SimResult:
     throughput: np.ndarray  # requests/µs == M req/s
     ci95: np.ndarray  # 95% CI half-width across seeds
     n_requests: int
+    # decoded per-lane trace records ([seed][p]
+    # repro_torch.obs.trace.TraceRecords); None unless the run asked for
+    # tracing (simulate_network(trace=K)).
+    traces: list | None = None

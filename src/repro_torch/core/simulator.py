@@ -3,7 +3,8 @@
 
 This slice runs the **closed loop without coalescing**: exactly ``mpl``
 jobs, think stations infinite-server, queue stations c-server FCFS, a
-completed request re-entering at once with a fresh branch.  The whole
+completed request re-entering at once with a fresh branch, optionally
+traced (``trace=K``: per-request records, :mod:`repro_torch.obs`).  The whole
 (p_hit x seed) grid is one launch of the event-sim kernel
 (:mod:`repro_torch.kernels.event_sim`) on the card, or its plain version
 on the CPU.  Its counter-based RNG is the one of the reference's
@@ -29,7 +30,6 @@ _LATER = {
     "arrival_rate": "ROADMAP queue 1, item 6.3 (open loop)",
     "burst": "ROADMAP queue 1, item 6.3 (open loop, ON-OFF bursts)",
     "tiers": "ROADMAP queue 1, item 6.4 (tiered MSHR tables)",
-    "trace": "ROADMAP queue 1, item 8 (trace rings)",
     "sketch_cap": "ROADMAP queue 1, item 8 (streaming sketches)",
 }
 
@@ -56,15 +56,17 @@ def simulate_network(
     ``n_requests`` completions (or ``n_requests * (Lr + 2) * 3`` events),
     and throughput is measured after the first ``warmup_frac`` of them.
     Returns the mean throughput (requests/µs) and its CI95 half-width
-    across seeds.
+    across seeds.  ``trace=K`` keeps the last K per-request trace records
+    of every lane (the traced kernel) and decodes them onto the result's
+    ``traces``, ``[seed][p]``; the statistics are the untraced run's bit
+    for bit.
 
-    ``coalesce_flows``, ``arrival_rate``, ``burst``, ``tiers``, ``trace``
-    and ``sketch_cap`` belong to later slices of the port and raise
+    ``coalesce_flows``, ``arrival_rate``, ``burst``, ``tiers`` and
+    ``sketch_cap`` belong to later slices of the port and raise
     :class:`NotImplementedError` naming their ROADMAP item.
     """
     later = {"coalesce_flows": coalesce_flows, "arrival_rate": arrival_rate,
-             "burst": burst, "tiers": tiers, "trace": trace,
-             "sketch_cap": sketch_cap}
+             "burst": burst, "tiers": tiers, "sketch_cap": sketch_cap}
     for name, value in later.items():
         if value is None or (isinstance(value, (int, float)) and value == 0):
             continue
@@ -72,4 +74,4 @@ def simulate_network(
             f"simulate_network({name}=...) is not ported yet: "
             f"{_LATER[name]}")
     return simulate_grid(net, p_hits, n_requests=n_requests, seeds=seeds,
-                         warmup_frac=warmup_frac, device=device)
+                         warmup_frac=warmup_frac, trace=trace, device=device)

@@ -1,7 +1,8 @@
 // Event-sim kernel: one (p_hit, seed) lane of the closed network per warp.
 //
-// Replaces the TPU kernel src/repro/kernels/event_sim.py::_sim_kernel
-// (launched by _pallas_grid, entry simulate_grid_pallas).  Each lane runs
+// Replaces the TPU kernels src/repro/kernels/event_sim.py::_sim_kernel and,
+// as the kTrace = true instantiation, ::_sim_kernel_traced (both launched
+// by _pallas_grid, entry simulate_grid_pallas).  Each lane runs
 // the closed-loop event simulation of `mpl` jobs: per event it draws three
 // murmur3 counter uniforms, takes the argmin of the job ready times,
 // hands a c-server FIFO station to its successor by enqueue sequence,
@@ -21,6 +22,15 @@
 // shared values; thread 0 writes the scalar-owned entries, and
 // __syncwarp() separates writes from the reads around them.
 //
+// Tracing (kTrace): the per-job enter/leave stamps of the current request
+// (mpl x L floats each) sit in shared memory after `busy`; a completed
+// request's record goes straight to the lane's ring in global memory at
+// row req % cap (thread 0 the scalars, threads 0..L-1 the two stamp rows),
+// one write per completion.  The ring's scrap row is never written (the
+// reference parks its masked writes there; decode drops it).  Tracing
+// draws no random numbers, so both instantiations simulate the same events;
+// the untraced one compiles no trace code.
+//
 // Where bit-exactness with the JAX reference could break:
 //   * argmin ties: jnp.argmin returns the FIRST index; both shuffle
 //     reductions compare (value, index) pairs lexicographically.
@@ -31,11 +41,12 @@
 //   * float32 rounding: u01 uses the float32 constants of the reference
 //     (2^-24 and the clip to [float32(1e-7), float32(1 - 1e-7)]);
 //     jnp.round is round-half-to-even, which is rintf here, not roundf;
-//     the elapsed_us accumulation a + t * 1e-3 is float32 and is built
-//     with -fmad=false so it is not fused.  logf/powf may differ from
-//     XLA's float32 log/pow in the last ulp, so exponential and Pareto
-//     service draws are held statistically; deterministic service is
-//     exact.
+//     the clock update elapsed_us + t * 1e-3 is one fused multiply-add
+//     (__fmaf_rn), as XLA's CPU backend compiles the reference's, and
+//     -fmad=false keeps every other multiply and add unfused.  logf/powf
+//     may differ from XLA's float32 log/pow in the last ulp, so
+//     exponential and Pareto service draws are held statistically;
+//     deterministic service is exact.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +60,8 @@ constexpr int INF_NS = INT_MAX;
 constexpr int BIG_SEQ = INT_MAX;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
+constexpr int CLS_MISS = 0;
+constexpr int CLS_HIT = 1;
 
 struct Spec {
   const int* isq;     // (K) is_queue
@@ -94,6 +107,21 @@ __device__ int service_ns(float u, const Spec& s, int k) {
   return static_cast<int>(fmaxf(rintf(unit * mean), 1.0f));
 }
 
+// The traced kernel's extra input and outputs; rows are (lanes, cap + 1)
+// and stamp rows (lanes, cap + 1, L), as TraceRings in repro_torch.
+struct Rings {
+  const int* bmiss;  // (lanes, B) 1 if the branch's route touches a disk
+  int* n_count;      // (lanes) records emitted
+  int* req;
+  int* branch;
+  int* cls;
+  int* nvis;
+  float* parked;
+  float* enter;
+  float* leave;
+  int cap;
+};
+
 // searchsorted-left over the cumulative branch law (may return n_b), for
 // a uniform that differs per thread.
 __device__ int count_below(const Spec& s, float u) {
@@ -133,6 +161,7 @@ __device__ __forceinline__ void warp_argmin(int& v, int& i) {
   }
 }
 
+template <bool kTrace>
 __global__ void __launch_bounds__(32)
     sim_kernel(const int* __restrict__ isq, const float* __restrict__ svc,
                const int* __restrict__ did, const float* __restrict__ dpar,
@@ -140,8 +169,8 @@ __global__ void __launch_bounds__(32)
                const int* __restrict__ servers, const int* __restrict__ seeds,
                float* __restrict__ x_out, int* __restrict__ completed_out,
                int* __restrict__ events_out, float* __restrict__ tmeas_out,
-               int n_k, int n_b, int n_l, int mpl, int n_requests, int warmup,
-               int max_events) {
+               Rings rings, int n_k, int n_b, int n_l, int mpl,
+               int n_requests, int warmup, int max_events) {
   extern __shared__ int sm[];
   int* ready = sm;             // (mpl) ns until done, INF_NS while waiting
   int* station = ready + mpl;  // (mpl)
@@ -149,6 +178,9 @@ __global__ void __launch_bounds__(32)
   int* pos = branch + mpl;     // (mpl)
   int* enq = pos + mpl;        // (mpl) enqueue sequence, BIG_SEQ if none
   int* busy = enq + mpl;       // (K) busy servers per station
+  // kTrace only: (mpl, L) enter / leave stamps of each job's request, µs
+  float* enter_s = reinterpret_cast<float*>(busy + n_k);
+  float* leave_s = enter_s + mpl * n_l;
 
   const int lane_id = blockIdx.x;
   const int me = threadIdx.x;
@@ -169,6 +201,9 @@ __global__ void __launch_bounds__(32)
     enq[i] = BIG_SEQ;
   }
   for (int k = me; k < n_k; k += 32) busy[k] = 0;
+  if constexpr (kTrace) {
+    for (int i = me; i < 2 * mpl * n_l; i += 32) enter_s[i] = 0.0f;
+  }
   __syncwarp();
 
   int seq_ctr = 0, completed = 0, warm_completed = -1, ctr = 2 * mpl,
@@ -182,7 +217,7 @@ __global__ void __launch_bounds__(32)
     int t = IMAX, j = IMAX;
     for (int i = me; i < mpl; i += 32) pick_min(t, j, ready[i], i);
     warp_argmin(t, j);
-    elapsed_us = elapsed_us + static_cast<float>(t) * static_cast<float>(1e-3);
+    elapsed_us = __fmaf_rn(static_cast<float>(t), static_cast<float>(1e-3), elapsed_us);
     const int k_cur = station[j];
     __syncwarp();
     for (int i = me; i < mpl; i += 32) {
@@ -220,6 +255,27 @@ __global__ void __launch_bounds__(32)
     const bool done = route_next < 0;
     const int new_branch = pick_branch(s, u_branch);
     const int k_next = done ? visit(s, new_branch, 0) : route_next;
+    const int pos_j = nxt - 1;
+    const int pos_next = done ? 0 : nxt;
+    if constexpr (kTrace) {
+      // the finished request's record, its last visit left just now
+      if (done) {
+        const size_t row =
+            static_cast<size_t>(lane_id) * (rings.cap + 1) + completed % rings.cap;
+        if (me == 0) {
+          rings.req[row] = completed;
+          rings.branch[row] = bj;
+          rings.cls[row] =
+              rings.bmiss[lane_id * s.n_b + min(bj, s.n_b - 1)] ? CLS_MISS : CLS_HIT;
+          rings.nvis[row] = pos_j + 1;
+          rings.parked[row] = 0.0f;
+        }
+        for (int v = me; v < n_l; v += 32) {
+          rings.enter[row * n_l + v] = enter_s[j * n_l + v];
+          rings.leave[row * n_l + v] = v == pos_j ? elapsed_us : leave_s[j * n_l + v];
+        }
+      }
+    }
     completed += done ? 1 : 0;
 
     // place j at k_next
@@ -234,7 +290,11 @@ __global__ void __launch_bounds__(32)
       if (is_q && starts_now) busy[k_next] = busy_next + 1;
       station[j] = k_next;
       branch[j] = done ? new_branch : bj;
-      pos[j] = done ? 0 : nxt;
+      pos[j] = pos_next;
+      if constexpr (kTrace) {
+        leave_s[j * n_l + pos_j] = elapsed_us;
+        enter_s[j * n_l + pos_next] = elapsed_us;
+      }
     }
     __syncwarp();
     seq_ctr += starts_now ? 0 : 1;
@@ -252,17 +312,39 @@ __global__ void __launch_bounds__(32)
     completed_out[lane_id] = completed;
     events_out[lane_id] = events;
     tmeas_out[lane_id] = t_meas;
+    if constexpr (kTrace) rings.n_count[lane_id] = completed;  // one record each
   }
 }
 
-__host__ __device__ constexpr int shared_ints(int n_k, int mpl) {
-  return 5 * mpl + n_k;
+// 4-byte words of a lane's shared state: five (mpl) job arrays, (K) busy
+// counts and, traced, the (mpl, L) enter and leave stamps.
+__host__ __device__ constexpr int shared_ints(int n_k, int mpl, int n_l,
+                                              bool trace) {
+  return 5 * mpl + n_k + (trace ? 2 * mpl * n_l : 0);
+}
+
+template <bool kTrace>
+int launch(const int* isq, const float* svc, const int* did, const float* dpar,
+           const float* bcum, const int* visits, const int* servers,
+           const int* seeds, float* x, int* completed, int* events,
+           float* tmeas, const Rings& rings, int lanes, int n_k, int n_b,
+           int n_l, int mpl, int n_requests, int warmup, int max_events,
+           void* stream) {
+  const int bytes = shared_ints(n_k, mpl, n_l, kTrace) * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      sim_kernel<kTrace>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (lanes == 0) return 0;
+  sim_kernel<kTrace><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
+      isq, svc, did, dpar, bcum, visits, servers, seeds, x, completed, events,
+      tmeas, rings, n_k, n_b, n_l, mpl, n_requests, warmup, max_events);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int event_sim_shared_bytes(int n_k, int mpl) {
-  return shared_ints(n_k, mpl) * (int)sizeof(int);
+extern "C" int event_sim_shared_bytes(int n_k, int mpl, int n_l, int trace) {
+  return shared_ints(n_k, mpl, n_l, trace != 0) * (int)sizeof(int);
 }
 
 // Launch one warp per lane on `stream`; returns the cudaError_t.
@@ -273,13 +355,24 @@ extern "C" int event_sim_launch(const int* isq, const float* svc, const int* did
                                 int* events, float* tmeas, int lanes, int n_k,
                                 int n_b, int n_l, int mpl, int n_requests,
                                 int warmup, int max_events, void* stream) {
-  const int bytes = shared_ints(n_k, mpl) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      sim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (lanes == 0) return 0;
-  sim_kernel<<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      isq, svc, did, dpar, bcum, visits, servers, seeds, x, completed, events,
-      tmeas, n_k, n_b, n_l, mpl, n_requests, warmup, max_events);
-  return (int)cudaGetLastError();
+  return launch<false>(isq, svc, did, dpar, bcum, visits, servers, seeds, x,
+                       completed, events, tmeas, Rings{}, lanes, n_k, n_b, n_l,
+                       mpl, n_requests, warmup, max_events, stream);
+}
+
+// The traced kernel: as event_sim_launch, plus the (lanes, B) bmiss table
+// and the rings (n_count, req, branch, cls, nvis, parked, enter, leave),
+// which the caller allocates with req = -1 and cap = trace capacity.
+extern "C" int event_sim_traced_launch(
+    const int* isq, const float* svc, const int* did, const float* dpar,
+    const float* bcum, const int* visits, const int* servers, const int* seeds,
+    const int* bmiss, float* x, int* completed, int* events, float* tmeas,
+    int* n_count, int* req, int* branch, int* cls, int* nvis, float* parked,
+    float* enter, float* leave, int lanes, int n_k, int n_b, int n_l, int mpl,
+    int n_requests, int warmup, int max_events, int cap, void* stream) {
+  const Rings rings{bmiss, n_count, req, branch, cls, nvis, parked, enter,
+                    leave, cap};
+  return launch<true>(isq, svc, did, dpar, bcum, visits, servers, seeds, x,
+                      completed, events, tmeas, rings, lanes, n_k, n_b, n_l,
+                      mpl, n_requests, warmup, max_events, stream);
 }

@@ -21,12 +21,20 @@ statistically.
 The murmur3 arithmetic is uint32 with wraparound.  torch's CPU support for
 ``*``, ``>>`` and ``^`` on ``uint32`` is partial, so the plain version
 computes in int64 masked with ``0xFFFFFFFF``.
+
+With ``trace_cap=K > 0`` both versions also fill per-lane
+:class:`~repro_torch.obs.trace.TraceRings` (the reference's
+``_sim_kernel_traced``): per-job enter/leave stamps of the current
+request's visits, and one record per completed request at ring row
+``req % K``.  Tracing draws no random numbers, so the simulated system is
+the untraced one bit for bit; with ``trace_cap=0`` no trace code runs
+(the CUDA kernel's untraced instantiation compiles none).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +43,8 @@ from repro_torch import resolve_device
 from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
 from repro_torch.kernels import _build
+from repro_torch.obs.trace import (CLS_HIT, CLS_MISS, TraceRings,
+                                   decode_trace_grid, init_rings)
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -78,6 +88,27 @@ def u01(base: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
     return torch.clamp(u, min=_f32(_U_LO, z), max=_f32(_U_HI, z))
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    The reference's ``elapsed_us + t * 1e-3`` is compiled by XLA's CPU
+    backend into one fused multiply-add, and the CUDA kernel computes it
+    with ``__fmaf_rn``.  Here the product of two float32 values is exact in
+    float64; the float64 sum is made round-to-odd (its error, from
+    TwoSum, picks the odd neighbour), which then rounds to the same float32
+    as the exact ``a * b + c``.
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & (bits & 1 == 0), bits + toward, bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
 class _LaneSpec(NamedTuple):
     """The seven per-lane arrays of a compiled network the kernel reads."""
 
@@ -117,12 +148,25 @@ class LaneOutputs(NamedTuple):
     completed: torch.Tensor   # (L,) i32
     events: torch.Tensor      # (L,) i32
     t_measured: torch.Tensor  # (L,) f32 µs
+    rings: Optional[TraceRings] = None  # filled when trace_cap > 0
 
 
 def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
-                    warmup: int, mpl: int, max_events: int) -> LaneOutputs:
+                    warmup: int, mpl: int, max_events: int,
+                    trace_cap: int = 0,
+                    bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
     inputs' device (``is_queue`` may be bool or int32, as for the kernel).
+
+    With ``trace_cap > 0``, ``bmiss`` is the (L, B) per-branch miss-class
+    table and the result carries the filled rings (the reference
+    ``_sim_lane`` with ``trace_cap``): on every event job ``j``'s visit
+    ``pos[j]`` is stamped left at the new clock; a completing request
+    writes its record (``req`` = completions so far, its branch, its
+    class, ``nvis = pos[j] + 1``, ``parked_us = 0``, the job's enter and
+    leave rows) at row ``req % trace_cap``; then the job's next visit is
+    stamped entered.  Lanes that write nothing this event write the scrap
+    row ``trace_cap``.
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
@@ -169,6 +213,14 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     def put(a: torch.Tensor, i: torch.Tensor, v, mask: torch.Tensor) -> None:
         a[lane, i] = torch.where(mask, v, a[lane, i])
 
+    rings = None
+    if trace_cap:
+        rings = init_rings(n_l, trace_cap, route_len, dev)
+        enter_s = torch.zeros((n_l, mpl, route_len), dtype=torch.float32,
+                              device=dev)
+        leave_s = torch.zeros_like(enter_s)
+        miss = bmiss.bool()
+
     e = 0
     while True:
         if e % _CHUNK == 0:
@@ -187,8 +239,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         t = ready[lane, j]
         ready = torch.where(active[:, None] & (ready < inf),
                             ready - t[:, None], ready)
-        elapsed = torch.where(active, elapsed + t.to(torch.float32) * ns_to_us,
-                              elapsed)
+        elapsed = torch.where(active, fma_f32(t.to(torch.float32), ns_to_us,
+                                              elapsed), elapsed)
         k_cur = station[lane, j]
 
         # hand the server job j held (if any) to its FIFO successor
@@ -210,6 +262,10 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         done = route_next < 0
         new_branch = new_branches[:, c]
         k_next = torch.where(done, visit(new_branch, zeros), route_next)
+        if trace_cap:
+            _trace_event(rings, enter_s, leave_s, lane, j, pos[lane, j],
+                         torch.where(done, 0, nxt), b_j, miss, elapsed,
+                         completed, active, active & done, trace_cap)
         completed = torch.where(active, completed + done.long(), completed)
 
         # place j at k_next
@@ -233,17 +289,48 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     t_meas = torch.clamp(elapsed - warm_elapsed, min=_f32(_T_MIN, elapsed))
     x = (completed - warm_completed).to(torch.float32) / t_meas
     return LaneOutputs(x, completed.to(torch.int32), events.to(torch.int32),
-                       t_meas)
+                       t_meas, rings)
+
+
+def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
+                 leave_s: torch.Tensor, lane: torch.Tensor, j: torch.Tensor,
+                 pos_j: torch.Tensor, pos_next: torch.Tensor,
+                 b_j: torch.Tensor, miss: torch.Tensor, elapsed: torch.Tensor,
+                 completed: torch.Tensor, active: torch.Tensor,
+                 write: torch.Tensor, cap: int) -> None:
+    """One event's trace updates, in place, every lane at once: stamp job
+    ``j`` leaving visit ``pos_j``, write the record of a completing request
+    (scrap row ``cap`` otherwise), stamp ``j`` entering ``pos_next``."""
+    leave_s[lane, j, pos_j] = torch.where(active, elapsed,
+                                          leave_s[lane, j, pos_j])
+    row = torch.where(write, completed % cap, cap)
+    n_b = miss.shape[1]
+    cls = torch.where(miss[lane, b_j.clamp(max=n_b - 1)], CLS_MISS, CLS_HIT)
+    rings.req[lane, row] = completed.to(torch.int32)
+    rings.branch[lane, row] = b_j.to(torch.int32)
+    rings.cls[lane, row] = cls.to(torch.int32)
+    rings.nvis[lane, row] = (pos_j + 1).to(torch.int32)
+    rings.parked_us[lane, row] = 0.0
+    rings.enter_us[lane, row] = enter_s[lane, j]
+    rings.leave_us[lane, row] = leave_s[lane, j]
+    rings.n_count.add_(write.to(torch.int32))
+    enter_s[lane, j, pos_next] = torch.where(active, elapsed,
+                                             enter_s[lane, j, pos_next])
 
 
 def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
-              warmup: int, mpl: int, max_events: int) -> LaneOutputs:
+              warmup: int, mpl: int, max_events: int, trace_cap: int = 0,
+              bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
     """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
     ``spec`` holds the per-lane network arrays (see :class:`_LaneSpec`;
     ``is_queue`` may be bool or int32) and ``seeds`` the (L,) int32 lane
-    seeds, all on one device.
+    seeds, all on one device.  ``trace_cap > 0`` runs the traced kernel
+    and needs ``bmiss``, the (L, B) bool or int32 per-branch miss-class
+    table; the result then carries the filled rings.  Untraced and traced
+    launches are counted apart (``sim_lanes.launches``,
+    ``sim_lanes.traced_launches``).
     """
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
@@ -255,8 +342,16 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             "branch_cum": ((n_l, n_b), (torch.float32,)),
             "visits": ((n_l, n_b, n_r), (torch.int32,)),
             "servers": ((n_l, n_k), (torch.int32,))}
+    arrays = dict(spec._asdict())
+    if trace_cap < 0:
+        raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
+    if trace_cap:
+        if bmiss is None:
+            raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
+        want["bmiss"] = ((n_l, n_b), (torch.bool, torch.int32))
+        arrays["bmiss"] = bmiss
     for name, (shape, dtypes) in want.items():
-        a = getattr(spec, name)
+        a = arrays[name]
         if a.device != seeds.device:
             raise ValueError(f"{name} on {a.device}, seeds on {seeds.device}")
         if tuple(a.shape) != shape or a.dtype not in dtypes:
@@ -266,45 +361,71 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         raise ValueError("seeds must be (L,) int32")
     if seeds.device.type == "cpu":
         return sim_lanes_plain(spec, seeds, n_requests=n_requests,
-                               warmup=warmup, mpl=mpl, max_events=max_events)
+                               warmup=warmup, mpl=mpl, max_events=max_events,
+                               trace_cap=trace_cap, bmiss=bmiss)
     if seeds.device.type != "cuda":
         raise ValueError(f"no event-sim kernel for device {seeds.device}")
     lib = _build.load_library()
-    nbytes = lib.event_sim_shared_bytes(n_k, mpl)
+    nbytes = lib.event_sim_shared_bytes(n_k, mpl, n_r, int(trace_cap > 0))
     if nbytes > _build.MAX_SHARED_BYTES:
         raise ValueError(f"event-sim lane state needs {nbytes} bytes of "
-                         f"shared memory (mpl={mpl}, K={n_k}); a block may "
-                         f"use at most {_build.MAX_SHARED_BYTES}")
+                         f"shared memory (mpl={mpl}, K={n_k}, L={n_r}, "
+                         f"traced={trace_cap > 0}); a block may use at most "
+                         f"{_build.MAX_SHARED_BYTES}")
     ins = [a.contiguous() for a in spec._replace(
         is_queue=spec.is_queue.to(torch.int32))] + [seeds.contiguous()]
     dev = seeds.device
-    x = torch.empty(n_l, dtype=torch.float32, device=dev)
-    completed = torch.empty(n_l, dtype=torch.int32, device=dev)
-    events = torch.empty(n_l, dtype=torch.int32, device=dev)
-    t_meas = torch.empty(n_l, dtype=torch.float32, device=dev)
+    outs = [torch.empty(n_l, dtype=dt, device=dev) for dt in
+            (torch.float32, torch.int32, torch.int32, torch.float32)]
+    rings = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.event_sim_launch(
-            *(a.data_ptr() for a in ins),
-            x.data_ptr(), completed.data_ptr(), events.data_ptr(),
-            t_meas.data_ptr(), n_l, n_k, n_b, n_r, mpl, n_requests, warmup,
-            max_events, stream)
+        if trace_cap:
+            rings = init_rings(n_l, trace_cap, n_r, dev)
+            err = lib.event_sim_traced_launch(
+                *(a.data_ptr() for a in ins),
+                bmiss.to(torch.int32).contiguous().data_ptr(),
+                *(a.data_ptr() for a in outs),
+                *(a.data_ptr() for a in rings),
+                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, max_events,
+                trace_cap, stream)
+        else:
+            err = lib.event_sim_launch(
+                *(a.data_ptr() for a in ins), *(a.data_ptr() for a in outs),
+                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, max_events,
+                stream)
     _build.check(err, "event-sim kernel launch")
-    sim_lanes.launches += 1
-    return LaneOutputs(x, completed, events, t_meas)
+    if trace_cap:
+        sim_lanes.traced_launches += 1
+    else:
+        sim_lanes.launches += 1
+    return LaneOutputs(*outs, rings)
 
 
-sim_lanes.launches = 0  # kernel launches (CUDA path only)
+sim_lanes.launches = 0  # untraced kernel launches (CUDA path only)
+sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
+
+
+def branch_miss(spec: SimSpec) -> np.ndarray:
+    """(B,) bool per-branch sojourn class of one compiled network: a
+    branch whose route touches a backing store is a miss, any other a hit
+    (the closed loop without coalescing has no delayed hits).  The formula
+    of the reference ``simulate_grid_pallas``."""
+    vis = spec.visits.cpu().numpy()
+    dr = spec.disk_rank.cpu().numpy()
+    return ((dr[np.maximum(vis, 0)] >= 0) & (vis >= 0)).any(axis=1)
 
 
 def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
-               warmup_frac: float, device: torch.device):
+               warmup_frac: float, device: torch.device, trace: int = 0):
     """The (seed x p_hit) lane grid of a network, lane = s * P + p.
 
     Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`: the
     per-p_hit specs tiled across seeds, lane seeds ``seed*1000 + p_index``
     (int32 arithmetic, as the reference) and the warmup / event budget
-    ``max_events = n_requests * (Lr + 2) * 3``.
+    ``max_events = n_requests * (Lr + 2) * 3``; with ``trace > 0`` also
+    ``trace_cap`` and the (L, B) ``bmiss`` table (:func:`branch_miss` of
+    the first p_hit's network, the same for every lane).
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
     spec: SimSpec = stack_specs(specs)
@@ -317,29 +438,42 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
          + np.arange(n_p, dtype=np.int32) for s in seeds])
     kwargs = dict(n_requests=n_requests, warmup=warmup, mpl=net.mpl,
                   max_events=max_events)
+    if trace:
+        bmiss = np.broadcast_to(branch_miss(specs[0]),
+                                (n_p * n_s, spec.visits.shape[1]))
+        kwargs.update(trace_cap=int(trace),
+                      bmiss=torch.from_numpy(bmiss.astype(np.int32)).to(device))
     return lane_spec, torch.from_numpy(seed_v).to(device), kwargs
 
 
 def simulate_grid(net, p_hits, n_requests: int = 40_000,
                   seeds: Sequence[int] = (0, 1, 2),
-                  warmup_frac: float = 0.25,
+                  warmup_frac: float = 0.25, trace: int = 0,
                   device: str = "cuda") -> SimResult:
     """Closed-loop (p_hit x seed) grid on the counter-RNG event engine.
 
     The grid construction, warmup and summary of the reference
     ``simulate_grid_pallas``: per-p_hit specs tiled across seeds, one lane
     per cell, ONE launch for the whole grid on the card; the mean and
-    CI95 half-width of the throughput across seeds.
+    CI95 half-width of the throughput across seeds.  ``trace=K`` keeps the
+    last K per-request records of every lane and decodes them onto the
+    result's ``traces`` (``[seed][p]``
+    :class:`~repro_torch.obs.trace.TraceRecords`).
     """
     dev = resolve_device(device)
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
     n_s = len(seeds)
+    trace = int(trace)
     spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
-                                      warmup_frac, dev)
+                                      warmup_frac, dev, trace=trace)
     out = sim_lanes(spec, seed_v, **kwargs)
+    traces = None
+    if trace:
+        traces = decode_trace_grid(out.rings, spec.visits[0], n_s,
+                                   len(p_hits))
     xs = out.x.cpu().numpy().reshape(n_s, len(p_hits))
     mean = xs.mean(axis=0)
     ci = (1.96 * xs.std(axis=0, ddof=1) / math.sqrt(n_s) if n_s > 1
           else np.zeros_like(mean))
     return SimResult(p_hit=p_hits, throughput=mean, ci95=ci,
-                     n_requests=n_requests)
+                     n_requests=n_requests, traces=traces)

@@ -126,10 +126,13 @@ def test_lru_network_statistics_match():
 def test_options_outside_the_slice_raise():
     net = tpm.lru_network()
     for kw in ({"coalesce_flows": 4}, {"arrival_rate": 0.1},
-               {"burst": (0.5, 10.0)}, {"tiers": object()}, {"trace": 8},
+               {"burst": (0.5, 10.0)}, {"tiers": object()},
                {"sketch_cap": 16}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulate_network(net, [0.5], device="cpu", **kw)
+    # tracing is ported; the sketches that may ride along are not
+    with pytest.raises(NotImplementedError, match="sketch_cap.*ROADMAP"):
+        simulate_network(net, [0.5], device="cpu", sketch_cap=16, trace=8)
 
 
 @pytest.mark.cuda

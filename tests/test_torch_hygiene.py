@@ -30,8 +30,9 @@ def _forbidden(name: str) -> bool:
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.replay" in mods
-    assert "repro_torch.kernels.event_sim" in mods
+    for name in ("kernels.replay", "kernels.event_sim", "kernels.cache_update",
+                 "kernels.ops", "obs.trace", "obs.metrics", "obs.export"):
+        assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
