@@ -20,6 +20,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 6. LRU-update kernel vs its plain version, bit for bit, at C 2048 / N 128,
    C 1000 with -1 padding and duplicates, and C 2**22 / N 4096 (timed on
    the device, with an empty batch, and per kernel);
+6b. flash- and paged-attention kernels vs their plain versions within
+   the reference's tolerances (2e-5 float32, 2e-2 bf16): the reference's
+   FLASH_CASES and the full-width prefill shape (B 4, 16/8 heads, T = S =
+   2048, d_head 128, causal, window 0 and 1024) in bf16 and in float32;
+   PAGED_CASES, seq_len 0 and 1, a float32 table of 16 pages (up to four
+   64-token steps), and a full-width decode batch (32 sequences x 128
+   pages of 16 tokens over a 4096-page pool, ragged seq_lens) in bf16 and
+   in float32;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -31,6 +39,16 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 9. the batched-LRU path: 64 Zipf batches of 4096 ids through
    ``ops.lru_batch_update`` on a 2**22-slot recency table, held against
    each slot's last access (launch count > 0);
+9b. the model wing on full-width internlm2-1.8b (random weights, seed
+   0): the prefill path (``forward`` with the flash kernel vs
+   ``chunked_attention`` on 2 x 2048 tokens, in bf16 and float32; 24
+   flash launches per forward; in float32 the logits agree within 1e-4
+   of their scale and the next token at >= 99% of positions), the serve path (the ``Engine`` on
+   ``launch/serve.py``'s stream: bf16 timed with its ``forecast_network``;
+   float32 tokens equal with and without the prefix cache, ``stats()``
+   equal to a model-free controller replay) and the paged kernel on every
+   layer of the engine's page pool, against its plain version and dense
+   attention over ``gather_pages`` (paged launch count > 0);
 10. the main path again under ``torch.profiler``: device time by kernel
    and the device's busy share;
 11. full size: per-launch kernel times (CUDA events) at the main path's
@@ -40,7 +58,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    measured-network lane at 16k requests with identical event counts;
    the LRU network's 21 lanes x 16k requests, untraced and traced with
    lossless 16384-record rings, against one run of the traced plain
-   version, records field by field).
+   version, records field by field); the attention kernels at their
+   full-width shapes beside their plain versions, their bounds and
+   ``F.scaled_dot_product_attention`` (a yardstick only; over K/V
+   gathered beforehand for the paged kernel).
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  Details
@@ -82,6 +103,48 @@ TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
 LRU_PATH = (1 << 22, 4096, 64)  # slots, ids per batch, batches
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# tests/test_kernels.py's FLASH_CASES, then the full-width prefill shape
+# (internlm2-1.8b: B 4, 16 query heads, 8 KV heads, T = S = 2048, d_head 128)
+# without and with a 1024-token window
+FLASH_CASES = (
+    # (B, T, S, H, KV, dh, causal, window, dtype)
+    (1, 128, 128, 4, 4, 64, True, 0, "float32"),
+    (2, 256, 256, 4, 2, 64, True, 0, "float32"),
+    (1, 128, 128, 8, 2, 128, True, 0, "bfloat16"),
+    (1, 256, 256, 4, 4, 64, True, 128, "float32"),
+    (2, 64, 192, 4, 2, 64, False, 0, "float32"),
+    (1, 100, 100, 2, 2, 64, True, 0, "float32"),
+)
+FLASH_FULL = ((4, 2048, 2048, 16, 8, 128, True, 0, "bfloat16"),
+              (4, 2048, 2048, 16, 8, 128, True, 1024, "bfloat16"))
+# the same shapes in float32, held at 2e-5: at 2048 keys an output is about
+# 0.04, so bf16's 2e-2 could not see a dropped or mis-staged K/V tile
+FLASH_FULL_F32 = tuple(c[:8] + ("float32",) for c in FLASH_FULL)
+# tests/test_kernels.py's PAGED_CASES (random seq_lens), then seq_len 0 and
+# 1, then a full-width decode batch: 32 sequences of 128 pages of 16 tokens
+# over a 4096-page pool (268 MB of K/V), ragged seq_lens
+PAGED_CASES = (
+    # (B, H, KV, dh, page, n_pages, P, dtype, seq_lens)
+    (2, 4, 2, 64, 16, 4, 16, "float32", None),
+    (3, 8, 8, 64, 32, 3, 12, "float32", None),
+    (2, 4, 4, 128, 16, 2, 8, "bfloat16", None),
+    (2, 4, 2, 64, 16, 4, 16, "float32", (0, 0)),
+    (2, 4, 4, 128, 16, 2, 8, "bfloat16", (1, 1)),
+    # 4, 3 and (seq_len 0) 4 steps of 64 tokens: the double-buffered
+    # step buffers are reused from the third step on
+    (3, 4, 2, 64, 16, 16, 64, "float32", (256, 131, 0)),
+)
+PAGED_FULL = (32, 16, 8, 128, 16, 128, 4096, "bfloat16", "ragged")
+PAGED_FULL_F32 = PAGED_FULL[:7] + ("float32", "ragged")
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
+ARCH = "internlm2-1.8b"
+PREFILL_SHAPE = (2, 2048)  # sequences x tokens of the prefill path
+# launch/serve.py's engine and stream, on the full-width model
+SERVE = dict(max_seqs=4, max_seq_len=256, page_size=8, n_pages=128,
+             prefix_capacity=64, policy="lru", max_new_tokens=8)
+SERVE_STREAM = dict(n_requests=24, n_prefixes=4, prefix_len=24, seed=0,
+                    new_tokens=6)
 
 
 class Phases:
@@ -711,7 +774,482 @@ def full_size(rec):
          "replaces": "src/repro/kernels/cache_update.py:34",
          "ms": lru["ms"], "plain_ms": lru["plain_ms"],
          "bound_ms": lb, "bound_by": lby, "library_ms": lru["library_ms"]},
+    ] + attention_rows(rec)
+
+
+def attention_rows(rec):
+    """The flash and paged rows of the kernels line, timed at their
+    full-width shapes (flash: causal, no window, the prefill path's
+    attention; the windowed time goes to the record)."""
+    rows = attention_timing()
+    rec["timing"]["attention"] = rows
+
+    def bound(r, ops_per_s):
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / ops_per_s * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    for r in rows.values():  # bf16 inputs: the tensor cores' bf16 rate
+        r["bound_ms"], r["bound_by"] = bound(r, BF16_TENSOR_FLOPS)
+    fl, pg = rows["window0"], rows["paged"]
+    return [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:29",
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:28",
+         "ms": pg["ms"], "plain_ms": pg["plain_ms"], "bound_ms": pg["bound_ms"],
+         "bound_by": pg["bound_by"],
+         "library_ms": pg["library_ms_excluding_gather"]},
     ]
+
+
+def _dtype(name):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def flash_inputs(case, seed):
+    """q (B, T, H, dh), k and v (B, S, KV, dh) on the card, from a seeded
+    generator."""
+    import torch
+
+    B, T, S, H, KV, dh = case[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(_dtype(case[8]))
+            for shape in ((B, T, H, dh), (B, S, KV, dh), (B, S, KV, dh))]
+
+
+def paged_inputs(case, seed):
+    """q, the K/V pool, a block table of distinct pages and seq_lens on the
+    card.  Random seq_lens lie in [1, n_pages * page]; ragged ones in its
+    upper half."""
+    import numpy as np
+    import torch
+
+    B, H, KV, dh, page, n, P, dt, lens = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    q, pk, pv = [torch.randn(shape, generator=g, device="cuda").to(_dtype(dt))
+                 for shape in ((B, H, dh), (P, page, KV, dh), (P, page, KV, dh))]
+    bt = rng.permutation(P)[: B * n].reshape(B, n).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, n * page + 1, B)
+    elif lens == "ragged":
+        lens = rng.integers(n * page // 2, n * page + 1, B)
+    return (q, pk, pv, torch.from_numpy(bt).cuda(),
+            torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda"))
+
+
+def hold_attention(what, got, want, dtype) -> float:
+    """Raise unless the kernel's output is finite and within the reference's
+    tolerance of the plain version's; returns max |d|."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if not np.isfinite(a).all():
+        raise AssertionError(f"{what}: non-finite output")
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=what)
+    err = float(np.abs(a - b).max())
+    print(f"{what}: kernel == plain within {tol}, max |d| = {err:.3g}",
+          flush=True)
+    return err
+
+
+def check_flash(rec):
+    """The flash kernel against its plain version at the reference's
+    FLASH_CASES and at the full-width prefill shape, in bf16 and float32."""
+    from repro_torch.kernels import flash_attention as fl
+
+    err = 0.0
+    for i, case in enumerate(FLASH_CASES + FLASH_FULL + FLASH_FULL_F32):
+        q, k, v = flash_inputs(case, seed=i)
+        causal, window = case[6], case[7]
+        err = max(err, hold_attention(
+            f"flash_attention {case}", fl.flash_attention(
+                q, k, v, causal=causal, window=window),
+            fl.flash_attention_plain(q, k, v, causal, window), case[8]))
+    rec["flash_attention_max_abs_err"] = err
+
+
+def check_paged(rec):
+    """The paged kernel against its plain version at the reference's
+    PAGED_CASES, seq_len 0 and 1, a float32 case of several steps, and the
+    full-width decode batch in bf16 and float32."""
+    from repro_torch.kernels import paged_attention as pg
+
+    err = 0.0
+    for i, case in enumerate(PAGED_CASES + (PAGED_FULL, PAGED_FULL_F32)):
+        ins = paged_inputs(case, seed=i)
+        err = max(err, hold_attention(
+            f"paged_attention {case[:8]} seq_lens {ins[4].tolist()[:4]}",
+            pg.paged_attention(*ins), pg.paged_attention_plain(*ins), case[7]))
+    rec["paged_attention_max_abs_err"] = err
+
+
+def prefill_path(rec, model, model32):
+    """Full-width internlm2-1.8b: ``forward(use_pallas=True)`` (the flash
+    kernel in every layer) against ``use_pallas=False``
+    (``chunked_attention``) on 2 x 2048 tokens, in bf16 and in float32
+    (the same bf16 weights, computed in float32).
+
+    In float32 the two paths differ only in summation order: the logits
+    must agree within 1e-4 of their scale (the CPU model tests' limit) and
+    the next token at >= 99% of positions.  In bf16 they differ by
+    design (the chunked path rounds q * dh**-0.5 and p to bf16, the
+    kernel keeps them in float32, as the reference's two paths do), and
+    with random weights the top two logits are often closer than that
+    rounding moves them, so the bf16 agreement is reported, and the bf16
+    kernel path must be as close to the float32 forward as the bf16
+    chunked path is, to within 10% (mean |d logit|): both are dominated by
+    the bf16 rounding of every activation, which the two paths share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.models import transformer
+
+    B, T = PREFILL_SHAPE
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model[0].vocab, (B, T)).astype(np.int32)).cuda()
+
+    def run(cfg, params, use_pallas):
+        before = fl.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = transformer.forward(params, toks, cfg, use_pallas=use_pallas)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = fl.flash_attention.launches - before
+        if n != (cfg.n_layers if use_pallas else 0):
+            raise AssertionError(f"forward(use_pallas={use_pallas}) launched "
+                                 f"the flash kernel {n} times")
+        if logits.shape != (B, T, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError("prefill logits: bad shape or non-finite")
+        return logits, seconds
+
+    def compare(a, b):
+        d = (a - b).abs()
+        return {"max_abs_dlogit": float(d.max()), "mean_abs_dlogit": float(d.mean()),
+                "argmax_agreement": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
+
+    out = {"shape": [B, T], "flash_launches_per_forward": model[0].n_layers}
+    ref32, t_ref = run(*model32, False)
+    k32, t_k32 = run(*model32, True)
+    out["float32"] = {**compare(k32, ref32), "logit_scale": float(ref32.abs().max()),
+                      "flash_forward_s": t_k32, "chunked_forward_s": t_ref}
+    del k32
+    k16, t_k16 = run(*model, True)
+    c16, t_c16 = run(*model, False)
+    out["bfloat16"] = {**compare(k16, c16), "logit_scale": float(c16.abs().max()),
+                       "flash_forward_s": t_k16, "chunked_forward_s": t_c16,
+                       "flash_vs_float32": compare(k16, ref32),
+                       "chunked_vs_float32": compare(c16, ref32)}
+    rec["prefill_path"] = out
+    for dt in ("bfloat16", "float32"):
+        r = out[dt]
+        print(f"prefill {model[0].name} {dt} {B}x{T}: flash vs chunked max |d logit| "
+              f"{r['max_abs_dlogit']:.4g}, mean {r['mean_abs_dlogit']:.4g} (logit "
+              f"scale {r['logit_scale']:.4g}), next-token argmax agreement "
+              f"{r['argmax_agreement']:.4f}; forward {r['flash_forward_s']:.4f} s "
+              f"with the flash kernel, {r['chunked_forward_s']:.4f} s chunked",
+              flush=True)
+    b16 = out["bfloat16"]
+    print(f"prefill bf16 against the float32 forward: flash mean |d logit| "
+          f"{b16['flash_vs_float32']['mean_abs_dlogit']:.4g} (argmax agreement "
+          f"{b16['flash_vs_float32']['argmax_agreement']:.4f}), chunked "
+          f"{b16['chunked_vs_float32']['mean_abs_dlogit']:.4g} "
+          f"({b16['chunked_vs_float32']['argmax_agreement']:.4f})", flush=True)
+    f32 = out["float32"]
+    if f32["max_abs_dlogit"] > 1e-4 * f32["logit_scale"]:
+        raise AssertionError("float32 flash and chunked prefill logits differ "
+                             f"by {f32['max_abs_dlogit']:.4g} at a scale of "
+                             f"{f32['logit_scale']:.4g}")
+    if f32["argmax_agreement"] < 0.99:
+        raise AssertionError("float32 flash and chunked prefill agree on the "
+                             f"next token at only {f32['argmax_agreement']:.4f}")
+    if (b16["flash_vs_float32"]["mean_abs_dlogit"]
+            > 1.1 * b16["chunked_vs_float32"]["mean_abs_dlogit"]):
+        raise AssertionError("bf16 prefill through the flash kernel is farther "
+                             "from the float32 forward than the chunked path")
+
+
+def to_float32(tree):
+    """A parameter dictionary with every tensor in float32."""
+    if isinstance(tree, dict):
+        return {k: to_float32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_float32(v) for v in tree)
+    return tree.float()
+
+
+def serve_stream(cfg):
+    from repro_torch.training.data import zipf_request_stream
+
+    kw = dict(SERVE_STREAM)
+    return zipf_request_stream(kw.pop("n_requests"), kw.pop("n_prefixes"),
+                               kw.pop("prefix_len"), cfg.vocab, **kw)
+
+
+def run_engine(cfg, params, **overrides):
+    """The launch/serve.py engine on ``params``, the stream submitted and
+    run; returns (engine, requests, wall seconds)."""
+    import torch
+    from repro_torch.serving import Engine, ServeConfig
+
+    eng = Engine(cfg, params, ServeConfig(**{**SERVE, **overrides}))
+    reqs = [eng.submit(t) for _, t in serve_stream(cfg)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def controller_replay(cfg, **overrides):
+    """The stream through the port's PrefixCache with no model: the
+    engine's admission order and draws.  Returns the engine's ``stats()``
+    keys but ``decode_steps``."""
+    import numpy as np
+    from repro_torch.serving import PageAllocator, PrefixCache, chunk_hashes
+
+    sc = {**SERVE, "bypass_fraction": 0.0, "seed": 0, **overrides}
+    alloc = PageAllocator(sc["n_pages"])
+    cache = PrefixCache(alloc, sc["prefix_capacity"], policy=sc["policy"])
+    rng = np.random.default_rng(sc["seed"])
+    for _, toks in serve_stream(cfg):
+        if rng.random() < sc["bypass_fraction"]:
+            cache.stats.bypassed += 1
+            continue
+        hashes = chunk_hashes(toks, sc["page_size"])
+        _, n_hit = cache.lookup(hashes)
+        for h in hashes[n_hit:]:
+            cache.insert(h, rng.random())
+    s = cache.stats
+    return {"chunk_hit_ratio": s.hit_ratio, "controller_ops": s.ops.tolist(),
+            "evictions": s.evictions, "bypassed": s.bypassed,
+            "pages_free": alloc.n_free}
+
+
+def hold_stats(what, eng, cfg):
+    want = controller_replay(cfg)
+    got = {k: v for k, v in eng.stats().items() if k != "decode_steps"}
+    if got != want:
+        raise AssertionError(f"{what}: engine stats {got} != controller "
+                             f"replay {want}")
+    print(f"{what}: stats == model-free controller replay {got}", flush=True)
+
+
+def top2_gap(cfg, params, tokens):
+    """Top-2 logit gap and logit scale of the next token after ``tokens``
+    (a fresh cache-free forward)."""
+    import torch
+    from repro_torch.models import transformer
+
+    logits = transformer.forward(params, torch.as_tensor(tokens)[None].cuda(),
+                                 cfg, unembed_last_only=True)[0][0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def serve_path(rec, model, model32):
+    """The port's Engine on full-width internlm2-1.8b serving the
+    launch/serve.py stream: in bf16, timed; in float32 (TF32 off), the
+    tokens equal those of the same stream with the prefix cache bypassed,
+    and stats() equals a model-free replay of the controller."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+
+    cfg, params = model
+    eng, reqs, wall = run_engine(cfg, params)
+    st = eng.stats()
+    computed = sum(r.prefill_tokens_computed for r in reqs)
+    skipped = sum(r.prefill_tokens_skipped for r in reqs)
+    decode_tokens = eng.metrics.snapshot()["counters"]["decode_tokens_count"]
+    if not all(r.done and len(r.out) == SERVE["max_new_tokens"] for r in reqs):
+        raise AssertionError("bf16 engine: a request was not served in full")
+    hold_stats("serve bf16", eng, cfg)
+    # the forecast's inputs, measured on the card: one decode step of the
+    # engine's batch, and one 8-token chunk prefill into a fresh slot cache
+    toks = torch.zeros((SERVE["max_seqs"], 1), dtype=torch.int32, device="cuda")
+    lens = torch.full((SERVE["max_seqs"],), 64, dtype=torch.int32,
+                      device="cuda")
+    caches = transformer.init_cache(cfg, SERVE["max_seqs"], SERVE["max_seq_len"])
+    step_ms = cuda_ms(lambda: transformer.forward(
+        params, toks, cfg, caches=caches, cache_len=lens), reps=10)
+    chunk = torch.zeros((1, SERVE["page_size"]), dtype=torch.int32,
+                        device="cuda")
+
+    def prefill():
+        one = transformer.init_cache(cfg, 1, SERVE["max_seq_len"])
+        transformer.forward(params, chunk, cfg, caches=one, cache_len=[0])
+
+    prefill_ms = cuda_ms(prefill, reps=10)
+    net = eng.forecast_network(step_us=step_ms * 1e3, prefill_us=prefill_ms * 1e3)
+    net.validate()
+    p = st["chunk_hit_ratio"]
+    out = {"bf16": {
+        "wall_s": wall, "ticks": eng.ticks, "decode_steps": st["decode_steps"],
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / wall,
+        "prefill_tokens_computed": computed, "prefill_tokens_skipped": skipped,
+        "stats": st, "step_ms": step_ms, "chunk_prefill_ms": prefill_ms,
+        "forecast_mpl": net.mpl,
+        "forecast_x_upper_at_p": float(net.throughput_upper(p)),
+        "forecast_p_star": net.p_star()}}
+    print(f"serve {cfg.name} bf16: {wall:.3f} s, {eng.ticks} ticks, "
+          f"{decode_tokens} decode tokens ({decode_tokens / wall:.1f} tok/s), "
+          f"prefill tokens computed {computed} / skipped {skipped}, "
+          f"hit ratio {p:.4f}; decode step {step_ms:.3f} ms, chunk prefill "
+          f"{prefill_ms:.3f} ms -> forecast X_upper({p:.3f}) = "
+          f"{out['bf16']['forecast_x_upper_at_p']:.4f} req/us, p* = "
+          f"{out['bf16']['forecast_p_star']:.4f} at MPL {net.mpl}", flush=True)
+
+    cfg32, params32 = model32
+    eng32, reqs32, wall32 = run_engine(cfg32, params32)
+    hold_stats("serve f32", eng32, cfg32)
+    _, off32, _ = run_engine(cfg32, params32, bypass_fraction=1.0)
+    if not eng32.prefix.stats.chunk_hits:
+        raise AssertionError("f32 engine: the stream produced no prefix hit")
+    diverged = []
+    for r_on, r_off in zip(reqs32, off32):
+        if r_on.out == r_off.out:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r_on.out, r_off.out)) if a != b)
+        gap, scale = top2_gap(cfg32, params32,
+                              np.concatenate([r_on.tokens, r_on.out[:j]]))
+        diverged.append({"rid": r_on.rid, "step": j, "top2_gap": gap,
+                         "logit_scale": scale})
+        print(f"serve f32: request {r_on.rid} differs at token {j}: top-2 "
+              f"gap {gap:.3g} of logit scale {scale:.3g}", flush=True)
+        if gap > 1e-3 * scale:
+            raise AssertionError(f"f32 tokens differ with and without the "
+                                 f"prefix cache at a top-2 gap of {gap}")
+    n_same = len(reqs32) - len(diverged)
+    print(f"serve f32: {n_same}/{len(reqs32)} requests serve identical tokens "
+          f"with and without the prefix cache ({wall32:.3f} s)", flush=True)
+    out["f32"] = {"wall_s": wall32, "stats": eng32.stats(),
+                  "identical_requests": n_same, "diverged": diverged}
+    rec["serve_path"] = out
+    return eng
+
+
+def paged_on_pool(rec, eng):
+    """The paged kernel on each layer of the bf16 engine's page pool: the
+    block tables are the pages of the prefixes still resident in the prefix
+    cache, q is seeded; held against the plain version and against dense
+    attention over ``gather_pages`` of the same pages."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pg
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.serving import chunk_hashes, kv_pages
+
+    cfg = eng.cfg
+    page = eng.serve.page_size
+    tables = []
+    for _, toks in serve_stream(cfg):
+        pages = []
+        for h in chunk_hashes(toks, page):
+            if h not in eng.prefix.pages:
+                break
+            pages.append(eng.prefix.pages[h])
+        if pages and pages not in tables:
+            tables.append(pages)
+    if not tables:
+        raise AssertionError("no prefix is resident in the prefix cache")
+    n = max(map(len, tables))
+    bt = torch.tensor([t + [0] * (n - len(t)) for t in tables],
+                      dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([int(rng.integers(1, len(t) * page + 1)) for t in tables],
+                        dtype=torch.int32, device="cuda")
+    B = len(tables)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    err, err_dense = 0.0, 0.0
+    for li, (pk, pv) in enumerate(eng.layer_pools()):
+        q = torch.randn((B, cfg.n_heads, cfg.d_head), generator=g,
+                        device="cuda").to(pk.dtype)
+        got = pg.paged_attention(q, pk, pv, bt, lens)
+        want = pg.paged_attention_plain(q, pk, pv, bt, lens)
+        err = max(err, hold_attention(f"paged_on_pool layer {li}", got, want,
+                                      "bfloat16"))
+        kd = torch.zeros((1, B, n * page, cfg.n_kv_heads, cfg.d_head),
+                         dtype=pk.dtype, device="cuda")
+        vd = torch.zeros_like(kd)
+        for b, t in enumerate(tables):
+            kv_pages.gather_pages(kd, pk[None], b, t)
+            kv_pages.gather_pages(vd, pv[None], b, t)
+        dense = chunked_attention(q[:, None], kd[0], vd[0],
+                                  (lens - 1)[:, None], lens, causal=False,
+                                  chunk=n * page)[:, 0]
+        err_dense = max(err_dense, hold_attention(
+            f"paged_on_pool layer {li} vs dense gather", got, dense,
+            "bfloat16"))
+    rec["paged_on_pool"] = {"tables": tables, "seq_lens": lens.tolist(),
+                            "max_abs_err_plain": err,
+                            "max_abs_err_dense": err_dense}
+    rec["paged_attention_max_abs_err"] = max(rec["paged_attention_max_abs_err"],
+                                             err)
+
+
+def attention_timing():
+    """The flash and paged kernels at their full-width shapes: per-launch
+    time (CUDA events), the plain version's, one PyTorch library call's
+    (scaled_dot_product_attention: a yardstick, never on a path) and the
+    work's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import paged_attention as pg
+
+    rows = {}
+    for case in FLASH_FULL:
+        B, T, S, H, KV, dh, causal, window = case[:8]
+        q, k, v = flash_inputs(case, seed=100)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = (window * (window + 1) // 2 + (T - window) * window
+                 if window else T * (T + 1) // 2)
+        flops = 4 * B * H * dh * pairs
+        nbytes = (2 * B * T * H + 2 * B * S * KV) * dh * q.element_size()
+        rows[f"window{window}"] = {
+            "shape": list(case[:8]),
+            "ms": cuda_ms(lambda: fl.launch(q, k, v, causal, window), reps=10),
+            "plain_ms": cuda_ms(lambda: fl.flash_attention_plain(
+                q, k, v, causal, window), reps=3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+            if not window else None,
+            "flops": flops, "bytes": nbytes}
+    B, H, KV, dh, page, n, P = PAGED_FULL[:7]
+    q, pk, pv, bt, lens = paged_inputs(PAGED_FULL, seed=100)
+    need = (lens.long() + page - 1) // page * page  # positions of the pages read
+    nbytes = int(need.sum()) * KV * dh * 2 * pk.element_size() \
+        + 2 * q.numel() * q.element_size() + 4 * (bt.numel() + B)
+    kd = pk[bt.long()].reshape(B, n * page, KV, dh).transpose(1, 2).contiguous()
+    vd = pv[bt.long()].reshape(B, n * page, KV, dh).transpose(1, 2).contiguous()
+    mask = (torch.arange(n * page, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    rows["paged"] = {
+        "shape": list(PAGED_FULL[:7]), "seq_lens_sum": int(lens.sum()),
+        "ms": cuda_ms(lambda: pg.launch(q, pk, pv, bt, lens), reps=20),
+        "plain_ms": cuda_ms(lambda: pg.paged_attention_plain(q, pk, pv, bt, lens),
+                            reps=5),
+        "library_ms_excluding_gather": cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True),
+            reps=20),
+        "flops": 4 * H * dh * int(lens.sum()), "bytes": nbytes}
+    for name, r in rows.items():
+        print(f"{name}: " + json.dumps(r), flush=True)
+    return rows
 
 
 def main() -> int:
@@ -726,10 +1264,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # float32 products in full float32, as the reference's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import cache_update as cu
     from repro_torch.kernels import event_sim as es
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import paged_attention as pg
     from repro_torch.kernels import replay as kr
+    from repro_torch.models import transformer
 
     phases = Phases()
     card = phases.run("device", card_line)
@@ -741,6 +1286,8 @@ def main() -> int:
     phases.run("event_sim_vs_plain", check_event_sim, rec)
     phases.run("trace_vs_plain", check_trace, rec)
     phases.run("lru_update_vs_plain", check_lru_update, rec)
+    phases.run("flash_vs_plain", check_flash, rec)
+    phases.run("paged_vs_plain", check_paged, rec)
 
     kr.replay_lanes.launches = 0
     es.sim_lanes.launches = 0
@@ -753,6 +1300,25 @@ def main() -> int:
     cu.lru_update.launches = 0
     phases.run("lru_update_path", lru_update_path, rec)
     launches["lru_batch_update"] = cu.lru_update.launches
+    # the full-width model in bf16, and the same weights in float32
+    cfg = get_config(ARCH)
+    model = (cfg, phases.run("model_init", transformer.init_params, cfg))
+    model32 = (dataclasses.replace(cfg, param_dtype="float32",
+                                   compute_dtype="float32"),
+               to_float32(model[1]))
+    fl.flash_attention.launches = 0
+    phases.run("prefill_path", prefill_path, rec, model, model32)
+    launches["flash_attention"] = fl.flash_attention.launches
+    if launches["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError(f"the prefill path launched the flash kernel "
+                             f"{launches['flash_attention']} times, not "
+                             f"{cfg.n_layers} per forward in two forwards")
+    eng = phases.run("serve_path", serve_path, rec, model, model32)
+    pg.paged_attention.launches = 0
+    phases.run("paged_on_pool", paged_on_pool, rec, eng)
+    launches["paged_attention"] = pg.paged_attention.launches
+    del model, model32, eng
+    torch.cuda.empty_cache()
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"its path never launched the {name} kernel")

@@ -1,14 +1,37 @@
 """Public wrappers around the port's kernels (port of ``repro.kernels.ops``).
 
-This slice carries the batched LRU update only; the attention and WKV
-wrappers come with the model wing (ROADMAP queue 2, items 4-6).
+The batched LRU update, flash attention and paged decode attention; the
+WKV scan comes with the rwkv6 family (ROADMAP queue 2, item 6).  Each runs
+where its tensors are: the hand-written kernel on the card, its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels.cache_update import lru_update
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``(B, T, H, dh) x (B, S, KV, dh) -> (B, T, H, dh)`` (model layout).
+
+    The reference's ``bq``/``bk`` TPU tiles have no counterpart: the kernel
+    works on 64 x 64 tiles.  Causal attention needs T == S.
+    """
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
+                    pages_v: torch.Tensor, block_table: torch.Tensor,
+                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """q ``(B, H, dh)``, pages ``(P, page, KV, dh)``, block_table
+    ``(B, n_pages)`` int32 (pad with 0), seq_lens ``(B,)`` int32 ->
+    ``(B, H, dh)``."""
+    return _paged.paged_attention(q, pages_k, pages_v, block_table, seq_lens)
 
 
 def lru_batch_update(timestamps: torch.Tensor, accessed: torch.Tensor, now,

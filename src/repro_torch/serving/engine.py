@@ -1,0 +1,389 @@
+"""Serving engine: continuous batching + prefix cache + paged KV pool.
+
+Port of ``repro.serving.engine`` for the attention families (KV caching):
+  * a fixed pool of ``max_seqs`` dense decode slots (the closed-loop MPL N —
+    exactly the paper's multiprogramming limit);
+  * a host-side **controller**: prefix-cache lookup/insert under a
+    pluggable eviction policy, page allocator, slot scheduler.  Every
+    controller action's metadata ops are recorded — these are the paper's
+    serialized queue-station visits;
+  * admission: chunk the prompt, gather prefix-cache hit pages into the
+    slot's dense cache, prefill only the uncached remainder, then insert
+    the newly computed chunks into the cache;
+  * decode: one batched step over every slot per engine tick (idle slots
+    too, as in the reference);
+  * bypass (paper §5.2 mitigation): a fraction of requests skip the
+    controller entirely.
+
+As in the reference, the engine reaches no Pallas kernel: prefill and
+decode run with a KV cache, so attention is ``chunked_attention``.  Caches
+and the pool are updated in place.
+
+Not ported yet, and raising ``NotImplementedError``: the state-snapshot
+admission of the rwkv6 / mamba2 families (ROADMAP queue 2 item 6, queue 1
+item 13), the admission-stream sketch ``sketch_cap > 0`` (queue 1 item 8)
+with ``observed_profile`` (item 11), the cluster forecast ``n_shards > 1``
+(item 9), the hierarchy forecast ``tiers > 0`` (item 10) and
+``forecast_slo`` (item 14, with the latency package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.metrics import Metrics
+from repro_torch.serving import kv_pages
+from repro_torch.serving.kv_pages import KVPool, PageAllocator
+from repro_torch.serving.prefix_cache import PrefixCache, chunk_hashes
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seqs: int = 4  # MPL (decode slots)
+    max_seq_len: int = 256
+    page_size: int = 16  # tokens per KV page / prefix chunk
+    n_pages: int = 64
+    prefix_capacity: int = 48  # policy capacity (pages)
+    policy: str = "lru"
+    bypass_fraction: float = 0.0
+    max_new_tokens: int = 16
+    seed: int = 0
+    # Closed-loop forecast knobs (paper Sec. 6 "future systems"): the pod's
+    # physical core count drives the controller's effective MPL in the p*
+    # forecast, and disk_servers > 0 models the backing store / prefill
+    # path as a bounded-concurrency queue station instead of the paper's
+    # infinite-server disk.  n_shards > 1 (a cluster of pods) is not
+    # ported yet.
+    cores: int = 72
+    disk_servers: int = 0
+    n_shards: int = 1
+    # The admission-stream sketch (sketch_cap > 0) is not ported yet.
+    sketch_cap: int = 0
+    sketch_window_ticks: int = 64
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray  # prompt
+    max_new: int
+    out: Optional[List[int]] = None
+    slot: int = -1
+    done: bool = False
+    prefill_tokens_computed: int = 0
+    prefill_tokens_skipped: int = 0
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, serve: ServeConfig,
+                 device: str = "cuda"):
+        self.device = resolve_device(device)
+        if cfg.encdec:
+            raise ValueError("enc-dec archs are served via examples/, not Engine")
+        if cfg.block in ("rwkv6", "mamba2"):
+            raise NotImplementedError(
+                f"{cfg.name}: state-snapshot serving of {cfg.block} is not "
+                "ported yet (ROADMAP queue 2 item 6, queue 1 item 13)")
+        if serve.sketch_cap:
+            raise NotImplementedError(
+                "ServeConfig.sketch_cap > 0: the admission-stream sketch is "
+                "not ported yet (ROADMAP queue 1 item 8)")
+        if serve.n_shards > 1:
+            raise NotImplementedError(
+                "ServeConfig.n_shards > 1: the cluster forecast is not "
+                "ported yet (ROADMAP queue 1 item 9)")
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.serve = serve
+
+        self.caches = transformer.init_cache(
+            cfg, serve.max_seqs, serve.max_seq_len, device=self.device)
+        self.pool = [
+            tuple(KVPool(kv_pages.make_kv_pool_leaf(c.k, serve.n_pages,
+                                                    serve.page_size),
+                         kv_pages.make_kv_pool_leaf(c.v, serve.n_pages,
+                                                    serve.page_size))
+                  for c in stage)
+            for stage in self.caches]
+        self.allocator = PageAllocator(serve.n_pages)
+        self.prefix = PrefixCache(
+            self.allocator, serve.prefix_capacity, policy=serve.policy)
+        self.lengths = np.zeros(serve.max_seqs, dtype=np.int64)
+        self.active: Dict[int, Request] = {}  # slot -> request
+        self.free_slots = list(range(serve.max_seqs))
+        self.waiting: List[Request] = []
+        self._rng = np.random.default_rng(serve.seed)
+        self.ticks = 0
+        self.decode_steps = 0
+        self.metrics = Metrics()
+
+    def _forward(self, tokens, caches, cache_len):
+        logits, caches, _ = transformer.forward(
+            self.params, tokens, self.cfg, caches=caches, cache_len=cache_len,
+            device=self.device)
+        return logits, caches
+
+    def layer_pools(self):
+        """Each layer's ``(P, page, KV, dh)`` K and V pools, in layer order."""
+        out = []
+        for si, (g, pattern) in enumerate(transformer.build_stages(self.cfg)):
+            for li in range(g):
+                out.extend((pool.k[li], pool.v[li]) for pool in self.pool[si])
+        return out
+
+    # ------------------------------------------------------------- admission
+    def submit(self, tokens, max_new: Optional[int] = None, rid: Optional[int] = None):
+        r = Request(
+            rid=len(self.waiting) if rid is None else rid,
+            tokens=np.asarray(tokens, dtype=np.int64),
+            max_new=max_new or self.serve.max_new_tokens,
+        )
+        self.waiting.append(r)
+        return r
+
+    def _slot_cache(self):
+        """Fresh single-sequence cache for a prefill."""
+        return transformer.init_cache(self.cfg, 1, self.serve.max_seq_len,
+                                      device=self.device)
+
+    def _admit(self, r: Request, slot: int) -> None:
+        ps = self.serve.page_size
+        bypass = self._rng.random() < self.serve.bypass_fraction
+        hashes = [] if bypass else chunk_hashes(r.tokens, ps)
+        if bypass:
+            self.prefix.stats.bypassed += 1
+
+        cache1 = self._slot_cache()
+        n_hit = 0
+        if hashes:
+            pages, n_hit = self.prefix.lookup(hashes)
+            if n_hit:
+                self._gather(cache1, pages)
+
+        start = n_hit * ps
+        remainder = r.tokens[start:]
+        r.prefill_tokens_skipped = start
+        r.prefill_tokens_computed = len(remainder)
+        if len(remainder) == 0:  # full hit: re-prefill the last token
+            # (idempotent for KV caches: position len-1 is overwritten
+            # with identical values)
+            remainder = r.tokens[-1:]
+            start = len(r.tokens) - 1
+            r.prefill_tokens_computed = 1
+
+        toks = torch.as_tensor(remainder, dtype=torch.int32,
+                               device=self.device)[None, :]
+        if n_hit:
+            self._set_index(cache1, start)
+        logits, cache1 = self._forward(toks, cache1, [start])
+
+        # insert newly computed full chunks into the prefix cache
+        if hashes:
+            n_full = len(r.tokens) // ps
+            for i in range(n_hit, n_full):
+                page = self.prefix.insert(hashes[i], self._rng.random())
+                if page is not None:
+                    self._store_chunk(cache1, i * ps, page)
+
+        self._install(cache1, slot)
+        self.lengths[slot] = len(r.tokens)
+        first = int(logits[0, -1].argmax())
+        r.out = [first]
+        r.slot = slot
+        self.active[slot] = r
+        self.metrics.count("admissions_count")
+        self.metrics.count("prefill_tokens_computed_count",
+                           r.prefill_tokens_computed)
+        self.metrics.count("prefill_tokens_skipped_count",
+                           r.prefill_tokens_skipped)
+        self.metrics.observe(
+            "prefill_hit_frac",
+            r.prefill_tokens_skipped
+            / max(r.prefill_tokens_skipped + r.prefill_tokens_computed, 1),
+        )
+
+    # ------------------------------------------------ cache <-> pool plumbing
+    def _gather(self, cache1, pages: List[int]) -> None:
+        for pstage, cstage in zip(self.pool, cache1):
+            for pool, c in zip(pstage, cstage):
+                kv_pages.gather_pages(c.k, pool.k, 0, pages)
+                kv_pages.gather_pages(c.v, pool.v, 0, pages)
+
+    def _store_chunk(self, cache1, start: int, page_id: int) -> None:
+        for pstage, cstage in zip(self.pool, cache1):
+            for pool, c in zip(pstage, cstage):
+                kv_pages.store_chunk(pool.k, c.k, 0, start, page_id)
+                kv_pages.store_chunk(pool.v, c.v, 0, start, page_id)
+
+    @staticmethod
+    def _set_index(cache1, value: int) -> None:
+        for stage in cache1:
+            for c in stage:
+                c.index.fill_(value)
+
+    def _install(self, cache1, slot: int) -> None:
+        """Copy every leaf of the one-sequence cache, the index too, into
+        ``slot`` of the batch caches."""
+        for bstage, sstage in zip(self.caches, cache1):
+            for bc, sc in zip(bstage, sstage):
+                for b_leaf, s_leaf in zip(bc, sc):
+                    b_leaf[:, slot] = s_leaf[:, 0]
+
+    # ------------------------------------------------------------------ tick
+    def tick(self) -> bool:
+        """Admit waiting requests, run one batched decode step.
+        Returns True while work remains."""
+        self.ticks += 1
+        self.metrics.count("ticks_count")
+        while self.waiting and self.free_slots:
+            slot = self.free_slots.pop()
+            self._admit(self.waiting.pop(0), slot)
+        self.metrics.gauge("active_slots_count", len(self.active))
+        self.metrics.gauge("waiting_count", len(self.waiting))
+        self.metrics.gauge("pages_free_count", self.allocator.n_free)
+
+        if not self.active:
+            return bool(self.waiting)
+        self.metrics.observe("decode_batch_count", len(self.active))
+
+        B = self.serve.max_seqs
+        tokens = np.zeros((B, 1), dtype=np.int32)
+        for slot, r in self.active.items():
+            tokens[slot, 0] = r.out[-1]
+        logits, self.caches = self._forward(
+            torch.from_numpy(tokens).to(self.device), self.caches,
+            torch.from_numpy(self.lengths.astype(np.int32)).to(self.device))
+        self.decode_steps += 1
+        self.metrics.count("decode_steps_count")
+        self.metrics.count("decode_tokens_count", len(self.active))
+        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+
+        finished = []
+        for slot, r in list(self.active.items()):
+            self.lengths[slot] += 1
+            if len(r.out) >= r.max_new:
+                r.done = True
+                finished.append(slot)
+            else:
+                r.out.append(int(nxt[slot]))
+        for slot in finished:
+            del self.active[slot]
+            self.free_slots.append(slot)
+            self.lengths[slot] = 0
+        if finished:
+            self.metrics.count("completions_count", len(finished))
+        return bool(self.active or self.waiting)
+
+    def run(self, max_ticks: int = 10_000):
+        while self.tick():
+            if self.ticks >= max_ticks:
+                raise RuntimeError("engine did not drain")
+        return self.stats()
+
+    def stats(self) -> dict:
+        s = self.prefix.stats
+        return {
+            "decode_steps": self.decode_steps,
+            "chunk_hit_ratio": s.hit_ratio,
+            "controller_ops": s.ops.tolist(),
+            "evictions": s.evictions,
+            "bypassed": s.bypassed,
+            "pages_free": self.allocator.n_free,
+        }
+
+    def telemetry(self) -> dict:
+        """Observability snapshot: the per-tick metric registry (counters /
+        gauges / distribution sketches, unit-suffixed names — see
+        :mod:`repro_torch.obs.metrics`) alongside :meth:`stats`."""
+        return {"metrics": self.metrics.snapshot(), "stats": self.stats()}
+
+    def observed_profile(self, caps=None):
+        raise NotImplementedError(
+            "observed_profile is not ported yet: it needs the admission-"
+            "stream sketch (ROADMAP queue 1 item 8) and obs/profile.py "
+            "(ROADMAP queue 1 item 11)")
+
+    def forecast_slo(self, *args, **kwargs):
+        raise NotImplementedError(
+            "forecast_slo needs the latency package, not ported yet "
+            "(ROADMAP queue 1 item 14)")
+
+    def forecast_network(self, step_us: float, prefill_us: float,
+                         replicas: int = 1, batched_update: bool = False,
+                         cores: int | None = None,
+                         coalesce_flows: int = 0,
+                         n_shards: int | None = None,
+                         shard_profile=None,
+                         tiers: int = 0,
+                         tier_profile=None):
+        """Closed-network p* forecast for this engine's prefix controller,
+        for one pod.
+
+        Uses the measured controller op profile plus the ServeConfig
+        deployment knobs: the effective MPL is ``replicas * cores`` (one
+        closed-loop client per physical core), and ``disk_servers`` bounds
+        the chunk-prefill concurrency when > 0.  ``batched_update`` models
+        the batched LRU sweep (promotions coalesce, so per-access
+        delink/head demand divides by the MPL).  ``cores`` overrides
+        ``ServeConfig.cores``.  ``coalesce_flows > 0`` models prefill
+        deduplication over that many hot chunks, via
+        :func:`repro_torch.core.queueing.coalesced_network` with the
+        prefill latency as the in-flight window.  ``n_shards > 1``
+        (``shard_profile``) and ``tiers > 0`` (``tier_profile``) raise: the
+        cluster and hierarchy prongs are not ported yet (ROADMAP queue 1
+        items 9, 10).
+        """
+        from repro_torch.core.harness import PAPER_SERVICES, ServiceTimes
+        from repro_torch.core.queueing import (QUEUE, THINK, Branch,
+                                               ClosedNetwork, Station,
+                                               coalesced_network, disk_station)
+
+        n_shards = self.serve.n_shards if n_shards is None else int(n_shards)
+        if n_shards > 1 or shard_profile is not None:
+            raise NotImplementedError(
+                "forecast_network(n_shards > 1): the cluster prong is not "
+                "ported yet (ROADMAP queue 1 item 9)")
+        if tiers or tier_profile is not None:
+            raise NotImplementedError(
+                "forecast_network(tiers > 0): the hierarchy prong is not "
+                "ported yet (ROADMAP queue 1 item 10)")
+        hit_ops, miss_ops = self.prefix.mean_ops_per_chunk()
+        svc = PAPER_SERVICES.get(self.serve.policy, ServiceTimes())
+        mpl = int(replicas) * int(self.serve.cores if cores is None else cores)
+        delink = svc.delink / mpl if batched_update else svc.delink
+        head = svc.head / mpl if batched_update else svc.head
+        disk = disk_station(prefill_us, self.serve.disk_servers)
+        stations = [
+            Station("lookup", THINK, 0.51),
+            disk,  # miss: chunk prefill recompute
+            Station("step", THINK, step_us, dist="det"),
+            Station("delink", QUEUE, delink),
+            Station("head", QUEUE, head),
+            Station("tail", QUEUE, svc.tail, bound="upper"),
+            Station("scan", QUEUE, svc.scan),
+        ]
+
+        def visits(ops, miss):
+            v = ["lookup", "step"] + (["disk"] if miss else [])
+            d, h, t, s = (int(round(x)) for x in ops)
+            return tuple(v + ["delink"] * d + ["head"] * h + ["tail"] * t
+                         + ["scan"] * s)
+
+        branches = [
+            Branch("hit", lambda p: p, visits(hit_ops, False)),
+            Branch("miss", lambda p: 1.0 - p, visits(miss_ops, True)),
+        ]
+        net = ClosedNetwork(f"serving-{self.serve.policy}", tuple(stations),
+                            tuple(branches), mpl)
+        if coalesce_flows:
+            net = coalesced_network(net, flows=coalesce_flows,
+                                    window_us=prefill_us)
+        return net

@@ -11,8 +11,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs.registry import get_config
 from repro_torch.core import policy_models
 from repro_torch.core.simulator import simulate_network
+from repro_torch.launch import serve
+from repro_torch.models import transformer
+from repro_torch.serving import Engine, ServeConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -31,7 +35,13 @@ def _forbidden(name: str) -> bool:
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
     for name in ("kernels.replay", "kernels.event_sim", "kernels.cache_update",
-                 "kernels.ops", "obs.trace", "obs.metrics", "obs.export"):
+                 "kernels.ops", "obs.trace", "obs.metrics", "obs.export",
+                 "kernels.flash_attention", "kernels.paged_attention",
+                 "models.config", "models.layers", "models.attention",
+                 "models.transformer", "configs.registry",
+                 "configs.internlm2_1_8b", "cache.py_ref", "serving.kv_pages",
+                 "serving.prefix_cache", "serving.engine", "training.data",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -61,10 +71,20 @@ def test_no_jax_or_repro_imports(path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    cfg = get_config("internlm2-1.8b", reduced=True)
+    params = transformer.init_params(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = policy_models.lru_network()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_network(net, [0.5], n_requests=10, seeds=(0,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.forward(params, [[1, 2, 3]], cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, params, ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         repro_torch.resolve_device()
     assert repro_torch.resolve_device("cpu").type == "cpu"
