@@ -28,6 +28,12 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    64-token steps), and a full-width decode batch (32 sequences x 128
    pages of 16 tokens over a 4096-page pool, ragged seq_lens) in bf16 and
    in float32;
+6c. the WKV6 kernel vs its plain version: the reference's WKV_CASES from
+   a zero state (2e-4 float32, 2e-2 bf16, T = 100 its padding path), a
+   random state in and out (y and the final state within 2e-4), one
+   decode step (T = 1), and the full-width prefill shape (B 2, T 2048,
+   64 heads of 64, the model's types) within 1e-4 of the largest |y| and
+   |state|;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -49,6 +55,20 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    equal to a model-free controller replay) and the paged kernel on every
    layer of the engine's page pool, against its plain version and dense
    attention over ``gather_pages`` (paged launch count > 0);
+9c. the rwkv6 family on full-width rwkv6-7b (random weights, seed 0;
+   the internlm2 models freed first, peak device memory printed after
+   each phase): the prefill path (a timed bf16 ``forward`` on 2 x 2048
+   tokens, 32 WKV launches per forward; in float32 on 1 x 256 tokens the
+   logits through the kernel within 1e-4 of their scale of the same
+   forward with ``_wkv_scan`` patched to the plain version, and of a
+   240-token prefill followed by 16 ``decode_step``s) and the serve path
+   (the ``Engine`` in bf16 on ``launch/serve.py``'s stream, timed per
+   decode step and per admission, ``stats()`` equal to a model-free
+   replay of the state-mode controller, and the hits that restored a
+   snapshot holding another prompt's tail counted and held to the
+   replay's count: the reference fault of ROADMAP queue 3; in float32 on
+   whole-prefix prompts, whose hits are sound, tokens identical with the
+   prefix cache on and off) (WKV launch count > 0);
 10. the main path again under ``torch.profiler``: device time by kernel
    and the device's busy share;
 11. full size: per-launch kernel times (CUDA events) at the main path's
@@ -61,7 +81,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    version, records field by field); the attention kernels at their
    full-width shapes beside their plain versions, their bounds and
    ``F.scaled_dot_product_attention`` (a yardstick only; over K/V
-   gathered beforehand for the paged kernel).
+   gathered beforehand for the paged kernel); the WKV kernel at the
+   prefill shape and the engine's decode step (B 4, T 1) beside its plain
+   version and its bound (no library call computes WKV6).
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  Details
@@ -145,6 +167,30 @@ SERVE = dict(max_seqs=4, max_seq_len=256, page_size=8, n_pages=128,
              prefix_capacity=64, policy="lru", max_new_tokens=8)
 SERVE_STREAM = dict(n_requests=24, n_prefixes=4, prefix_len=24, seed=0,
                     new_tokens=6)
+# the rwkv6 family: tests/test_kernels.py's WKV_CASES from a zero state,
+# then the kernel with a random state in and out (the model path's types
+# among them), one decode step, and the full-width prefill shape of
+# rwkv6-7b (B 2, T 2048, 64 heads of 64) in the model's types
+WKV_CASES = (
+    # (B, T, H, dh, chunk, dtype)
+    (2, 128, 2, 32, 32, "float32"),
+    (1, 256, 4, 64, 128, "float32"),
+    (1, 100, 2, 32, 32, "float32"),  # the reference's padding path
+    (2, 64, 2, 64, 64, "bfloat16"),
+)
+WKV_STATE_CASES = (
+    # (B, T, H, dh, r/k/v dtype, w dtype); y and w float32 unless bf16 ops
+    (2, 48, 2, 16, "float32", "float32"),
+    (1, 100, 4, 32, "float32", "float32"),
+    (2, 70, 4, 64, "bfloat16", "float32"),
+    (4, 1, 64, 64, "bfloat16", "float32"),  # the engine's decode step
+    (3, 1, 2, 32, "float32", "float32"),
+)
+WKV_FULL = (2, 2048, 64, 64)  # the prefill path's shape, bf16 r/k/v, f32 w/y
+WKV_DECODE = (4, 1, 64, 64)   # the engine's decode step: 4 slots
+WKV_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tests/test_kernels.py
+RWKV_ARCH = "rwkv6-7b"
+RWKV_CHECK_T, RWKV_SPLIT = 256, 240  # float32 checks: 240 prefilled + 16 steps
 
 
 class Phases:
@@ -774,7 +820,7 @@ def full_size(rec):
          "replaces": "src/repro/kernels/cache_update.py:34",
          "ms": lru["ms"], "plain_ms": lru["plain_ms"],
          "bound_ms": lb, "bound_by": lby, "library_ms": lru["library_ms"]},
-    ] + attention_rows(rec)
+    ] + attention_rows(rec) + wkv_rows(rec)
 
 
 def attention_rows(rec):
@@ -845,9 +891,10 @@ def paged_inputs(case, seed):
             torch.tensor(np.asarray(lens), dtype=torch.int32, device="cuda"))
 
 
-def hold_attention(what, got, want, dtype) -> float:
+def hold_attention(what, got, want, dtype, tol=None) -> float:
     """Raise unless the kernel's output is finite and within the reference's
-    tolerance of the plain version's; returns max |d|."""
+    tolerance (``tol``, else the attention tests' for ``dtype``) of the
+    plain version's; returns max |d|."""
     import numpy as np
     import torch
 
@@ -855,7 +902,7 @@ def hold_attention(what, got, want, dtype) -> float:
     a, b = got.float().cpu().numpy(), want.float().cpu().numpy()
     if not np.isfinite(a).all():
         raise AssertionError(f"{what}: non-finite output")
-    tol = ATTN_TOL[dtype]
+    tol = ATTN_TOL[dtype] if tol is None else tol
     np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=what)
     err = float(np.abs(a - b).max())
     print(f"{what}: kernel == plain within {tol}, max |d| = {err:.3g}",
@@ -1200,6 +1247,427 @@ def paged_on_pool(rec, eng):
                                              err)
 
 
+def wkv_inputs(B, T, H, dh, io, wt, seed, decay="sigmoid"):
+    """r, k, v (``io``), w (``wt``) and u (float32) on the card.  w is the
+    sigmoid of a normal, as the reference's test, or the model's
+    exp(-exp(x)) with x uniform in [-8, 4]."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, dh), generator=g, device="cuda").to(
+        _dtype(io)) for _ in range(3))
+    if decay == "sigmoid":
+        w = torch.sigmoid(torch.randn((B, T, H, dh), generator=g, device="cuda"))
+    else:
+        x = torch.rand((B, T, H, dh), generator=g, device="cuda") * 12.0 - 8.0
+        w = torch.exp(-torch.exp(x))
+    u = torch.randn((H, dh), generator=g, device="cuda")
+    return r, k, v, w.to(_dtype(wt)), u
+
+
+def hold_scaled(what, got, want, rel) -> float:
+    """Raise unless ``got`` is finite and within ``rel`` of want's largest
+    magnitude; returns max |d|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if err > rel * scale:
+        raise AssertionError(f"{what}: max |d| {err:.4g} > {rel} x scale "
+                             f"{scale:.4g}")
+    print(f"{what}: kernel == plain within {rel} of the scale {scale:.4g}, "
+          f"max |d| = {err:.3g}", flush=True)
+    return err
+
+
+def check_wkv(rec):
+    """The WKV kernel against its plain version: the reference's WKV_CASES
+    from a zero state (through ``ops.wkv6_scan``), a random initial state
+    in and out (y and the final state), one decode step, and the full-width
+    prefill shape in the model's types."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import ops
+
+    err = 0.0
+    for i, (B, T, H, dh, chunk, dt) in enumerate(WKV_CASES):
+        r, k, v, w, u = wkv_inputs(B, T, H, dh, dt, dt, seed=i)
+        u = u.to(_dtype(dt))
+        err = max(err, hold_attention(
+            f"wkv6_scan {(B, T, H, dh, chunk, dt)}",
+            ops.wkv6_scan(r, k, v, w, u, chunk=chunk),
+            ls.wkv6_scan_plain(r, k, v, w, u)[1].to(_dtype(dt)), dt,
+            tol=WKV_TOL[dt]))
+    cases = WKV_STATE_CASES + ((*WKV_FULL, "bfloat16", "float32"),)
+    for i, (B, T, H, dh, io, wt) in enumerate(cases):
+        full = (B, T, H, dh) == WKV_FULL
+        r, k, v, w, u = wkv_inputs(B, T, H, dh, io, wt, seed=10 + i,
+                                   decay="model" if full else "sigmoid")
+        g = torch.Generator(device="cuda").manual_seed(20 + i)
+        s0 = torch.randn((B, H, dh, dh), generator=g, device="cuda")
+        if full:  # the model's prefill starts from zero
+            s0.zero_()
+        got_s, got_y = ls.wkv6_scan(r, k, v, w, u, s0.clone())
+        want_s, want_y = ls.wkv6_scan_plain(r, k, v, w, u, s0.clone())
+        what = f"wkv6_scan with state {(B, T, H, dh, io, wt)}"
+        if full:  # the state grows over 2048 steps: held to its scale
+            err = max(err, hold_scaled(f"{what} y", got_y, want_y, 1e-4),
+                      hold_scaled(f"{what} state", got_s, want_s, 1e-4))
+        else:
+            err = max(err, hold_attention(f"{what} y", got_y, want_y,
+                                          "float32", tol=WKV_TOL["float32"]),
+                      hold_attention(f"{what} state", got_s, want_s,
+                                     "float32", tol=WKV_TOL["float32"]))
+    rec["wkv6_scan_max_abs_err"] = err
+
+
+def rwkv_models(phases):
+    """Full-width rwkv6-7b from seed 0 in bf16, and the same weights in
+    float32."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(RWKV_ARCH)
+    model = (cfg, phases.run("rwkv_init", transformer.init_params, cfg))
+    model32 = (dataclasses.replace(cfg, param_dtype="float32",
+                                   compute_dtype="float32"),
+               to_float32(model[1]))
+    n = sum(t.numel() for t in leaves(model[1]))
+    print(f"{cfg.name}: {n} parameters drawn ({cfg.param_count()} by "
+          f"param_count), {n * 2 / 1e9:.2f} GB in bf16 and {n * 4 / 1e9:.2f} "
+          f"GB in float32", flush=True)
+    return model, model32
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def peak_memory(what):
+    import torch
+
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{what}: peak device memory allocated {gb:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
+def rwkv_prefill_path(rec, model, model32):
+    """Full-width rwkv6-7b: a bf16 ``forward`` on 2 x 2048 tokens, timed
+    (32 WKV launches per forward); in float32 on 1 x 256 tokens, the logits
+    through the kernel against the same forward with ``_wkv_scan`` replaced
+    by the plain version, and against a prefill of 240 tokens followed by
+    16 single-token ``decode_step``s, each within 1e-4 of the logits'
+    scale."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import transformer
+
+    cfg, params = model
+    cfg32, params32 = model32
+    B, T = WKV_FULL[:2]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, T)).astype(np.int32)).cuda()
+    out = {"shape": [B, T]}
+    for label in ("first", "timed"):
+        before = ls.wkv6_scan.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = transformer.forward(params, toks, cfg)[0]
+        torch.cuda.synchronize()
+        out[f"bf16_forward_s_{label}"] = time.perf_counter() - t0
+        n = ls.wkv6_scan.launches - before
+        if n != cfg.n_layers:
+            raise AssertionError(f"a bf16 forward launched the WKV kernel {n} "
+                                 f"times, not {cfg.n_layers}")
+        if logits.shape != (B, T, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError("rwkv bf16 prefill logits: bad shape or "
+                                 "non-finite")
+        del logits
+    out["wkv_launches_per_forward"] = cfg.n_layers
+
+    toks32 = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, RWKV_CHECK_T)).astype(np.int32)).cuda()
+    kern = transformer.forward(params32, toks32, cfg32)[0]
+    with mock.patch("repro_torch.models.rwkv._wkv_scan", ls.wkv6_scan_plain):
+        before = ls.wkv6_scan.launches
+        plain = transformer.forward(params32, toks32, cfg32)[0]
+        if ls.wkv6_scan.launches != before:
+            raise AssertionError("the patched forward launched the kernel")
+    scale = float(plain.abs().max())
+    d_plain = float((kern - plain).abs().max())
+    caches = transformer.init_cache(cfg32, 1, RWKV_CHECK_T)
+    transformer.forward(params32, toks32[:, :RWKV_SPLIT], cfg32, caches=caches,
+                        cache_len=[0])
+    for s in range(RWKV_SPLIT, RWKV_CHECK_T):
+        step, caches = transformer.decode_step(params32, toks32[:, s:s + 1],
+                                               caches, [s], cfg32)
+    d_rec = float((step[:, 0] - kern[:, -1]).abs().max())
+    rec_scale = float(kern[:, -1].abs().max())
+    out["float32"] = {
+        "tokens": RWKV_CHECK_T, "logit_scale": scale,
+        "kernel_vs_plain_max_abs_dlogit": d_plain,
+        "argmax_agreement": float((kern.argmax(-1) == plain.argmax(-1)).float().mean()),
+        "prefill_then_decode": [RWKV_SPLIT, RWKV_CHECK_T - RWKV_SPLIT],
+        "decode_vs_forward_max_abs_dlogit": d_rec,
+        "decode_vs_forward_scale": rec_scale}
+    rec["rwkv_prefill_path"] = out
+    print(f"rwkv prefill {cfg.name} bf16 {B}x{T}: forward "
+          f"{out['bf16_forward_s_timed']:.4f} s (first "
+          f"{out['bf16_forward_s_first']:.4f} s), {cfg.n_layers} WKV launches "
+          f"per forward", flush=True)
+    print(f"rwkv prefill float32 1x{RWKV_CHECK_T}: kernel vs plain scan max "
+          f"|d logit| {d_plain:.4g} of a {scale:.4g} scale (argmax agreement "
+          f"{out['float32']['argmax_agreement']:.4f}); prefill {RWKV_SPLIT} + "
+          f"{RWKV_CHECK_T - RWKV_SPLIT} decode steps vs one forward: max "
+          f"|d logit| {d_rec:.4g} of {rec_scale:.4g}", flush=True)
+    if not (torch.isfinite(kern).all() and torch.isfinite(step).all()):
+        raise AssertionError("rwkv float32 logits are not finite")
+    if d_plain > 1e-4 * scale:
+        raise AssertionError("float32 rwkv logits through the WKV kernel and "
+                             f"the plain scan differ by {d_plain:.4g}")
+    if d_rec > 1e-4 * rec_scale:
+        raise AssertionError("float32 rwkv prefill + decode differs from one "
+                             f"forward by {d_rec:.4g}")
+    out["peak_gb"] = peak_memory("rwkv_prefill_path")
+
+
+def state_controller_replay(stream, **overrides):
+    """The state-mode controller (``Engine._admit_state``) on ``stream``
+    with no model: the engine's admission order and draws.  Returns the
+    engine's ``stats()`` keys but ``decode_steps``, and the hits whose
+    snapshot was stored by a prompt with another head (all tokens but the
+    last): the reference fault of ROADMAP queue 3."""
+    import numpy as np
+    from repro_torch.serving import PageAllocator, PrefixCache, chunk_hashes
+
+    sc = {**SERVE, "bypass_fraction": 0.0, "seed": 0, **overrides}
+    alloc = PageAllocator(sc["n_pages"])
+    cache = PrefixCache(alloc, sc["prefix_capacity"], policy=sc["policy"])
+    rng = np.random.default_rng(sc["seed"])
+    heads, unsound = {}, 0
+    for toks in stream:
+        if rng.random() < sc["bypass_fraction"]:
+            cache.stats.bypassed += 1
+            continue
+        hashes = chunk_hashes(toks, sc["page_size"])
+        if not hashes:
+            continue
+        if hashes[-1] in cache.pages:
+            pages, _ = cache.lookup(hashes[-1:])
+            unsound += heads[pages[0]] != tuple(toks[:-1].tolist())
+            continue
+        cache.stats.chunk_misses += 1
+        page = cache.insert(hashes[-1], rng.random())
+        if page is not None:
+            heads[page] = tuple(toks[:-1].tolist())
+    s = cache.stats
+    return {"chunk_hit_ratio": s.hit_ratio, "controller_ops": s.ops.tolist(),
+            "evictions": s.evictions, "bypassed": s.bypassed,
+            "pages_free": alloc.n_free}, unsound
+
+
+def run_state_engine(cfg, params, stream, **overrides):
+    """The launch/serve.py engine on ``stream``, instrumented: each
+    admission timed (host clock around synchronised work), and every
+    restored snapshot checked against the head of the prompt that stored
+    it.  Returns (engine, requests, wall seconds, log)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import torch
+    from repro_torch.serving import Engine, ServeConfig
+
+    eng = Engine(cfg, params, ServeConfig(**{**SERVE, **overrides}))
+    log = {"admit_s": [], "restored": 0, "unsound": 0}
+    heads, cur = {}, {}
+    admit, store, restore = eng._admit, eng._store_state, eng._restore_state
+
+    def timed_admit(r, slot):
+        cur["head"] = tuple(r.tokens[:-1].tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit(r, slot)
+        torch.cuda.synchronize()
+        log["admit_s"].append(time.perf_counter() - t0)
+
+    def stored(cache1, page):
+        heads[page] = cur["head"]
+        store(cache1, page)
+
+    def restored(cache1, page):
+        log["restored"] += 1
+        log["unsound"] += heads[page] != cur["head"]
+        restore(cache1, page)
+
+    reqs = [eng.submit(t) for t in stream]
+    with ExitStack() as stack:
+        for name, fn in (("_admit", timed_admit), ("_store_state", stored),
+                         ("_restore_state", restored)):
+            stack.enter_context(mock.patch.object(eng, name, fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out) == SERVE["max_new_tokens"] for r in reqs):
+        raise AssertionError(f"{cfg.name}: a request was not served in full")
+    return eng, reqs, wall, log
+
+
+def rwkv_serve_path(rec, model, model32):
+    """The Engine on full-width rwkv6-7b.  (a) bf16, timed, on
+    ``launch/serve.py``'s stream (24-token prefixes + 6-token tails on
+    8-token pages): stats() equal a model-free replay of the state-mode
+    controller, and so does the count of hits that restored a snapshot
+    holding another prompt's tail (the reference fault, ROADMAP queue 3).
+    The same stream with the controller bypassed shows what the fault
+    changes: the requests whose tokens differ are printed.  (b) float32 on
+    whole-prefix prompts (new_tokens=0), where every hit is sound: tokens
+    identical with the prefix cache on and off, and every hit skips all but
+    the last token."""
+    import torch
+    from repro_torch.training.data import zipf_request_stream
+
+    cfg, params = model
+    stream = [t for _, t in serve_stream(cfg)]
+    eng, reqs, wall, log = run_state_engine(cfg, params, stream)
+    want, want_unsound = state_controller_replay(stream)
+    got = {k: v for k, v in eng.stats().items() if k != "decode_steps"}
+    if got != want:
+        raise AssertionError(f"rwkv serve bf16: stats {got} != controller "
+                             f"replay {want}")
+    if log["unsound"] != want_unsound:
+        raise AssertionError(f"rwkv serve bf16: {log['unsound']} hits restored "
+                             f"another prompt's tail, the replay predicts "
+                             f"{want_unsound}")
+    decode_tokens = eng.metrics.snapshot()["counters"]["decode_tokens_count"]
+    admit_s = sum(log["admit_s"])
+    steps = eng.decode_steps
+    out = {"bf16": {
+        "wall_s": wall, "ticks": eng.ticks, "decode_steps": steps,
+        "decode_tokens": decode_tokens, "decode_tokens_per_s": decode_tokens / wall,
+        "admissions": len(log["admit_s"]),
+        "ms_per_admission": 1e3 * admit_s / len(log["admit_s"]),
+        "ms_per_decode_step": 1e3 * (wall - admit_s) / steps,
+        "prefill_tokens_computed": sum(r.prefill_tokens_computed for r in reqs),
+        "prefill_tokens_skipped": sum(r.prefill_tokens_skipped for r in reqs),
+        "stats": eng.stats(), "restored_snapshots": log["restored"],
+        "unsound_hits": log["unsound"], "unsound_hits_replay": want_unsound}}
+    b = out["bf16"]
+    print(f"rwkv serve {cfg.name} bf16: {wall:.3f} s, {eng.ticks} ticks, "
+          f"{decode_tokens} decode tokens ({b['decode_tokens_per_s']:.1f} tok/s), "
+          f"{b['ms_per_decode_step']:.2f} ms per decode step (wall less "
+          f"admissions), {b['ms_per_admission']:.2f} ms per admission, prefill "
+          f"tokens computed {b['prefill_tokens_computed']} / skipped "
+          f"{b['prefill_tokens_skipped']}; stats == state-mode controller "
+          f"replay {got}", flush=True)
+    print(f"rwkv serve bf16: reference fault (ROADMAP queue 3): "
+          f"{log['unsound']} of {log['restored']} restored snapshots hold "
+          f"another prompt's tail (replay predicts {want_unsound})", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    # what the fault costs: the same stream with the controller bypassed
+    _, off16, _, _ = run_state_engine(cfg, params, stream, bypass_fraction=1.0)
+    changed = sum(a.out != b.out for a, b in zip(reqs, off16))
+    b["requests_changed_by_the_fault"] = changed
+    print(f"rwkv serve bf16: {changed} of {len(reqs)} requests decode other "
+          f"tokens than with the prefix cache bypassed", flush=True)
+    b["peak_gb"] = peak_memory("rwkv_serve_path bf16")
+
+    cfg32, params32 = model32
+    whole = [t for _, t in zipf_request_stream(
+        SERVE_STREAM["n_requests"], SERVE_STREAM["n_prefixes"],
+        SERVE_STREAM["prefix_len"], cfg32.vocab, seed=SERVE_STREAM["seed"],
+        new_tokens=0)]
+    eng32, on, wall32, log32 = run_state_engine(cfg32, params32, whole)
+    want32, unsound32 = state_controller_replay(whole)
+    st32 = eng32.stats()
+    del eng32
+    torch.cuda.empty_cache()
+    _, off, _, _ = run_state_engine(cfg32, params32, whole, bypass_fraction=1.0)
+    hits = [r for r in on if r.prefill_tokens_skipped]
+    if {k: v for k, v in st32.items() if k != "decode_steps"} != want32:
+        raise AssertionError(f"rwkv serve f32: stats {st32} != replay {want32}")
+    if not hits or log32["unsound"] or unsound32:
+        raise AssertionError("rwkv serve f32: no hit, or an unsound hit on "
+                             "whole-prefix prompts")
+    if any(r.prefill_tokens_skipped != len(r.tokens) - 1 for r in hits):
+        raise AssertionError("rwkv serve f32: a hit skipped other than len-1")
+    same = sum(a.out == b.out for a, b in zip(on, off))
+    print(f"rwkv serve f32 (whole-prefix prompts): {len(hits)} hits, each "
+          f"skipping len-1 tokens; {same}/{len(on)} requests serve identical "
+          f"tokens with and without the prefix cache ({wall32:.3f} s)",
+          flush=True)
+    if same != len(on):
+        raise AssertionError("rwkv serve f32: tokens differ with and without "
+                             "the prefix cache on sound hits")
+    out["f32"] = {"wall_s": wall32, "stats": st32, "hits": len(hits),
+                  "identical_requests": same,
+                  "peak_gb": peak_memory("rwkv_serve_path f32")}
+    rec["rwkv_serve_path"] = out
+
+
+def wkv_rows(rec):
+    """The WKV kernel at the prefill path's shape (B 2, T 2048) and at the
+    engine's decode step (B 4, T 1), in the model's types with a state in
+    and out: the device time per launch (``device_ms``), the host-inclusive
+    time of launches one after another (CUDA events), the plain version's
+    time, and the bound: the larger of the bytes (r/k/v bf16, w and y
+    float32, u, the state read and written) over the memory rate and
+    6 B T H dh^2 operations over the float32 rate.  No single PyTorch call
+    computes WKV6, so the library time is none."""
+    import torch
+    from repro_torch.kernels import linear_scan as ls
+
+    rows = {}
+    for name, shape, reps, plain_reps in (("prefill", WKV_FULL, 20, 2),
+                                          ("decode", WKV_DECODE, 200, 20)):
+        B, T, H, dh = shape
+        r, k, v, w, u = wkv_inputs(B, T, H, dh, "bfloat16", "float32",
+                                   seed=200, decay="model")
+        state = torch.zeros((B, H, dh, dh), device="cuda")
+        nbytes = (3 * r.numel() * r.element_size() + 2 * w.numel() * 4
+                  + u.numel() * 4 + 2 * state.numel() * 4)
+        ops = 6 * B * T * H * dh * dh
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / SCALAR_OPS_PER_S * 1e3
+
+        def kernel():
+            ls.launch(r, k, v, w, u, state, torch.float32)
+
+        rows[name] = {
+            "shape": list(shape), "bytes": nbytes, "ops": ops,
+            "ms": device_ms(kernel, reps=reps),
+            "launch_host_ms": cuda_ms(kernel, reps=reps),
+            "plain_ms": cuda_ms(lambda: ls.wkv6_scan_plain(r, k, v, w, u, state),
+                                reps=plain_reps),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"wkv6_scan {name} {shape}: " + json.dumps(rows[name]), flush=True)
+    rec["timing"]["wkv"] = rows
+    pf = rows["prefill"]
+    return [{"name": "wkv6_scan", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+             "replaces": "src/repro/kernels/linear_scan.py:23",
+             "ms": pf["ms"], "plain_ms": pf["plain_ms"],
+             "bound_ms": pf["bound_ms"], "bound_by": pf["bound_by"],
+             "library_ms": None}]
+
+
 def attention_timing():
     """The flash and paged kernels at their full-width shapes: per-launch
     time (CUDA events), the plain version's, one PyTorch library call's
@@ -1272,6 +1740,7 @@ def main() -> int:
     from repro_torch.kernels import cache_update as cu
     from repro_torch.kernels import event_sim as es
     from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import paged_attention as pg
     from repro_torch.kernels import replay as kr
     from repro_torch.models import transformer
@@ -1288,6 +1757,7 @@ def main() -> int:
     phases.run("lru_update_vs_plain", check_lru_update, rec)
     phases.run("flash_vs_plain", check_flash, rec)
     phases.run("paged_vs_plain", check_paged, rec)
+    phases.run("wkv_vs_plain", check_wkv, rec)
 
     kr.replay_lanes.launches = 0
     es.sim_lanes.launches = 0
@@ -1318,6 +1788,16 @@ def main() -> int:
     phases.run("paged_on_pool", paged_on_pool, rec, eng)
     launches["paged_attention"] = pg.paged_attention.launches
     del model, model32, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the rwkv6 family on full-width rwkv6-7b, bf16 and float32 copies
+    model, model32 = rwkv_models(phases)
+    peak_memory("rwkv_init")
+    ls.wkv6_scan.launches = 0
+    phases.run("rwkv_prefill_path", rwkv_prefill_path, rec, model, model32)
+    phases.run("rwkv_serve_path", rwkv_serve_path, rec, model, model32)
+    launches["wkv6_scan"] = ls.wkv6_scan.launches
+    del model, model32
     torch.cuda.empty_cache()
     for name, n in launches.items():
         if n <= 0:

@@ -73,7 +73,9 @@ def transformer_params_from_numpy(tree: Any, cfg: ModelConfig,
 
     The tree layout is the same on both sides: ``embed``, ``final_norm``,
     ``unembed`` (untied), and ``stages``, one tuple of block dictionaries
-    per stage whose leaves carry the stage's group axis first.
+    per stage whose leaves carry the stage's group axis first (an rwkv6
+    block: ``ln1``, ``rwkv``, ``ln2``, its norms unused, as in the
+    reference).
     """
     check_supported(cfg)
     dev = resolve_device(device)

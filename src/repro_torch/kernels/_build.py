@@ -42,6 +42,7 @@ _SIGNATURES = {
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),
     "paged_attention_launch": ([_I] + [_P] * 6 + [_I] * 6 + [_P], _I),
     "paged_attention_shared_bytes": ([_I] * 4, _I),
+    "wkv6_launch": ([_I] * 3 + [_P] * 8 + [_I] * 4 + [_P], _I),
 }
 
 

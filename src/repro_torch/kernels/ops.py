@@ -1,9 +1,8 @@
 """Public wrappers around the port's kernels (port of ``repro.kernels.ops``).
 
-The batched LRU update, flash attention and paged decode attention; the
-WKV scan comes with the rwkv6 family (ROADMAP queue 2, item 6).  Each runs
-where its tensors are: the hand-written kernel on the card, its plain
-version on the CPU.
+The batched LRU update, flash attention, paged decode attention and the
+WKV6 scan.  Each runs where its tensors are: the hand-written kernel on the
+card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import linear_scan as _scan
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels.cache_update import lru_update
 
@@ -32,6 +32,22 @@ def paged_attention(q: torch.Tensor, pages_k: torch.Tensor,
     ``(B, n_pages)`` int32 (pad with 0), seq_lens ``(B,)`` int32 ->
     ``(B, H, dh)``."""
     return _paged.paged_attention(q, pages_k, pages_v, block_table, seq_lens)
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """r, k, v, w: ``(B, T, H, dh)`` in one dtype (float32 or bfloat16); u:
+    ``(H, dh)``.  Returns y ``(B, T, H, dh)`` in r's dtype, the scan started
+    from a zero state.
+
+    ``chunk`` was the TPU kernel's time tile: the reference pads T to a
+    multiple of it with w = 1 and k = v = 0, which leaves the state exactly
+    unchanged.  The kernel needs no padding, so ``chunk`` changes no result;
+    it must be > 0.
+    """
+    if int(chunk) <= 0:
+        raise ValueError(f"chunk must be > 0, got {chunk}")
+    return _scan.wkv6_scan(r, k, v, w, u, y_dtype=r.dtype)[1]
 
 
 def lru_batch_update(timestamps: torch.Tensor, accessed: torch.Tensor, now,

@@ -1,24 +1,29 @@
-"""Decoder-LM assembly for the dense attention families.
+"""Decoder-LM assembly for the dense attention and rwkv6 families.
 
-Port of ``repro.models.transformer`` for ``block == "attn"`` without MoE:
-global and local/global attention patterns, qk-norm, tied embeddings,
-logit soft-capping and ``unembed_last_only``.  The reference's stage plan
-is kept: a stage is ``(group_count, block pattern)`` and its parameters and
-caches carry a leading group axis.  Where the reference scans a stage with
-``lax.scan``, the port loops over the groups and slices each layer's
-tensors out of the stacked ones.
+Port of ``repro.models.transformer`` for ``block == "attn"`` without MoE
+(global and local/global attention patterns, qk-norm, tied embeddings,
+logit soft-capping, ``unembed_last_only``) and for ``block == "rwkv6"``.
+The reference's stage plan is kept: a stage is ``(group_count, block
+pattern)`` and its parameters and caches carry a leading group axis.
+Where the reference scans a stage with ``lax.scan``, the port loops over
+the groups and slices each layer's tensors out of the stacked ones.
 
   qwen3/internlm2/nemotron/chameleon : [(L, (attn-global,))]
   gemma3 (5 local : 1 global, 62L)   : [(10, (l,l,l,l,l,g)), (1, (l,l))]
+  rwkv6                              : [(L, (rwkv6,))]
 
-The MoE, rwkv6, mamba2 and encoder-decoder families raise
-``NotImplementedError`` (ROADMAP queue 1 item 13).
+As in the reference, an rwkv6 block carries ``ln1`` and ``ln2`` but runs on
+the un-normed residual, and ignores positions and ``cache_len``.  The MoE,
+mamba2 and encoder-decoder families raise ``NotImplementedError``
+(ROADMAP queue 1 item 13).
 
 Parameters are nested dictionaries of tensors in the reference's tree
 layout (``convert.transformer_params_from_numpy`` maps the JAX tree).
 :func:`init_params` draws them from a ``torch.Generator``: the reference
 draws from ``jax.random``, so the two never share weights by seed.  Caches
-are updated in place (see :mod:`repro_torch.models.attention`).
+are updated in place: K/V by :mod:`repro_torch.models.attention`, every
+leaf of a recurrent state (:class:`~repro_torch.models.rwkv.RWKVState`) by
+:func:`forward`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from repro_torch.models.attention import (KVCache, attention, init_attention,
                                           init_kv_cache)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Initializer, rms_norm, torch_dtype
+from repro_torch.models.rwkv import init_rwkv_block, init_rwkv_state, rwkv_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +79,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
             "(ROADMAP queue 1 item 13)")
-    if cfg.block != "attn":
+    if cfg.block not in ("attn", "rwkv6"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.block} blocks are not ported yet (ROADMAP "
-            "queue 1 item 13; the rwkv6 WKV scan is queue 2 item 6)")
+            "queue 1 item 13)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1 "
@@ -88,7 +94,13 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(init: Initializer, cfg: ModelConfig, g: int):
+def _init_block(init: Initializer, cfg: ModelConfig, desc: BlockDesc, g: int):
+    if desc.kind == "rwkv6":
+        return {
+            "ln1": L.init_rms_norm(init, cfg.d_model, g=g),
+            "rwkv": init_rwkv_block(init, cfg, g=g),
+            "ln2": L.init_rms_norm(init, cfg.d_model, g=g),
+        }
     return {
         "ln1": L.init_rms_norm(init, cfg.d_model, g=g),
         "attn": init_attention(init, cfg, g=g),
@@ -109,7 +121,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str = "cuda"):
     }
     for g, pattern in build_stages(cfg):
         params["stages"].append(
-            tuple(_init_block(init, cfg, g) for _ in pattern))
+            tuple(_init_block(init, cfg, desc, g) for desc in pattern))
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(init, cfg.vocab, cfg.d_model)
     return params
@@ -123,17 +135,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str = "cuda"):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device: str = "cuda"):
     """Cache structure mirroring the stages: per stage a tuple (one per
-    pattern position) of :class:`KVCache` with a leading group axis."""
+    pattern position) of :class:`KVCache` (attention) or
+    :class:`~repro_torch.models.rwkv.RWKVState` (rwkv6), every leaf with a
+    leading group axis."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.compute_dtype)
     caches = []
     for g, pattern in build_stages(cfg):
         stage = []
-        for _ in pattern:
-            c = init_kv_cache(g * batch, max_seq, cfg.n_kv_heads, cfg.d_head,
-                              dtype, dev)
-            stage.append(KVCache(*(t.reshape(g, batch, *t.shape[1:])
+        for desc in pattern:
+            if desc.kind == "rwkv6":
+                c = init_rwkv_state(cfg, g * batch, dtype, dev)
+            else:
+                c = init_kv_cache(g * batch, max_seq, cfg.n_kv_heads,
+                                  cfg.d_head, dtype, dev)
+            stage.append(type(c)(*(t.reshape(g, batch, *t.shape[1:])
                                    for t in c)))
         caches.append(tuple(stage))
     return caches
@@ -153,7 +170,9 @@ def _layer(tree, i: int):
 
 def _apply_block(h, bp, desc: BlockDesc, cfg: ModelConfig, positions, cache,
                  use_pallas: bool):
-    """One attention block.  Returns ``(h, new_cache)``."""
+    """One block.  Returns ``(h, new_cache)``."""
+    if desc.kind == "rwkv6":  # on the un-normed residual, as the reference
+        return rwkv_block(h, bp["rwkv"], cfg, cache)
     a, new_c = attention(rms_norm(h, bp["ln1"]["scale"]), bp["attn"], cfg,
                          desc.attn_kind, positions, kv_cache=cache,
                          use_pallas=use_pallas)
@@ -169,7 +188,9 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, cache_len=None,
 
     caches None  -> train/prefill without cache retention.
     caches given -> positions offset by cache_len; the caches are updated
-                    in place (prefill writes T entries, decode writes 1).
+                    in place (prefill writes T entries, decode writes 1;
+                    a recurrent state is overwritten by the new one, and
+                    ignores cache_len).
 
     ``use_pallas=True`` runs the flash-attention kernel in every layer of a
     forward without caches (the reference's Pallas switch); with caches
@@ -205,14 +226,19 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, cache_len=None,
                 c = None
                 if stage_cache is not None:
                     sc = stage_cache[pi]
-                    c = KVCache(sc.k[li], sc.v[li], sc.index[li])
+                    c = type(sc)(*(leaf[li] for leaf in sc))
                 h, nc = _apply_block(h, _layer(stage_params[pi], li), desc,
                                      cfg, positions, c, use_pallas)
-                if nc is not None:
+                if isinstance(nc, KVCache):
                     new_index[pi].append(nc.index)
+                elif c is not None:  # a recurrent state: into the cache
+                    for dst, src in zip(c, nc):
+                        if src is not dst:
+                            dst.copy_(src)
         if caches is not None:
             new_caches.append(tuple(
                 KVCache(sc.k, sc.v, torch.stack(idx))
+                if isinstance(sc, KVCache) else sc
                 for sc, idx in zip(stage_cache, new_index)))
 
     h = rms_norm(h, params["final_norm"]["scale"])

@@ -1,6 +1,7 @@
 """Serving engine: continuous batching + prefix cache + paged KV pool.
 
-Port of ``repro.serving.engine`` for the attention families (KV caching):
+Port of ``repro.serving.engine`` for the attention families (KV caching)
+and rwkv6 (state snapshots):
   * a fixed pool of ``max_seqs`` dense decode slots (the closed-loop MPL N —
     exactly the paper's multiprogramming limit);
   * a host-side **controller**: prefix-cache lookup/insert under a
@@ -8,23 +9,31 @@ Port of ``repro.serving.engine`` for the attention families (KV caching):
     controller action's metadata ops are recorded — these are the paper's
     serialized queue-station visits;
   * admission: chunk the prompt, gather prefix-cache hit pages into the
-    slot's dense cache, prefill only the uncached remainder, then insert
-    the newly computed chunks into the cache;
+    slot's dense cache (attention) or restore a state snapshot (rwkv6),
+    prefill only the uncached remainder, then insert the newly computed
+    chunks (or the snapshot) into the cache;
   * decode: one batched step over every slot per engine tick (idle slots
     too, as in the reference);
   * bypass (paper §5.2 mitigation): a fraction of requests skip the
     controller entirely.
 
-As in the reference, the engine reaches no Pallas kernel: prefill and
-decode run with a KV cache, so attention is ``chunked_attention``.  Caches
-and the pool are updated in place.
+As in the reference, attention in the engine reaches no Pallas kernel:
+prefill and decode run with a KV cache, so attention is
+``chunked_attention``.  An rwkv6 engine runs the WKV kernel in every
+prefill and decode.  Caches and the pool are updated in place.
 
-Not ported yet, and raising ``NotImplementedError``: the state-snapshot
-admission of the rwkv6 / mamba2 families (ROADMAP queue 2 item 6, queue 1
-item 13), the admission-stream sketch ``sketch_cap > 0`` (queue 1 item 8)
-with ``observed_profile`` (item 11), the cluster forecast ``n_shards > 1``
-(item 9), the hierarchy forecast ``tiers > 0`` (item 10) and
-``forecast_slo`` (item 14, with the latency package).
+The state snapshot is keyed, as in the reference, by the hash of the
+prompt up to its last *full* page, but holds the state after
+``len(prompt) - 1`` tokens: a later prompt that shares those pages and not
+the tail restores another prompt's tail (ROADMAP queue 3).  The port
+reproduces it.
+
+Not ported yet, and raising ``NotImplementedError``: mamba2 and its
+hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
+``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11),
+the cluster forecast ``n_shards > 1`` (item 9), the hierarchy forecast
+``tiers > 0`` (item 10) and ``forecast_slo`` (item 14, with the latency
+package).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import transformer
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import Metrics
 from repro_torch.serving import kv_pages
@@ -87,10 +97,6 @@ class Engine:
         self.device = resolve_device(device)
         if cfg.encdec:
             raise ValueError("enc-dec archs are served via examples/, not Engine")
-        if cfg.block in ("rwkv6", "mamba2"):
-            raise NotImplementedError(
-                f"{cfg.name}: state-snapshot serving of {cfg.block} is not "
-                "ported yet (ROADMAP queue 2 item 6, queue 1 item 13)")
         if serve.sketch_cap:
             raise NotImplementedError(
                 "ServeConfig.sketch_cap > 0: the admission-stream sketch is "
@@ -103,16 +109,12 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.serve = serve
+        self.state_mode = cfg.block in ("rwkv6", "mamba2")  # snapshot caching
 
         self.caches = transformer.init_cache(
             cfg, serve.max_seqs, serve.max_seq_len, device=self.device)
-        self.pool = [
-            tuple(KVPool(kv_pages.make_kv_pool_leaf(c.k, serve.n_pages,
-                                                    serve.page_size),
-                         kv_pages.make_kv_pool_leaf(c.v, serve.n_pages,
-                                                    serve.page_size))
-                  for c in stage)
-            for stage in self.caches]
+        self.pool = [tuple(self._pool_entry(c) for c in stage)
+                     for stage in self.caches]
         self.allocator = PageAllocator(serve.n_pages)
         self.prefix = PrefixCache(
             self.allocator, serve.prefix_capacity, policy=serve.policy)
@@ -131,12 +133,24 @@ class Engine:
             device=self.device)
         return logits, caches
 
+    def _pool_entry(self, c):
+        """The pool of one cache entry: K/V pages for a :class:`KVCache`,
+        one snapshot per page of every leaf of a recurrent state."""
+        n, ps = self.serve.n_pages, self.serve.page_size
+        if isinstance(c, KVCache):
+            return KVPool(kv_pages.make_kv_pool_leaf(c.k, n, ps),
+                          kv_pages.make_kv_pool_leaf(c.v, n, ps))
+        return type(c)(*(kv_pages.make_kv_pool_leaf(leaf, n, ps, is_kv=False)
+                         for leaf in c))
+
     def layer_pools(self):
-        """Each layer's ``(P, page, KV, dh)`` K and V pools, in layer order."""
+        """Each attention layer's ``(P, page, KV, dh)`` K and V pools, in
+        layer order (none for a recurrent model)."""
         out = []
         for si, (g, pattern) in enumerate(transformer.build_stages(self.cfg)):
             for li in range(g):
-                out.extend((pool.k[li], pool.v[li]) for pool in self.pool[si])
+                out.extend((pool.k[li], pool.v[li]) for pool in self.pool[si]
+                           if isinstance(pool, KVPool))
         return out
 
     # ------------------------------------------------------------- admission
@@ -162,36 +176,40 @@ class Engine:
             self.prefix.stats.bypassed += 1
 
         cache1 = self._slot_cache()
-        n_hit = 0
-        if hashes:
-            pages, n_hit = self.prefix.lookup(hashes)
+
+        if self.state_mode:
+            logits, cache1, r_stats = self._admit_state(r, cache1, hashes)
+            r.prefill_tokens_skipped, r.prefill_tokens_computed = r_stats
+        else:
+            n_hit = 0
+            if hashes:
+                pages, n_hit = self.prefix.lookup(hashes)
+                if n_hit:
+                    self._gather(cache1, pages)
+
+            start = n_hit * ps
+            remainder = r.tokens[start:]
+            r.prefill_tokens_skipped = start
+            r.prefill_tokens_computed = len(remainder)
+            if len(remainder) == 0:  # full hit: re-prefill the last token
+                # (idempotent for KV caches: position len-1 is overwritten
+                # with identical values)
+                remainder = r.tokens[-1:]
+                start = len(r.tokens) - 1
+                r.prefill_tokens_computed = 1
+
             if n_hit:
-                self._gather(cache1, pages)
+                self._set_index(cache1, start)
+            logits, cache1 = self._forward(self._tokens(remainder), cache1,
+                                           [start])
 
-        start = n_hit * ps
-        remainder = r.tokens[start:]
-        r.prefill_tokens_skipped = start
-        r.prefill_tokens_computed = len(remainder)
-        if len(remainder) == 0:  # full hit: re-prefill the last token
-            # (idempotent for KV caches: position len-1 is overwritten
-            # with identical values)
-            remainder = r.tokens[-1:]
-            start = len(r.tokens) - 1
-            r.prefill_tokens_computed = 1
-
-        toks = torch.as_tensor(remainder, dtype=torch.int32,
-                               device=self.device)[None, :]
-        if n_hit:
-            self._set_index(cache1, start)
-        logits, cache1 = self._forward(toks, cache1, [start])
-
-        # insert newly computed full chunks into the prefix cache
-        if hashes:
-            n_full = len(r.tokens) // ps
-            for i in range(n_hit, n_full):
-                page = self.prefix.insert(hashes[i], self._rng.random())
-                if page is not None:
-                    self._store_chunk(cache1, i * ps, page)
+            # insert newly computed full chunks into the prefix cache
+            if hashes:
+                n_full = len(r.tokens) // ps
+                for i in range(n_hit, n_full):
+                    page = self.prefix.insert(hashes[i], self._rng.random())
+                    if page is not None:
+                        self._store_chunk(cache1, i * ps, page)
 
         self._install(cache1, slot)
         self.lengths[slot] = len(r.tokens)
@@ -210,18 +228,68 @@ class Engine:
             / max(r.prefill_tokens_skipped + r.prefill_tokens_computed, 1),
         )
 
+    def _tokens(self, toks) -> torch.Tensor:
+        """A prompt slice as a (1, T) int32 tensor on the engine's device."""
+        return torch.as_tensor(toks, dtype=torch.int32,
+                               device=self.device)[None, :]
+
+    def _admit_state(self, r: Request, cache1, hashes):
+        """Recurrent-state admission: all-or-nothing snapshot of the state
+        at len(prompt)-1, keyed by the last full page's hash; the final
+        prompt token is always prefilled fresh (state updates are not
+        idempotent, unlike KV writes).  Returns ``(logits, cache1,
+        (skipped, computed))``."""
+        full = hashes[-1] if hashes else None
+        hit = full is not None and full in self.prefix.pages
+
+        if hit:
+            pages, _ = self.prefix.lookup([full])
+            self._restore_state(cache1, pages[0])
+            start = len(r.tokens) - 1
+            logits, cache1 = self._forward(self._tokens(r.tokens[-1:]),
+                                           cache1, [start])
+            return logits, cache1, (len(r.tokens) - 1, 1)
+
+        if full is not None:
+            self.prefix.stats.chunk_misses += 1
+        head, last = r.tokens[:-1], r.tokens[-1:]
+        if len(head):
+            _, cache1 = self._forward(self._tokens(head), cache1, [0])
+        if full is not None:  # snapshot the state at len-1
+            page = self.prefix.insert(full, self._rng.random())
+            if page is not None:
+                self._store_state(cache1, page)
+        logits, cache1 = self._forward(self._tokens(last), cache1, [len(head)])
+        return logits, cache1, (0, len(r.tokens))
+
     # ------------------------------------------------ cache <-> pool plumbing
-    def _gather(self, cache1, pages: List[int]) -> None:
+    def _entries(self, cache1, kv: bool):
+        """(pool entry, cache entry) pairs of K/V pools (``kv``) or of
+        recurrent-state snapshots (not ``kv``)."""
         for pstage, cstage in zip(self.pool, cache1):
             for pool, c in zip(pstage, cstage):
-                kv_pages.gather_pages(c.k, pool.k, 0, pages)
-                kv_pages.gather_pages(c.v, pool.v, 0, pages)
+                if isinstance(pool, KVPool) == kv:
+                    yield pool, c
+
+    def _gather(self, cache1, pages: List[int]) -> None:
+        for pool, c in self._entries(cache1, kv=True):
+            kv_pages.gather_pages(c.k, pool.k, 0, pages)
+            kv_pages.gather_pages(c.v, pool.v, 0, pages)
 
     def _store_chunk(self, cache1, start: int, page_id: int) -> None:
-        for pstage, cstage in zip(self.pool, cache1):
-            for pool, c in zip(pstage, cstage):
-                kv_pages.store_chunk(pool.k, c.k, 0, start, page_id)
-                kv_pages.store_chunk(pool.v, c.v, 0, start, page_id)
+        for pool, c in self._entries(cache1, kv=True):
+            kv_pages.store_chunk(pool.k, c.k, 0, start, page_id)
+            kv_pages.store_chunk(pool.v, c.v, 0, start, page_id)
+
+    def _store_state(self, cache1, page_id: int) -> None:
+        for pool, c in self._entries(cache1, kv=False):
+            for p_leaf, c_leaf in zip(pool, c):
+                kv_pages.store_state(p_leaf, c_leaf, 0, page_id)
+
+    def _restore_state(self, cache1, page_id: int) -> None:
+        for pool, c in self._entries(cache1, kv=False):
+            for p_leaf, c_leaf in zip(pool, c):
+                kv_pages.restore_state(c_leaf, p_leaf, 0, page_id)
 
     @staticmethod
     def _set_index(cache1, value: int) -> None:
@@ -230,8 +298,8 @@ class Engine:
                 c.index.fill_(value)
 
     def _install(self, cache1, slot: int) -> None:
-        """Copy every leaf of the one-sequence cache, the index too, into
-        ``slot`` of the batch caches."""
+        """Copy every leaf of the one-sequence cache (the index, or a
+        recurrent state, too) into ``slot`` of the batch caches."""
         for bstage, sstage in zip(self.caches, cache1):
             for bc, sc in zip(bstage, sstage):
                 for b_leaf, s_leaf in zip(bc, sc):

@@ -37,8 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("kernels.replay", "kernels.event_sim", "kernels.cache_update",
                  "kernels.ops", "obs.trace", "obs.metrics", "obs.export",
                  "kernels.flash_attention", "kernels.paged_attention",
+                 "kernels.linear_scan", "models.rwkv",
                  "models.config", "models.layers", "models.attention",
-                 "models.transformer", "configs.registry",
+                 "models.transformer", "configs.registry", "configs.rwkv6_7b",
                  "configs.internlm2_1_8b", "cache.py_ref", "serving.kv_pages",
                  "serving.prefix_cache", "serving.engine", "training.data",
                  "launch.serve"):
@@ -83,6 +84,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         transformer.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, params, ServeConfig())
+    rcfg = get_config("rwkv6-7b", reduced=True)
+    rparams = transformer.init_params(rcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.forward(rparams, [[1, 2, 3]], rcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(rcfg, rparams, ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "rwkv6-7b", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):

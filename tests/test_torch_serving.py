@@ -255,8 +255,8 @@ def test_unported_modes_raise(models):
         Engine(cfg, tp, ServeConfig(sketch_cap=64), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         Engine(cfg, tp, ServeConfig(n_shards=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2 item 6"):
-        Engine(get_config("rwkv6-7b", reduced=True), tp, ServeConfig(),
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        Engine(get_config("zamba2-1.2b", reduced=True), tp, ServeConfig(),
                device="cpu")
     with pytest.raises(ValueError, match="enc-dec"):
         Engine(get_config("whisper-tiny", reduced=True), tp, ServeConfig(),
