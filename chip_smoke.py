@@ -8,6 +8,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``;
+   then ``cuobjdump --dump-sass`` of the library: the tensor-core flash
+   kernel's instantiations must hold HGMMA (``wgmma``) instructions;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
@@ -22,8 +24,13 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    the device, with an empty batch, and per kernel);
 6b. flash- and paged-attention kernels vs their plain versions within
    the reference's tolerances (2e-5 float32, 2e-2 bf16): the reference's
-   FLASH_CASES and the full-width prefill shape (B 4, 16/8 heads, T = S =
-   2048, d_head 128, causal, window 0 and 1024) in bf16 and in float32;
+   FLASH_CASES, ragged bf16 cases (T = S = 100 at d_head 128 and 64) and
+   the full-width prefill shape (B 4, 16/8 heads, T = S = 2048, d_head
+   128, causal, window 0 and 1024) in bf16 and in float32; every bf16 case
+   at d_head 64/128 goes to the tensor-core kernel, exactly one launch,
+   and is also held to mean |kernel - plain| <= 5e-3 mean |plain| (a
+   dropped K/V tile goes over it where bf16's elementwise 2e-2 may not
+   see it); the float32 cases go to the float32-units kernel;
    PAGED_CASES, seq_len 0 and 1, a float32 table of 16 pages (up to four
    64-token steps), and a full-width decode batch (32 sequences x 128
    pages of 16 tokens over a 4096-page pool, ragged seq_lens) in bf16 and
@@ -48,7 +55,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 9b. the model wing on full-width internlm2-1.8b (random weights, seed
    0): the prefill path (``forward`` with the flash kernel vs
    ``chunked_attention`` on 2 x 2048 tokens, in bf16 and float32; 24
-   flash launches per forward; in float32 the logits agree within 1e-4
+   flash launches per forward, on the tensor-core kernel in bf16 and the
+   float32-units kernel in float32; in float32 the logits agree within 1e-4
    of their scale and the next token at >= 99% of positions), the serve path (the ``Engine`` on
    ``launch/serve.py``'s stream: bf16 timed with its ``forecast_network``;
    float32 tokens equal with and without the prefix cache, ``stats()``
@@ -80,8 +88,11 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    lossless 16384-record rings, against one run of the traced plain
    version, records field by field); the attention kernels at their
    full-width shapes beside their plain versions, their bounds and
-   ``F.scaled_dot_product_attention`` (a yardstick only; over K/V
-   gathered beforehand for the paged kernel); the WKV kernel at the
+   ``F.scaled_dot_product_attention`` (a yardstick only; in the inputs'
+   type; over K/V gathered beforehand for the paged kernel), the flash
+   kernels each in its type (the tensor-core kernel in bf16, the
+   float32-units kernel in float32) with and without the window, with the
+   achieved TFLOP/s and the share of the bound; the WKV kernel at the
    prefill shape and the engine's decode step (B 4, T 1) beside its plain
    version and its bound (no library call computes WKV6).
 
@@ -138,6 +149,9 @@ FLASH_CASES = (
     (2, 64, 192, 4, 2, 64, False, 0, "float32"),
     (1, 100, 100, 2, 2, 64, True, 0, "float32"),
 )
+# ragged bf16 cases for the tensor-core kernel at both its head widths
+FLASH_RAGGED_BF16 = ((1, 100, 100, 2, 2, 128, True, 0, "bfloat16"),
+                     (1, 100, 100, 2, 2, 64, True, 0, "bfloat16"))
 FLASH_FULL = ((4, 2048, 2048, 16, 8, 128, True, 0, "bfloat16"),
               (4, 2048, 2048, 16, 8, 128, True, 1024, "bfloat16"))
 # the same shapes in float32, held at 2e-5: at 2048 keys an output is about
@@ -160,6 +174,10 @@ PAGED_CASES = (
 PAGED_FULL = (32, 16, 8, 128, 16, 128, 4096, "bfloat16", "ragged")
 PAGED_FULL_F32 = PAGED_FULL[:7] + ("float32", "ragged")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
+# mean |kernel - plain| <= FLASH_MEAN_REL mean |plain| for the tensor-core
+# kernel: rounding p to bf16 stays under half of it, a dropped 64-key tile
+# goes over twice it (tests/test_torch_attention.py, on the CPU)
+FLASH_MEAN_REL = 5e-3
 ARCH = "internlm2-1.8b"
 PREFILL_SHAPE = (2, 2048)  # sequences x tokens of the prefill path
 # launch/serve.py's engine and stream, on the full-width model
@@ -252,6 +270,35 @@ def device_ms(fn, reps: int) -> float:
             return start.elapsed_time(end) / reps
     raise RuntimeError("device_ms: the host did not queue the calls ahead of "
                        "the card")
+
+
+def sass_counts(rec):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
+    flash kernel instantiation, from ``cuobjdump --dump-sass`` of the built
+    library; raises unless every tensor-core instantiation holds HGMMA."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build_library())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash" in m.group(1) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    tc = {f: c for f, c in counts.items() if "flash_sm90_kernel" in f}
+    if len(tc) != 2 or not all(c["HGMMA"] > 0 for c in tc.values()):
+        raise AssertionError(f"tensor-core flash kernel without HGMMA: {counts}")
+    for f, c in counts.items():
+        print(f"sass {f}: {c}", flush=True)
+    rec["flash_sass"] = counts
 
 
 def det_network(net):
@@ -826,24 +873,23 @@ def full_size(rec):
 def attention_rows(rec):
     """The flash and paged rows of the kernels line, timed at their
     full-width shapes (flash: causal, no window, the prefill path's
-    attention; the windowed time goes to the record)."""
+    attention, each kernel in the type it takes there; the windowed times
+    go to the record)."""
     rows = attention_timing()
     rec["timing"]["attention"] = rows
-
-    def bound(r, ops_per_s):
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / ops_per_s * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-    for r in rows.values():  # bf16 inputs: the tensor cores' bf16 rate
-        r["bound_ms"], r["bound_by"] = bound(r, BF16_TENSOR_FLOPS)
-    fl, pg = rows["window0"], rows["paged"]
+    sm90, f32, pg = rows["sm90_window0"], rows["f32_window0"], rows["paged"]
     return [
+        {"name": "flash_attention_sm90", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:29",
+         "ms": sm90["ms"], "plain_ms": sm90["plain_ms"],
+         "bound_ms": sm90["bound_ms"], "bound_by": sm90["bound_by"],
+         "library_ms": sm90["library_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
-         "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
-         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+         "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"]},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:28",
@@ -910,20 +956,48 @@ def hold_attention(what, got, want, dtype, tol=None) -> float:
     return err
 
 
+def hold_mean(what, got, want, rel) -> float:
+    """Raise unless mean |got - want| <= rel * mean |want|; returns the
+    ratio of the two means."""
+    d = (got.float() - want.float()).abs().mean()
+    ratio = float(d / want.float().abs().mean())
+    if not ratio <= rel:
+        raise AssertionError(f"{what}: mean |kernel - plain| is {ratio:.3g} of "
+                             f"mean |plain|, above {rel}")
+    print(f"{what}: mean |kernel - plain| = {ratio:.3g} of mean |plain| "
+          f"(limit {rel})", flush=True)
+    return ratio
+
+
 def check_flash(rec):
-    """The flash kernel against its plain version at the reference's
-    FLASH_CASES and at the full-width prefill shape, in bf16 and float32."""
+    """Both flash kernels against their plain versions at the reference's
+    FLASH_CASES, the ragged bf16 cases and the full-width prefill shape, in
+    bf16 and float32.  Each case must launch the kernel ``kernel_for``
+    names, once; a tensor-core case is held to FLASH_MEAN_REL as well."""
     from repro_torch.kernels import flash_attention as fl
 
-    err = 0.0
-    for i, case in enumerate(FLASH_CASES + FLASH_FULL + FLASH_FULL_F32):
+    err = {"flash_attention": 0.0, "flash_attention_sm90": 0.0}
+    mean_rel = 0.0
+    cases = FLASH_CASES + FLASH_RAGGED_BF16 + FLASH_FULL + FLASH_FULL_F32
+    for i, case in enumerate(cases):
         q, k, v = flash_inputs(case, seed=i)
         causal, window = case[6], case[7]
-        err = max(err, hold_attention(
-            f"flash_attention {case}", fl.flash_attention(
-                q, k, v, causal=causal, window=window),
-            fl.flash_attention_plain(q, k, v, causal, window), case[8]))
-    rec["flash_attention_max_abs_err"] = err
+        tc = fl.kernel_for(q.dtype, case[5]) == "tensor_core"
+        name = "flash_attention_sm90" if tc else "flash_attention"
+        n0, tc0 = fl.flash_attention.launches, fl.flash_attention.tensor_core_launches
+        got = fl.flash_attention(q, k, v, causal=causal, window=window)
+        if (fl.flash_attention.launches - n0,
+                fl.flash_attention.tensor_core_launches - tc0) != (1, int(tc)):
+            raise AssertionError(f"{case}: not one launch of the {name} kernel")
+        want = fl.flash_attention_plain(q, k, v, causal, window)
+        err[name] = max(err[name], hold_attention(f"{name} {case}", got, want,
+                                                  case[8]))
+        if tc:
+            mean_rel = max(mean_rel, hold_mean(f"{name} {case}", got, want,
+                                               FLASH_MEAN_REL))
+    for name, e in err.items():
+        rec[f"{name}_max_abs_err"] = e
+    rec["flash_attention_sm90_mean_rel_err"] = mean_rel
 
 
 def check_paged(rec):
@@ -950,13 +1024,15 @@ def prefill_path(rec, model, model32):
     In float32 the two paths differ only in summation order: the logits
     must agree within 1e-4 of their scale (the CPU model tests' limit) and
     the next token at >= 99% of positions.  In bf16 they differ by
-    design (the chunked path rounds q * dh**-0.5 and p to bf16, the
-    kernel keeps them in float32, as the reference's two paths do), and
+    design (the chunked path rounds q * dh**-0.5 to bf16 before the dot,
+    the tensor-core kernel scales the float32 dot after; both round p to
+    bf16), and
     with random weights the top two logits are often closer than that
     rounding moves them, so the bf16 agreement is reported, and the bf16
     kernel path must be as close to the float32 forward as the bf16
     chunked path is, to within 10% (mean |d logit|): both are dominated by
-    the bf16 rounding of every activation, which the two paths share."""
+    the bf16 rounding of every activation, which the two paths share.
+    Each timed forward follows an untimed one in its type."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fl
@@ -968,15 +1044,19 @@ def prefill_path(rec, model, model32):
 
     def run(cfg, params, use_pallas):
         before = fl.flash_attention.launches
+        tc_before = fl.flash_attention.tensor_core_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = transformer.forward(params, toks, cfg, use_pallas=use_pallas)[0]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         n = fl.flash_attention.launches - before
-        if n != (cfg.n_layers if use_pallas else 0):
-            raise AssertionError(f"forward(use_pallas={use_pallas}) launched "
-                                 f"the flash kernel {n} times")
+        tc = fl.flash_attention.tensor_core_launches - tc_before
+        want_tc = cfg.n_layers if use_pallas and cfg.compute_dtype == "bfloat16" else 0
+        if n != (cfg.n_layers if use_pallas else 0) or tc != want_tc:
+            raise AssertionError(f"forward(use_pallas={use_pallas}) in "
+                                 f"{cfg.compute_dtype} launched the flash "
+                                 f"kernels {n} times, {tc} on the tensor cores")
         if logits.shape != (B, T, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError("prefill logits: bad shape or non-finite")
         return logits, seconds
@@ -986,12 +1066,17 @@ def prefill_path(rec, model, model32):
         return {"max_abs_dlogit": float(d.max()), "mean_abs_dlogit": float(d.mean()),
                 "argmax_agreement": float((a.argmax(-1) == b.argmax(-1)).float().mean())}
 
-    out = {"shape": [B, T], "flash_launches_per_forward": model[0].n_layers}
+    out = {"shape": [B, T], "flash_launches_per_forward": model[0].n_layers,
+           "tensor_core_launches_per_bf16_forward": model[0].n_layers}
+    # one untimed chunked forward in each type first, so that no timed
+    # forward pays for the first use of its type's matrix products
+    run(*model32, False)
     ref32, t_ref = run(*model32, False)
     k32, t_k32 = run(*model32, True)
     out["float32"] = {**compare(k32, ref32), "logit_scale": float(ref32.abs().max()),
                       "flash_forward_s": t_k32, "chunked_forward_s": t_ref}
     del k32
+    run(*model, False)
     k16, t_k16 = run(*model, True)
     c16, t_c16 = run(*model, False)
     out["bfloat16"] = {**compare(k16, c16), "logit_scale": float(c16.abs().max()),
@@ -1668,34 +1753,50 @@ def wkv_rows(rec):
              "library_ms": None}]
 
 
+def attention_bound(r, ops_per_s):
+    """(bound ms, "bytes" or "operations") of a timing row's work."""
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r["flops"] / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def attention_timing():
     """The flash and paged kernels at their full-width shapes: per-launch
     time (CUDA events), the plain version's, one PyTorch library call's
-    (scaled_dot_product_attention: a yardstick, never on a path) and the
-    work's bound."""
+    (scaled_dot_product_attention in the inputs' type: a yardstick, never
+    on a path) and the work's bound.  The flash kernels run each in its
+    type at the prefill path's shape, with and without the window: the
+    tensor-core kernel in bf16 (bound at the bf16 tensor-core rate), the
+    float32-units kernel in float32 (bound at the float32 rate); each row
+    has its achieved TFLOP/s and the share of its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import paged_attention as pg
 
     rows = {}
-    for case in FLASH_FULL:
+    for case in FLASH_FULL + FLASH_FULL_F32:
         B, T, S, H, KV, dh, causal, window = case[:8]
         q, k, v = flash_inputs(case, seed=100)
+        tc = fl.kernel_for(q.dtype, dh) == "tensor_core"
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         pairs = (window * (window + 1) // 2 + (T - window) * window
                  if window else T * (T + 1) // 2)
-        flops = 4 * B * H * dh * pairs
-        nbytes = (2 * B * T * H + 2 * B * S * KV) * dh * q.element_size()
-        rows[f"window{window}"] = {
-            "shape": list(case[:8]),
-            "ms": cuda_ms(lambda: fl.launch(q, k, v, causal, window), reps=10),
-            "plain_ms": cuda_ms(lambda: fl.flash_attention_plain(
-                q, k, v, causal, window), reps=3),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
-            if not window else None,
-            "flops": flops, "bytes": nbytes}
+        r = {"shape": list(case),
+             "ms": cuda_ms(lambda: fl.launch(q, k, v, causal, window),
+                           reps=20 if tc else 5),
+             "plain_ms": cuda_ms(lambda: fl.flash_attention_plain(
+                 q, k, v, causal, window), reps=3),
+             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+             if not window else None,
+             "flops": 4 * B * H * dh * pairs,
+             "bytes": (2 * B * T * H + 2 * B * S * KV) * dh * q.element_size()}
+        r["bound_ms"], r["bound_by"] = attention_bound(
+            r, BF16_TENSOR_FLOPS if tc else SCALAR_OPS_PER_S)
+        r["tflops"] = r["flops"] / r["ms"] / 1e9
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        rows[f"{'sm90' if tc else 'f32'}_window{window}"] = r
     B, H, KV, dh, page, n, P = PAGED_FULL[:7]
     q, pk, pv, bt, lens = paged_inputs(PAGED_FULL, seed=100)
     need = (lens.long() + page - 1) // page * page  # positions of the pages read
@@ -1715,6 +1816,10 @@ def attention_timing():
                 q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True),
             reps=20),
         "flops": 4 * H * dh * int(lens.sum()), "bytes": nbytes}
+    pg_row = rows["paged"]
+    pg_row["bound_ms"], pg_row["bound_by"] = attention_bound(pg_row,
+                                                             BF16_TENSOR_FLOPS)
+    pg_row["bound_share"] = pg_row["bound_ms"] / pg_row["ms"]
     for name, r in rows.items():
         print(f"{name}: " + json.dumps(r), flush=True)
     return rows
@@ -1751,6 +1856,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phases.run("build", _build.load_library)
     rec = {"card": card}
+    phases.run("sass", sass_counts, rec)
     phases.run("replay_vs_plain", check_replay, rec)
     phases.run("event_sim_vs_plain", check_event_sim, rec)
     phases.run("trace_vs_plain", check_trace, rec)
@@ -1777,12 +1883,19 @@ def main() -> int:
                                    compute_dtype="float32"),
                to_float32(model[1]))
     fl.flash_attention.launches = 0
+    fl.flash_attention.tensor_core_launches = 0
     phases.run("prefill_path", prefill_path, rec, model, model32)
-    launches["flash_attention"] = fl.flash_attention.launches
-    if launches["flash_attention"] != 2 * cfg.n_layers:
-        raise AssertionError(f"the prefill path launched the flash kernel "
-                             f"{launches['flash_attention']} times, not "
-                             f"{cfg.n_layers} per forward in two forwards")
+    launches["flash_attention_sm90"] = fl.flash_attention.tensor_core_launches
+    launches["flash_attention"] = (fl.flash_attention.launches
+                                   - launches["flash_attention_sm90"])
+    if not (launches["flash_attention_sm90"] == launches["flash_attention"]
+            == cfg.n_layers):
+        raise AssertionError(f"the prefill path launched the tensor-core flash "
+                             f"kernel {launches['flash_attention_sm90']} times "
+                             f"and the float32-units one "
+                             f"{launches['flash_attention']}, not "
+                             f"{cfg.n_layers} each (one bf16 and one float32 "
+                             f"forward)")
     eng = phases.run("serve_path", serve_path, rec, model, model32)
     pg.paged_attention.launches = 0
     phases.run("paged_on_pool", paged_on_pool, rec, eng)

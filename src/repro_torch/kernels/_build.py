@@ -40,6 +40,7 @@ _SIGNATURES = {
     "lru_update_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "lru_update_blocks": ([_I], _I),
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),
+    "flash_attention_sm90_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "paged_attention_launch": ([_I] + [_P] * 6 + [_I] * 6 + [_P], _I),
     "paged_attention_shared_bytes": ([_I] * 4, _I),
     "wkv6_launch": ([_I] * 3 + [_P] * 8 + [_I] * 4 + [_P], _I),

@@ -19,8 +19,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``(B, T, H, dh) x (B, S, KV, dh) -> (B, T, H, dh)`` (model layout).
 
-    The reference's ``bq``/``bk`` TPU tiles have no counterpart: the kernel
-    works on 64 x 64 tiles.  Causal attention needs T == S.
+    The reference's ``bq``/``bk`` TPU tiles have no counterpart: bf16 at
+    d_head 64/128 runs the tensor-core kernel on 128 x 128 tiles, float32
+    and the other head widths the float32-units kernel on 64 x 64 tiles
+    (``flash_attention.kernel_for``).  Causal attention needs T == S.
     """
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
 

@@ -6,10 +6,14 @@ oracles of the Pallas kernels), one interpret-mode call each of
 in the port: the flash and paged plain versions (what the kernel wrappers
 run on CPU tensors), ``chunked_attention`` and ``attention`` in its three
 modes.  Tolerances are the reference's own (``tests/test_kernels.py``):
-2e-5 in float32, 2e-2 in bfloat16.  The CUDA kernels are held against
+2e-5 in float32, 2e-2 in bfloat16.  The tensor-core flash kernel's plain
+version (bf16 at d_head 64/128) is also held to a direct einsum of its
+arithmetic, within 1e-6.  The CUDA kernels are held against
 their plain versions in ``tests/test_torch_attention_cuda.py``, on the
 card.
 """
+
+import contextlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -142,6 +146,154 @@ def test_flash_wrapper_rejects_bad_inputs():
                             causal=False)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, causal=True, window=-1)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic (bf16 at d_head 64/128) and the
+# wrapper's (dtype, d_head) dispatch
+# ---------------------------------------------------------------------------
+
+# one K/V tile (S <= the kernel's 128 columns): the online softmax is a
+# plain softmax, so a direct einsum is the same arithmetic
+TC_ONE_TILE = [
+    # (B, T, S, H, KV, causal, window)
+    (1, 100, 100, 4, 2, True, 0),
+    (2, 96, 128, 2, 1, False, 0),
+    (1, 128, 128, 2, 2, True, 16),
+]
+# several tiles, ragged, windowed and bidirectional, against the reference
+TC_CASES = [
+    (1, 300, 300, 4, 2, 128, True, 0, BF16),
+    (1, 300, 300, 4, 2, 64, True, 0, BF16),
+    (1, 256, 256, 4, 4, 64, True, 100, BF16),
+    (2, 64, 192, 4, 2, 128, False, 0, BF16),
+]
+
+
+def _direct_tensor_core_attention(q, k, v, causal, window):
+    """Softmax attention in one shot with the tensor-core kernel's
+    arithmetic: unscaled float32 dot of the bf16 inputs, scale after, p
+    rounded to bf16 for P V, l summed from the float32 p."""
+    B, T, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KV, dim=2)
+    vf = v.float().repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), kf) * torch.tensor(
+        dh**-0.5, dtype=torch.float32)
+    rows, cols = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    valid = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        valid &= cols <= rows
+    if window:
+        valid &= cols > rows - window
+    logits = logits.masked_fill(~valid, tattn.NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhts,bshd->bthd", p.to(torch.bfloat16).float(), vf)
+    return out / p.sum(dim=-1).transpose(1, 2)[..., None]
+
+
+@pytest.mark.parametrize("dh", tflash.TC_HEAD_DIMS)
+@pytest.mark.parametrize("case", TC_ONE_TILE)
+def test_flash_tensor_core_plain_is_its_arithmetic(case, dh):
+    B, T, S, H, KV, causal, window = case
+    (_, tq), (_, tk), (_, tv) = flash_inputs(
+        (B, T, S, H, KV, dh, causal, window, BF16), seed=10)
+    got = tflash.tensor_core_plain(tq, tk, tv, causal, window)
+    want = _direct_tensor_core_attention(tq, tk, tv, causal, window)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_core_plain_matches_ref(case):
+    causal, window = case[6], case[7]
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(case, seed=11)
+    want = jref.flash_attention_ref(jq.swapaxes(1, 2), jk.swapaxes(1, 2),
+                                    jv.swapaxes(1, 2), causal=causal,
+                                    window=window).swapaxes(1, 2)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(BF16))
+
+
+def test_flash_mean_criterion_sees_a_dropped_tile():
+    """``chip_smoke.py`` holds the tensor-core kernel to mean |kernel -
+    plain| <= 5e-3 mean |plain|.  Rounding p to bf16 (against the same
+    tiles with float32 p, both outputs in bf16) stays well inside it; 64
+    keys of 2048 left out of the sum fall far outside."""
+    case = (1, 64, 2048, 2, 1, 128, False, 0, BF16)
+    (_, tq), (_, tk), (_, tv) = flash_inputs(case, seed=12)
+    plain = tflash.flash_attention_plain(tq, tk, tv, False, 0)
+    p_f32 = tflash.flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                         False, 0).to(torch.bfloat16)
+    keep = torch.cat([torch.arange(1024), torch.arange(1088, 2048)])
+    dropped = tflash.flash_attention_plain(tq, tk[:, keep], tv[:, keep],
+                                           False, 0)
+
+    def mean_rel(a):
+        return float((a.float() - plain.float()).abs().mean()
+                     / plain.float().abs().mean())
+
+    assert mean_rel(p_f32) < 5e-3 / 2
+    assert mean_rel(dropped) > 5e-3 * 2
+
+
+@pytest.mark.parametrize("dtype,dh,kind", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 16, "float32_units"), (torch.bfloat16, 32, "float32_units"),
+    (torch.float32, 64, "float32_units"), (torch.float32, 128, "float32_units"),
+    (torch.bfloat16, 80, None), (torch.bfloat16, 168, None),
+    (torch.float32, 80, None), (torch.float16, 64, None)])
+def test_flash_kernel_for_dispatch(dtype, dh, kind):
+    if kind is None:
+        with pytest.raises(ValueError, match="no flash kernel"):
+            tflash.kernel_for(dtype, dh)
+    else:
+        assert tflash.kernel_for(dtype, dh) == kind
+
+
+class _FakeLibrary:
+    """Both launchers, recording their calls and returning ``err``."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def flash_attention_sm90_launch(self, *args):
+        self.calls.append("tensor_core")
+        return self.err
+
+    def flash_attention_launch(self, *args):
+        self.calls.append("float32_units")
+        return self.err
+
+
+@pytest.mark.parametrize("err", [0, 700])
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "float32_units")])
+def test_flash_launch_takes_one_kernel_and_never_swaps(monkeypatch, dtype,
+                                                       kind, err):
+    """``launch`` calls the one kernel ``kernel_for`` names; when it fails,
+    it raises and no other kernel is tried."""
+    lib = _FakeLibrary(err)
+    monkeypatch.setattr(tflash._build, "load_library", lambda: lib)
+    monkeypatch.setattr(tflash, "_on_card",
+                        lambda device: contextlib.nullcontext(0))
+    q = torch.zeros(1, 8, 2, 128, dtype=dtype)
+    k = torch.zeros(1, 8, 1, 128, dtype=dtype)
+    n0 = tflash.flash_attention.launches
+    tc0 = tflash.flash_attention.tensor_core_launches
+    if err:
+        with pytest.raises(RuntimeError, match=f"cudaError_t {err}"):
+            tflash.launch(q, k, k, True, 0)
+    else:
+        assert tflash.launch(q, k, k, True, 0).shape == q.shape
+    assert lib.calls == [kind]
+    # the counters belong to flash_attention, which counts CUDA launches only
+    assert tflash.flash_attention.launches == n0
+    assert tflash.flash_attention.tensor_core_launches == tc0
 
 
 # ---------------------------------------------------------------------------

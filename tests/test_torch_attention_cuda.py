@@ -6,7 +6,9 @@ card is (``python -m pytest -m cuda tests/test_torch_attention_cuda.py``);
 without a card they skip.  The shapes are the reference's ``FLASH_CASES``
 and ``PAGED_CASES`` (``tests/test_kernels.py``) plus ``seq_len`` 0 and 1
 and a table of several 64-token steps, and the tolerances its ``_tol``:
-2e-5 in float32, 2e-2 in bfloat16.
+2e-5 in float32, 2e-2 in bfloat16.  The tensor-core flash kernel (bf16 at
+d_head 64/128) is held besides to mean |kernel - plain| <= 5e-3 mean
+|plain| at ragged and full-width shapes, one launch per call.
 """
 
 import numpy as np
@@ -26,6 +28,17 @@ FLASH_CASES = [
     (2, 64, 192, 4, 2, 64, False, 0, torch.float32),
     (1, 100, 100, 2, 2, 64, True, 0, torch.float32),
 ]
+# the tensor-core kernel's cases: the reference's bf16 case, ragged cases
+# at both head widths, and the full-width prefill shape without and with
+# a 1024-token window
+TC_CASES = [
+    (1, 128, 128, 8, 2, 128, True, 0),
+    (1, 100, 100, 2, 2, 128, True, 0),
+    (1, 100, 100, 2, 2, 64, True, 0),
+    (4, 2048, 2048, 16, 8, 128, True, 0),
+    (4, 2048, 2048, 16, 8, 128, True, 1024),
+]
+TC_MEAN_REL = 5e-3  # see test_torch_attention.py's dropped-tile test
 PAGED_CASES = [
     # (B, H, KV, dh, page, n_pages, P, dtype, seq_lens)
     (2, 4, 2, 64, 16, 4, 16, torch.float32, None),
@@ -70,6 +83,25 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, case):
     want = tflash.flash_attention_plain(q, k, v, causal, window)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_tensor_core_kernel_matches_plain_on_card(cuda_device, case):
+    B, T, S, H, KV, dh, causal, window = case
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, T, H, dh), torch.bfloat16, cuda_device)
+    k = _randn(rng, (B, S, KV, dh), torch.bfloat16, cuda_device)
+    v = _randn(rng, (B, S, KV, dh), torch.bfloat16, cuda_device)
+    n0 = tflash.flash_attention.launches
+    tc0 = tflash.flash_attention.tensor_core_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert tflash.flash_attention.launches == n0 + 1
+    assert tflash.flash_attention.tensor_core_launches == tc0 + 1
+    want = tflash.flash_attention_plain(q, k, v, causal, window)
+    a, b = got.float().cpu(), want.float().cpu()
+    np.testing.assert_allclose(a.numpy(), b.numpy(), **_tol(torch.bfloat16))
+    assert float((a - b).abs().mean()) <= TC_MEAN_REL * float(b.abs().mean())
 
 
 @pytest.mark.cuda
