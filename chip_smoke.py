@@ -7,14 +7,21 @@ Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 
 1. device: the card's name and power limit;
-2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``;
-   then ``cuobjdump --dump-sass`` of the library: the tensor-core flash
+2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
+    and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
+   spills of each of the event-sim kernel's fifteen instantiations; then
+   ``cuobjdump --dump-sass`` of the library: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
 4. event-sim kernel vs its plain version on the card: a network with
-   deterministic service, identical event counts;
+   deterministic service, identical event counts; every instantiation
+   (mpl 1, 24, 48, 72, 144: 1, 2, 4, 8 register slots per thread; mpl
+   300: shared memory; a 41-visit route), untraced and traced, records
+   included; padded
+   grids of three networks of different shapes and of the LRU sweep's
+   five measured networks;
 5. traced event-sim kernel vs its traced plain version: the det network
    and the LRU network, 21 lanes x 2000 requests into 512-record rings
    (overflowing), decoded records field by field; the traced kernel's
@@ -44,7 +51,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
-   monotone curve asserted, through the kernels (launch counts > 0);
+   monotone curve asserted, through the kernels (launch counts > 0; the
+   event-sim kernel exactly 4 + 7 times, one launch per sweep), every
+   throughput within 1e-6 of what the earlier event-sim kernel computed
+   (``MAIN_PATH_X``);
 8. the traced path: the LRU network at 100 us over P_GRID x 3 seeds x 16k
    requests with lossless 16384-record rings, its records reconciled with
    the throughput, per-station utilization printed, one lane written as a
@@ -86,7 +96,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    measured-network lane at 16k requests with identical event counts;
    the LRU network's 21 lanes x 16k requests, untraced and traced with
    lossless 16384-record rings, against one run of the traced plain
-   version, records field by field); the attention kernels at their
+   version, records field by field; the event-sim launch of one sweep,
+   five measured networks x 16k requests, bit for bit its networks
+   launched alone; ns per event of the 1-, 5- and 21-lane and traced
+   launches); the attention kernels at their
    full-width shapes beside their plain versions, their bounds and
    ``F.scaled_dot_product_attention`` (a yardstick only; in the inputs'
    type; over K/V gathered beforehand for the paged kernel), the flash
@@ -131,6 +144,46 @@ POLICY_PARAMS = {
 SIM_RTOL = 1e-6
 CHECK_T, CHECK_FILL = 5000, 3400  # the replay check's trace and its fill
 SIM_REQUESTS, SEEDS = 16_000, (0, 1, 2)
+# one mpl per instantiation of the event-sim kernel: job state in 1, 2, 4
+# and 8 register slots per thread (mpl <= 32, 64, 128, 256), then in
+# shared memory; each held against the plain version at SIM_MPL_REQUESTS
+SIM_MPLS = (1, 24, 48, 72, 144, 300)
+SIM_MPL_REQUESTS = 500
+# the main path's throughputs (requests/us) as the event-sim kernel of
+# commit ca3464b (one lane per network, state in shared memory) computed
+# them on an NVIDIA H100 80GB HBM3 at 700.00 W: same arithmetic, so the
+# main path must reproduce them within MAIN_PATH_RTOL, in 4 + 7 launches
+MAIN_PATH_RTOL = 1e-6
+MAIN_PATH_X = {
+    "lru_sim": {
+        500.0: (0.23702841997146606, 0.3221535384654999, 0.47104570269584656,
+                0.7106621265411377, 1.3710523843765259, 1.5042190551757812,
+                1.441320538520813),
+        100.0: (1.1584261655807495, 1.466878056526184, 1.6921591758728027,
+                1.6999592781066895, 1.5879443883895874, 1.5041462182998657,
+                1.4430533647537231),
+        5.0: (1.6957483291625977, 1.7005447149276733, 1.6945351362228394,
+              1.6976357698440552, 1.5864628553390503, 1.5031343698501587,
+              1.4422270059585571)},
+    "fifo_sim": (1.1579383611679077, 1.5346721410751343, 2.2957522869110107,
+                 3.4617087841033936, 6.6226887702941895, 13.283462524414062,
+                 48.59218215942383),
+    "x_sim": {
+        "lru": (1.2112109661102295, 1.6209553480148315, 1.6842859983444214,
+                1.6107646226882935, 1.4908363819122314),
+        "fifo": (1.1151018142700195, 1.6440073251724243, 2.617198944091797,
+                 4.46701192855835, 12.007936477661133),
+        "prob_lru": (1.1806840896606445, 1.6974366903305054,
+                     2.4617855548858643, 2.73734712600708, 2.6348981857299805),
+        "clock": (1.2241626977920532, 1.8556195497512817, 3.0517842769622803,
+                  5.368767261505127, 13.322370529174805),
+        "slru": (1.3035715818405151, 1.6015921831130981, 1.5784549713134766,
+                 1.5474536418914795, 1.4871746301651),
+        "s3fifo": (1.4673336744308472, 2.1419577598571777, 3.2636497020721436,
+                   5.623368740081787, 9.954373359680176),
+        "sieve": (1.5244017839431763, 2.337858200073242, 3.736071825027466,
+                  6.663162708282471, 16.229402542114258)},
+}
 TRACE_CHECK_REQUESTS, TRACE_CHECK_CAP = 2000, 512  # overflowing rings
 TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
@@ -301,6 +354,69 @@ def sass_counts(rec):
     rec["flash_sass"] = counts
 
 
+def start_event_sim_ptxas():
+    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu`` with the library's
+    flags, started beside the library's own build."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         str(_build.CSRC / "event_sim.cu"), "-o", str(out / "event_sim.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def event_sim_ptxas(proc, rec):
+    """Registers, stack frame and spills of each event-sim instantiation
+    (untraced, traced, traced for routes over 32 visits; R register slots
+    per thread, R = 0: shared memory), as ptxas reports them; raises unless
+    all fifteen compiled."""
+    import re
+
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}{err}")
+    info, fn = {}, None
+    for line in (out + err).splitlines():
+        m = re.search(r"Compiling entry function .*sim_kernelILi([012])ELi(\d+)E",
+                      line)
+        if m:
+            fn = (("untraced", "traced", "traced, routes over 32")[int(m.group(1))]
+                  + f" R={m.group(2)}")
+            info[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if fn and m:
+            info[fn].update(zip(("stack_bytes", "spill_store_bytes",
+                                 "spill_load_bytes"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            info[fn]["registers"] = int(m.group(1))
+    if len(info) != 15 or not all(len(v) == 4 for v in info.values()):
+        raise AssertionError(f"ptxas reported {info}")
+    for fn, v in sorted(info.items()):
+        print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
+    rec["event_sim_ptxas"] = info
+
+
+def long_route_network(mpl):
+    """A request that alternates two queues twenty times after a think
+    station (41 visits), or visits one queue once: the traced kernel's
+    instantiation for routes longer than a warp."""
+    from repro_torch.core.queueing import (QUEUE, THINK, Branch,
+                                           ClosedNetwork, Station)
+
+    stations = (Station("think", THINK, 2.0, dist="exp"),
+                Station("a", QUEUE, 0.05, dist="det"),
+                Station("b", QUEUE, 0.04, dist="pareto",
+                        dist_params=(0.45, 0.1, 1.2), servers=2))
+    branches = (Branch("long", lambda p: p, ("think",) + ("a", "b") * 20),
+                Branch("short", lambda p: 1.0 - p, ("think", "a")))
+    return ClosedNetwork("long route", stations, branches, mpl)
+
+
 def det_network(net):
     """The network with every station's service made deterministic."""
     return dataclasses.replace(net, stations=tuple(
@@ -368,19 +484,83 @@ def check_replay(rec):
     rec["replay_max_abs_err"] = 0
 
 
+def untraced(kw):
+    return {k: v for k, v in kw.items() if k not in ("trace_cap", "bmiss")}
+
+
+def sweep_specs(policy):
+    """The five measured networks of the main path's ``policy`` sweep
+    (``IMPL_CAPS``, key space 4096, 60k requests), compiled on the card."""
+    import torch
+    from repro_torch.core.harness import measure_cache
+    from repro_torch.core.simspec import compile_network
+
+    specs = []
+    for c in IMPL_CAPS:
+        meas = measure_cache(policy, c, key_space=4096, n_requests=60_000,
+                             device="cuda", **POLICY_PARAMS[policy])
+        specs.append(compile_network(meas.network, meas.hit_ratio,
+                                     device=torch.device("cuda")))
+    return specs
+
+
 def check_event_sim(rec):
-    """The det network, whose trajectory fixes no float draw."""
+    """The det network, whose trajectory fixes no float draw; every
+    instantiation of the kernel (``SIM_MPLS``, and a 41-visit route),
+    traced and untraced, on the LRU network with a 2-server disk against
+    one traced plain run each (and the traced kernel against the untraced
+    one); padded grids: three
+    networks of different station, branch and route counts, and the LRU
+    sweep's five measured networks."""
     import numpy as np
     import torch
-    from repro_torch.core.policy_models import lru_network
+    from repro_torch.core.policy_models import (lru_network, s3fifo_network,
+                                                slru_network)
+    from repro_torch.core.simspec import compile_network
+    from repro_torch.kernels import _build
     from repro_torch.kernels import event_sim as es
 
+    dev = torch.device("cuda")
     spec, seeds, kw = es.grid_lanes(det_network(lru_network(disk_us=20.0)),
                                     np.asarray(P_GRID), 2000, (0, 1, 2), 0.25,
-                                    torch.device("cuda"))
-    rec["event_sim_max_abs_err"] = hold_sim(
-        "det network", es.sim_lanes(spec, seeds, **kw),
-        es.sim_lanes_plain(spec, seeds, **kw))
+                                    dev)
+    err = hold_sim("det network", es.sim_lanes(spec, seeds, **kw),
+                   es.sim_lanes_plain(spec, seeds, **kw))
+    slots = {}
+    nets = [(f"mpl {mpl}", mpl, lru_network(disk_us=100.0, mpl=mpl,
+                                           disk_servers=2)) for mpl in SIM_MPLS]
+    nets.append(("41-visit route", 24, long_route_network(24)))
+    for name, mpl, net in nets:
+        spec, seeds, kw_t = es.grid_lanes(net, np.asarray((0.5, 0.9)),
+                                          SIM_MPL_REQUESTS, (0, 1), 0.25, dev,
+                                          trace=256)
+        kern = es.sim_lanes(spec, seeds, **untraced(kw_t))
+        kern_t = es.sim_lanes(spec, seeds, **kw_t)
+        plain = es.sim_lanes_plain(spec, seeds, **kw_t)
+        torch.cuda.synchronize()
+        for f in ("x", "completed", "events", "t_measured"):
+            if not torch.equal(getattr(kern, f), getattr(kern_t, f)):
+                raise AssertionError(f"traced kernel != untraced: mpl {mpl} {f}")
+        slots[mpl] = _build.load_library().event_sim_slots(mpl)
+        what = f"{name} (R={slots[mpl]})"
+        err = max(err, hold_sim(what, kern, plain),
+                  hold_sim(f"traced {what}", kern_t, plain))
+        rec["event_sim_traced_max_abs_err"] = max(
+            rec.get("event_sim_traced_max_abs_err", 0.0),
+            hold_trace(what, kern_t, plain, spec.visits[0], exact=False))
+    nets = (lru_network(disk_us=100.0), s3fifo_network(disk_us=100.0),
+            slru_network(disk_us=100.0, disk_servers=2))
+    sweep = sweep_specs("lru")
+    grids = {"3 networks, K/B/Lr padded": (
+        [compile_network(n, p, device=dev) for n, p in zip(nets, (0.6, 0.8, 0.9))],
+        [0, 7, 2001], 1000),
+        "lru sweep's 5 networks": (sweep, [0] * len(sweep), 2000)}
+    for what, (specs, lane_seeds, n_req) in grids.items():
+        grid = es.pad_lanes(specs, lane_seeds, n_req, 0.25)
+        err = max(err, hold_sim(what, es.sim_lanes(*grid[:2], **grid[2]),
+                                es.sim_lanes_plain(*grid[:2], **grid[2])))
+    rec["event_sim_max_abs_err"] = err
+    rec["event_sim_slots"] = slots
 
 
 def hold_trace(what, kern, plain, visits, exact) -> float:
@@ -433,21 +613,20 @@ def check_trace(rec):
         spec, seeds, kw = es.grid_lanes(
             net, np.asarray(P_GRID), TRACE_CHECK_REQUESTS, SEEDS, 0.25,
             torch.device("cuda"), trace=TRACE_CHECK_CAP)
-        untraced_kw = {k: v for k, v in kw.items()
-                       if k not in ("trace_cap", "bmiss")}
         kern = es.sim_lanes(spec, seeds, **kw)
-        untraced = es.sim_lanes(spec, seeds, **untraced_kw)
+        bare = es.sim_lanes(spec, seeds, **untraced(kw))
         plain = es.sim_lanes_plain(spec, seeds, **kw)
         torch.cuda.synchronize()
         for f in ("x", "completed", "events", "t_measured"):
-            if not torch.equal(getattr(kern, f), getattr(untraced, f)):
+            if not torch.equal(getattr(kern, f), getattr(bare, f)):
                 raise AssertionError(f"traced kernel != untraced: {what} {f}")
         print(f"event_sim_traced {what}: x/completed/events == untraced "
               "kernel (bit-identical)", flush=True)
         hold_sim(f"traced {what}", kern, plain)
         err = max(err, hold_trace(what, kern, plain, spec.visits[0],
                                   exact=what.startswith("det")))
-    rec["event_sim_traced_max_abs_err"] = err
+    rec["event_sim_traced_max_abs_err"] = max(
+        rec["event_sim_traced_max_abs_err"], err)
 
 
 def lru_inputs(n_slots, n_acc, padded, seed):
@@ -568,6 +747,33 @@ def main_path(rec):
         print(f"sweep {policy}: p_hit {np.round(sweep['p_hit'].astype(float), 4).tolist()} "
               f"x_sim {np.round(sweep['x_sim'], 4).tolist()}", flush=True)
     rec["main_path"] = out
+
+
+def hold_main_path(rec, launches):
+    """The main path launched the event-sim kernel once per simulated grid
+    and once per sweep, and reproduced ``MAIN_PATH_X``."""
+    import numpy as np
+
+    want = len(DISKS) + 1 + len(POLICY_PARAMS)
+    if launches != want:
+        raise AssertionError(f"the main path launched the event-sim kernel "
+                             f"{launches} times, not {want}")
+    got = rec["main_path"]
+    pairs = [(f"lru disk={d}", got["lru_sim"][d]["x"], x)
+             for d, x in MAIN_PATH_X["lru_sim"].items()]
+    pairs.append(("fifo", got["fifo_sim"], MAIN_PATH_X["fifo_sim"]))
+    pairs += [(f"{p} sweep x_sim", got["sweeps"][p]["x_sim"], x)
+              for p, x in MAIN_PATH_X["x_sim"].items()]
+    worst = 0.0
+    for what, x, ref in pairs:
+        np.testing.assert_allclose(x, ref, rtol=MAIN_PATH_RTOL, err_msg=what)
+        worst = max(worst, float(np.max(np.abs(np.subtract(x, ref))
+                                        / np.abs(ref))))
+    print(f"main path: {launches} event-sim launches; every throughput within "
+          f"{MAIN_PATH_RTOL} of the earlier kernel's (largest relative "
+          f"difference {worst:.3g})", flush=True)
+    rec["main_path_vs_earlier_kernel"] = {"launches": launches,
+                                          "max_rel_diff": worst}
 
 
 def traced_path(rec):
@@ -772,7 +978,7 @@ def full_size(rec):
     spec, seeds, kw_t = es.grid_lanes(
         lru_network(disk_us=100.0), np.asarray(P_GRID), SIM_REQUESTS, SEEDS,
         0.25, torch.device("cuda"), trace=TRACE_FULL)
-    kw = {k: v for k, v in kw_t.items() if k not in ("trace_cap", "bmiss")}
+    kw = untraced(kw_t)
     sim_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw), reps=5)
     traced_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw_t), reps=5)
     out = es.sim_lanes(spec, seeds, **kw)
@@ -805,11 +1011,37 @@ def full_size(rec):
     err = max(err, hold_sim("measured lru@384 network, 1 lane", out_one,
                             plain))
     rec["event_sim_max_abs_err"] = max(rec["event_sim_max_abs_err"], err)
+    # one sweep's launch on the main path: the LRU sweep's five measured
+    # networks as five lanes, bit for bit each network launched alone
+    specs = sweep_specs("lru")
+    sweep = es.pad_lanes(specs, [0] * len(specs), SIM_REQUESTS, 0.25)
+    sweep_ms = cuda_ms(lambda: es.sim_lanes(*sweep[:2], **sweep[2]), reps=5)
+    out_sweep = es.sim_lanes(*sweep[:2], **sweep[2])
+    for i, net_spec in enumerate(specs):
+        cell = es.pad_lanes([net_spec], [0], SIM_REQUESTS, 0.25)
+        alone = es.sim_lanes(*cell[:2], **cell[2])
+        for f in ("x", "completed", "events", "t_measured"):
+            if not torch.equal(getattr(out_sweep, f)[i:i + 1],
+                               getattr(alone, f)):
+                raise AssertionError(f"sweep launch lane {i} != its network "
+                                     f"launched alone: {f}")
+    print("event_sim lru sweep, 5 lanes: each lane == its network launched "
+          "alone (bit-identical)", flush=True)
+    ns_per_event = {  # per event of the launch's longest lane
+        "1 lane": sim_one_lane_ms * 1e6 / int(out_one.events.max()),
+        "5 lanes (sweep)": sweep_ms * 1e6 / int(out_sweep.events.max()),
+        "21 lanes": sim_ms * 1e6 / int(out.events.max()),
+        "21 lanes traced": traced_ms * 1e6 / int(out.events.max())}
+    print("event_sim ms per launch: 1 lane " f"{sim_one_lane_ms:.3f}, 5 lanes "
+          f"{sweep_ms:.3f}, 21 lanes {sim_ms:.3f}, traced {traced_ms:.3f} "
+          f"({traced_ms / sim_ms:.3f}x); ns per event "
+          + json.dumps({k: round(v, 1) for k, v in ns_per_event.items()}),
+          flush=True)
 
     def sim_work(spec, seeds, mpl, out):
         """(bytes, operations) of one untraced launch."""
         nbytes = sum(a.numel() * a.element_size() for a in spec) \
-            + seeds.numel() * 4 + 16 * seeds.numel()
+            + seeds.numel() * 8 + 16 * seeds.numel()
         # per event: two argmin passes over the mpl jobs (compare +
         # select), the ready-time rebase, three murmur3 draws and the
         # service draw
@@ -843,6 +1075,9 @@ def full_size(rec):
         "sim_one_lane_plain_ms": sim_one_plain_ms,
         "sim_one_lane_events": int(out_one.events.long().sum()),
         "sim_one_lane_bytes": one_bytes, "sim_one_lane_ops": one_ops,
+        "sim_sweep_ms": sweep_ms,
+        "sim_sweep_events": out_sweep.events.tolist(),
+        "sim_ns_per_event": ns_per_event,
         "traced_ms": traced_ms, "traced_plain_ms": traced_plain_ms,
         "ring_bytes": ring_bytes,
     }
@@ -1854,8 +2089,10 @@ def main() -> int:
     card = phases.run("device", card_line)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    ptxas = start_event_sim_ptxas()
     phases.run("build", _build.load_library)
     rec = {"card": card}
+    phases.run("event_sim_ptxas", event_sim_ptxas, ptxas, rec)
     phases.run("sass", sass_counts, rec)
     phases.run("replay_vs_plain", check_replay, rec)
     phases.run("event_sim_vs_plain", check_event_sim, rec)
@@ -1870,6 +2107,7 @@ def main() -> int:
     phases.run("main_path", main_path, rec)
     launches = {"replay": kr.replay_lanes.launches,
                 "event_sim": es.sim_lanes.launches}
+    hold_main_path(rec, launches["event_sim"])
     es.sim_lanes.traced_launches = 0
     phases.run("traced_path", traced_path, rec)
     launches["event_sim_traced"] = es.sim_lanes.traced_launches

@@ -35,7 +35,7 @@ from repro_torch.core.queueing import (
     coalesced_network,
     disk_station,
 )
-from repro_torch.core.simulator import simulate_network
+from repro_torch.kernels.event_sim import simulate_cells
 from repro_torch.kernels.replay import replay_grid_fused, unpack_grid_ops
 
 
@@ -362,7 +362,8 @@ def sweep_cache_sizes(
     size) — turns on classification and adds the per-size columns
     ``p_true_hit``, ``p_delayed``, ``sigma`` and ``x_bound_coalesced``.
     ``simulate=True`` adds ``x_sim``: each measured-profile network
-    simulated at its measured hit ratio (``sim_requests``, seed 0).
+    simulated at its measured hit ratio (``sim_requests``, seed 0), every
+    size a lane of one event-sim launch.
 
     Returns dict of np arrays: size, p_hit, x_bound (+ the columns above).
     """
@@ -396,6 +397,7 @@ def sweep_cache_sizes(
     service = dataclasses.replace(
         PAPER_SERVICES.get(policy, ServiceTimes()), disk=disk_us
     )
+    networks = []
     for i, (c, w) in enumerate(zip(sizes, windows)):
         meas = empirical_network(policy, hits_g[i], ops_g[i],
                                  service=service, mpl=mpl,
@@ -427,9 +429,10 @@ def sweep_cache_sizes(
             out["x_bound_coalesced"].append(
                 float(meas.coalesced_throughput_bound())
             )
-        if simulate:
-            sim = simulate_network(meas.network, [meas.hit_ratio],
-                                   n_requests=sim_requests, seeds=(0,),
-                                   device=dev)
-            out["x_sim"].append(float(sim.throughput[0]))
+        networks.append((meas.network, meas.hit_ratio, 0))
+    if simulate:
+        # every size's network a lane of one launch, each on the lane seed
+        # simulate_network(..., seeds=(0,)) gives it: 0 * 1000 + p index 0
+        out["x_sim"] = [float(x) for x in simulate_cells(
+            networks, n_requests=sim_requests, device=dev)]
     return {k: np.asarray(v) for k, v in out.items() if v}

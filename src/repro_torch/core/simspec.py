@@ -3,8 +3,9 @@
 :func:`compile_network` freezes a :class:`~repro_torch.core.queueing.ClosedNetwork`
 at one hit ratio into flat arrays (:class:`SimSpec`) that an event loop
 indexes with station ids; :func:`stack_specs` stacks a grid of them along a
-leading lane axis.  The arrays are built in numpy exactly as the JAX
-package builds them and then placed on the requested device as tensors.
+leading lane axis, padding networks of different shapes.  The arrays are
+built in numpy exactly as the JAX package builds them and then placed on
+the requested device as tensors.
 
 :class:`SimResult` is the closed-loop summary the simulator returns.
 """
@@ -114,15 +115,43 @@ def compile_network(net: ClosedNetwork, p_hit: float,
 
 
 def stack_specs(specs: Sequence[SimSpec]) -> SimSpec:
-    """Stack per-p_hit specs along a leading lane axis."""
+    """Stack specs along a leading lane axis, padded to the largest station
+    (K), branch (B) and route (Lr) counts.
+
+    Padding changes no lane's trajectory: padded stations are never
+    visited; padded routes end at their first ``-1`` as before; padded
+    branches carry a cumulative law of 2.0, above every uniform, and a
+    copy of the lane's last real route, so a draw above the lane's last
+    cumulative value picks branch ``B_lane`` and reads that copy, as the
+    unpadded clamped gather ``visits[min(b, B_lane - 1)]`` reads its last
+    row.  Specs of one shape are stacked unchanged.
+    """
     mpl = specs[0].mpl
     if any(s.mpl != mpl for s in specs):
         raise ValueError("stacked specs must share one mpl")
-    return SimSpec(
-        *[torch.stack([getattr(s, f) for s in specs])
-          for f in SimSpec._fields[:-1]],
-        mpl=mpl,
-    )
+    n_k = max(s.svc_ns.shape[0] for s in specs)
+    n_b = max(s.visits.shape[0] for s in specs)
+    n_r = max(s.visits.shape[1] for s in specs)
+
+    def pad(s: SimSpec) -> list[torch.Tensor]:
+        dk = n_k - s.svc_ns.shape[0]
+        b, r = s.visits.shape
+
+        def more(a: torch.Tensor, value, rows: int) -> torch.Tensor:
+            return torch.cat([a, torch.full((rows, *a.shape[1:]), value,
+                                            dtype=a.dtype, device=a.device)])
+
+        visits = torch.cat([s.visits, torch.full(
+            (b, n_r - r), -1, dtype=s.visits.dtype, device=s.visits.device)],
+            dim=1)
+        visits = torch.cat([visits, visits[-1:].expand(n_b - b, n_r)])
+        return [more(s.is_queue, False, dk), more(s.svc_ns, 1.0, dk),
+                more(s.dist_id, 0, dk), more(s.dist_params, 1.0, dk),
+                more(s.branch_cum, 2.0, n_b - b), visits,
+                more(s.servers, 1, dk), more(s.disk_rank, -1, dk)]
+
+    padded = [pad(s) for s in specs]
+    return SimSpec(*[torch.stack(col) for col in zip(*padded)], mpl=mpl)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,12 +25,17 @@ __all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "compile_network",
 
 # Options of the reference that this slice of the port does not carry yet,
 # each with the ROADMAP item that ports it.
+# Each is refused when it differs from the reference's default (second).
 _LATER = {
-    "coalesce_flows": "ROADMAP queue 1, item 6.2 (MSHR coalescing)",
-    "arrival_rate": "ROADMAP queue 1, item 6.3 (open loop)",
-    "burst": "ROADMAP queue 1, item 6.3 (open loop, ON-OFF bursts)",
-    "tiers": "ROADMAP queue 1, item 6.4 (tiered MSHR tables)",
-    "sketch_cap": "ROADMAP queue 1, item 8 (streaming sketches)",
+    "coalesce_flows": ("ROADMAP queue 1, item 6.2 (MSHR coalescing)", 0),
+    "coalesce_theta": ("ROADMAP queue 1, item 6.2 (Zipf-weighted hot-key "
+                       "flows)", 0.0),
+    "arrival_rate": ("ROADMAP queue 1, item 6.3 (open loop)", None),
+    "max_in_system": ("ROADMAP queue 1, item 6.3 (open loop job slots)", 128),
+    "burst": ("ROADMAP queue 1, item 6.3 (open loop, ON-OFF bursts)", None),
+    "tiers": ("ROADMAP queue 1, item 6.4 (tiered MSHR tables)", None),
+    "sketch_cap": ("ROADMAP queue 1, item 8 (streaming sketches)", 0),
+    "window_us": ("ROADMAP queue 1, item 8 (streaming sketch windows)", 0.0),
 }
 
 
@@ -41,11 +46,15 @@ def simulate_network(
     seeds=(0, 1, 2),
     warmup_frac: float = 0.25,
     coalesce_flows: int = 0,
+    coalesce_theta: float = 0.0,
     arrival_rate=None,
+    max_in_system: int = 128,
     burst=None,
+    backend: str = "pallas",
     tiers=None,
     trace: int = 0,
     sketch_cap: int = 0,
+    window_us: float = 0.0,
     device: str = "cuda",
 ) -> SimResult:
     """Simulate ``net`` over a grid of hit ratios (closed loop).
@@ -61,17 +70,31 @@ def simulate_network(
     ``traces``, ``[seed][p]``; the statistics are the untraced run's bit
     for bit.
 
-    ``coalesce_flows``, ``arrival_rate``, ``burst``, ``tiers`` and
-    ``sketch_cap`` belong to later slices of the port and raise
-    :class:`NotImplementedError` naming their ROADMAP item.
+    The keywords are the reference's.  ``backend`` names the engine: the
+    port has one, the reference's counter-RNG ``"pallas"`` engine, so that
+    is its default and ``"jax"`` (the reference's threefry engine) raises
+    :class:`ValueError`.  ``coalesce_flows``, ``coalesce_theta``,
+    ``arrival_rate``, ``max_in_system``, ``burst``, ``tiers``,
+    ``sketch_cap`` and ``window_us`` belong to later slices of the port:
+    away from their defaults they raise :class:`NotImplementedError`
+    naming their ROADMAP item.
     """
-    later = {"coalesce_flows": coalesce_flows, "arrival_rate": arrival_rate,
-             "burst": burst, "tiers": tiers, "sketch_cap": sketch_cap}
-    for name, value in later.items():
-        if value is None or (isinstance(value, (int, float)) and value == 0):
+    if backend not in ("jax", "pallas"):
+        raise ValueError(f"unknown backend {backend!r} (want 'jax' or "
+                         "'pallas')")
+    if backend == "jax":
+        raise ValueError("backend='jax' is the reference's threefry engine, "
+                         "which the port does not have: its one engine is "
+                         "the counter-RNG engine of backend='pallas'")
+    given = {"coalesce_flows": coalesce_flows,
+             "coalesce_theta": coalesce_theta, "arrival_rate": arrival_rate,
+             "max_in_system": max_in_system, "burst": burst, "tiers": tiers,
+             "sketch_cap": sketch_cap, "window_us": window_us}
+    for name, value in given.items():
+        item, default = _LATER[name]
+        if value is default or (default is not None and value == default):
             continue
         raise NotImplementedError(
-            f"simulate_network({name}=...) is not ported yet: "
-            f"{_LATER[name]}")
+            f"simulate_network({name}=...) is not ported yet: {item}")
     return simulate_grid(net, p_hits, n_requests=n_requests, seeds=seeds,
                          warmup_frac=warmup_frac, trace=trace, device=device)

@@ -34,9 +34,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "replay_launch": ([_I] + [_P] * 9 + [_I] * 4 + [_P], _I),
     "replay_shared_bytes": ([_I, _I], _I),
-    "event_sim_launch": ([_P] * 12 + [_I] * 8 + [_P], _I),
-    "event_sim_traced_launch": ([_P] * 21 + [_I] * 9 + [_P], _I),
-    "event_sim_shared_bytes": ([_I] * 4, _I),
+    "event_sim_launch": ([_P] * 13 + [_I] * 7 + [_P], _I),
+    "event_sim_traced_launch": ([_P] * 22 + [_I] * 8 + [_P], _I),
+    "event_sim_shared_bytes": ([_I] * 5, _I),
+    "event_sim_slots": ([_I], _I),
     "lru_update_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "lru_update_blocks": ([_I], _I),
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),

@@ -1,9 +1,9 @@
-// Event-sim kernel: one (p_hit, seed) lane of the closed network per warp.
+// Event-sim kernel: one lane of the closed network per warp.
 //
 // Replaces the TPU kernels src/repro/kernels/event_sim.py::_sim_kernel and,
-// as the kTrace = true instantiation, ::_sim_kernel_traced (both launched
-// by _pallas_grid, entry simulate_grid_pallas).  Each lane runs
-// the closed-loop event simulation of `mpl` jobs: per event it draws three
+// as the kTrace > 0 instantiations, ::_sim_kernel_traced (both launched
+// by _pallas_grid, entry simulate_grid_pallas).  Each lane runs the
+// closed-loop event simulation of `mpl` jobs: per event it draws three
 // murmur3 counter uniforms, takes the argmin of the job ready times,
 // hands a c-server FIFO station to its successor by enqueue sequence,
 // advances the route (resampling the branch when a request completes)
@@ -11,41 +11,71 @@
 // the plain version (sim_lanes_plain), event for event.
 //
 // What bounds it on an H100: neither bytes nor operations, but the serial
-// dependence between consecutive events of a lane — each event's argmin
-// reads the ready times the previous event wrote.  The design keeps the
-// lane's job state in shared memory, strides the mpl jobs over the 32
-// threads of one warp (the two argmins are warp-shuffle reductions, no
-// block barriers), and runs lanes in parallel across SMs.  Nothing more
-// yet: at the main path's 7- and 1-lane grids most SMs sit idle.
+// dependence between consecutive events of a lane: each event's argmin
+// reads the ready times the previous event wrote.  So the design shortens
+// that chain and keeps everything else off it:
+//   * the lane's spec tables are staged in shared memory once, before the
+//     loop; no global read remains inside it;
+//   * job i = me + 32 r lives in slot r of thread me, in registers
+//     (R = 1, 2, 4, 8 slots: mpl <= 256); only the owner updates a job,
+//     and the warp learns job j's place by one __shfl_sync from its owner,
+//     so no job state crosses threads through memory and needs no fence.
+//     Larger mpl keeps the same layout in shared memory (R = 0), each
+//     thread still touching only its own jobs;
+//   * the argmins are __reduce_min_sync (redux.sync): the value, then the
+//     lowest index among the threads holding it;
+//   * ready times are absolute, modulo 2**32 (clock + service); a job's
+//     remaining time is ready - clock, exact because it never exceeds one
+//     service (< 2**31), so no pass rewrites the ready times;
+//   * a queue station's busy servers are not stored: they are the jobs in
+//     service there, counted by one __reduce_add_sync;
+//   * an event's uniforms, its service draw at every station and its
+//     branch draw depend on the event counter only.  So every 32 events
+//     the warp draws the next 32 at once, one event per thread: the
+//     stations are visited in the same order by every thread, so only
+//     the laws present are computed (a warp-uniform branch), and the
+//     draws go to a shared table that the chain reads by (event,
+//     station); the branch draws stay in the drawing thread's registers
+//     and reach the chain by __shfl_sync.  One __syncwarp() on each side
+//     of a batch orders the table.
+// One block of one warp per lane; lanes run in parallel across SMs, and a
+// grid may hold networks of different shapes (padded by stack_specs, with
+// a per-lane event budget).
 //
-// Execution model: all 32 threads run the scalar event logic on the same
-// shared values; thread 0 writes the scalar-owned entries, and
-// __syncwarp() separates writes from the reads around them.
-//
-// Tracing (kTrace): the per-job enter/leave stamps of the current request
-// (mpl x L floats each) sit in shared memory after `busy`; a completed
-// request's record goes straight to the lane's ring in global memory at
-// row req % cap (thread 0 the scalars, threads 0..L-1 the two stamp rows),
-// one write per completion.  The ring's scrap row is never written (the
-// reference parks its masked writes there; decode drops it).  Tracing
-// draws no random numbers, so both instantiations simulate the same events;
-// the untraced one compiles no trace code.
+// Tracing (kTrace 1; kTrace 2 for routes over 32 visits, whose extra stamp
+// slots cost the common case time even as a branch never taken): the
+// per-job enter/leave stamps of the current request (mpl x L floats each)
+// sit in shared memory; stamp slot v of every job is read and written only
+// by thread v % 32, so it needs no fence either.  A completed request's
+// record goes to the lane's ring in global memory at row req % cap.  The
+// record and the stamps are held in registers and stored at the top of
+// the next event, where nothing they need is still in flight (stored at
+// once, they stalled the chain: 1.33x the untraced time); each field of a
+// record has one writing thread, the others store to the ring's scrap row,
+// where the reference parks its masked writes (decode drops it).  Tracing
+// draws no random numbers, so all instantiations simulate the same
+// events; the untraced one compiles no trace code.
 //
 // Where bit-exactness with the JAX reference could break:
-//   * argmin ties: jnp.argmin returns the FIRST index; both shuffle
-//     reductions compare (value, index) pairs lexicographically.
-//   * index semantics: pick_branch may return B when u > branch_cum[B-1]
+//   * argmin ties: jnp.argmin returns the FIRST index.  Each thread keeps
+//     its lowest index among equal remaining times, and the second
+//     reduction takes the lowest of those.  A job's remaining time is the
+//     reference's relative ready time exactly, so t, j and every later
+//     integer are the reference's.
+//   * index semantics: count_below may return B when u > branch_cum[B-1]
 //     (float32 rounding of the cumulative law); JAX clamps the gather
 //     visits[B, .] to row B-1, and so does every visits read below.
-//   * RNG: _mix is native uint32 arithmetic with wraparound, as in JAX.
+//   * RNG: mix is native uint32 arithmetic with wraparound, as in JAX.
 //   * float32 rounding: u01 uses the float32 constants of the reference
 //     (2^-24 and the clip to [float32(1e-7), float32(1 - 1e-7)]);
 //     jnp.round is round-half-to-even, which is rintf here, not roundf;
 //     the clock update elapsed_us + t * 1e-3 is one fused multiply-add
 //     (__fmaf_rn), as XLA's CPU backend compiles the reference's, and
-//     -fmad=false keeps every other multiply and add unfused.  logf/powf
-//     may differ from XLA's float32 log/pow in the last ulp, so
-//     exponential and Pareto service draws are held statistically;
+//     -fmad=false keeps every other multiply and add unfused.  The
+//     Pareto constants 1 - (lo/hi)^alpha and -1/alpha are folded per
+//     station with the same float32 operations.  logf/powf may differ
+//     from XLA's float32 log/pow in the last ulp, so exponential and
+//     Pareto service draws are held statistically against the reference;
 //     deterministic service is exact.
 
 #include <cuda_runtime.h>
@@ -55,24 +85,13 @@
 
 namespace {
 
-constexpr int IMAX = INT_MAX;
-constexpr int INF_NS = INT_MAX;
-constexpr int BIG_SEQ = INT_MAX;
+constexpr int BIG_SEQ = INT_MAX;       // enq of a job in service
+constexpr int NO_JOB = -1;             // station and enq of an unused slot
+constexpr uint32_t NEVER = 0xffffffffu;  // remaining time of a waiting job
 constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr int CLS_MISS = 0;
 constexpr int CLS_HIT = 1;
-
-struct Spec {
-  const int* isq;     // (K) is_queue
-  const float* svc;   // (K) mean service, ns
-  const int* did;     // (K) 0 det, 1 exp, 2 bounded pareto
-  const float* dpar;  // (K, 4) alpha, lo, hi, raw_mean
-  const float* bcum;  // (B) cumulative branch law
-  const int* visits;  // (B, Lr) station ids, -1 padded
-  const int* servers; // (K)
-  int n_b, n_l;
-};
 
 __device__ __forceinline__ uint32_t mix(uint32_t x) {
   x ^= x >> 16;
@@ -89,23 +108,62 @@ __device__ __forceinline__ float u01(uint32_t base, int ctr) {
   return fminf(fmaxf(u, static_cast<float>(1e-7)), static_cast<float>(1.0 - 1e-7));
 }
 
-// _service_ns: ns, int >= 1, with the uniform from the counter stream.
-__device__ int service_ns(float u, const Spec& s, int k) {
-  const float mean = s.svc[k];
-  const int d = s.did[k];
-  float unit = 0.0f;  // jnp.select's default
-  if (d == 0) {
-    unit = 1.0f;
-  } else if (d == 1) {
-    unit = -logf(u);
-  } else if (d == 2) {
-    const float alpha = s.dpar[4 * k], lo = s.dpar[4 * k + 1],
-                hi = s.dpar[4 * k + 2], raw = s.dpar[4 * k + 3];
-    const float ratio = 1.0f - powf(lo / hi, alpha);
-    unit = lo * powf(1.0f - u * ratio, -1.0f / alpha) / raw;
-  }
-  return static_cast<int>(fmaxf(rintf(unit * mean), 1.0f));
+// A station's service law, with the Pareto constants folded.
+struct Law {
+  float mean, lo, ratio, neg_inv, raw;
+  int dist;  // 0 det, 1 exp, 2 bounded pareto
+};
+
+__device__ Law make_law(const float* svc, const int* did, const float* dpar,
+                        int k) {
+  const float alpha = dpar[4 * k], lo = dpar[4 * k + 1], hi = dpar[4 * k + 2];
+  Law w;
+  w.mean = svc[k];
+  w.dist = did[k];
+  w.lo = lo;
+  w.raw = dpar[4 * k + 3];
+  w.ratio = 1.0f - powf(lo / hi, alpha);
+  w.neg_inv = -1.0f / alpha;
+  return w;
 }
+
+// _service_ns: ns, int >= 1, from the uniform u.
+__device__ __forceinline__ int service_ns(float u, const Law& w) {
+  float unit = 0.0f;  // jnp.select's default
+  if (w.dist == 0) {
+    unit = 1.0f;
+  } else if (w.dist == 1) {
+    unit = -logf(u);
+  } else if (w.dist == 2) {
+    unit = w.lo * powf(1.0f - u * w.ratio, w.neg_inv) / w.raw;
+  }
+  return static_cast<int>(fmaxf(rintf(unit * w.mean), 1.0f));
+}
+
+// searchsorted-left over the cumulative branch law (may return n_b).
+__device__ int count_below(const float* cum, int n_b, float u) {
+  int n = 0;
+  for (int b = 0; b < n_b; ++b) n += cum[b] < u ? 1 : 0;
+  return n;
+}
+
+// Inputs and outputs; spec arrays are (lanes, ...) as _LaneSpec.
+struct Args {
+  const int* isq;        // (K) is_queue
+  const float* svc;      // (K) mean service, ns
+  const int* did;        // (K)
+  const float* dpar;     // (K, 4) alpha, lo, hi, raw_mean
+  const float* bcum;     // (B) cumulative branch law
+  const int* visits;     // (B, Lr) station ids, -1 padded
+  const int* servers;    // (K)
+  const int* seeds;      // lane seeds
+  const int* max_events; // lane event budgets
+  float* x;
+  int* completed;
+  int* events;
+  float* tmeas;
+  int n_k, n_b, n_l, mpl, n_requests, warmup;
+};
 
 // The traced kernel's extra input and outputs; rows are (lanes, cap + 1)
 // and stamp rows (lanes, cap + 1, L), as TraceRings in repro_torch.
@@ -122,242 +180,424 @@ struct Rings {
   int cap;
 };
 
-// searchsorted-left over the cumulative branch law (may return n_b), for
-// a uniform that differs per thread.
-__device__ int count_below(const Spec& s, float u) {
-  int n = 0;
-  for (int b = 0; b < s.n_b; ++b) n += s.bcum[b] < u ? 1 : 0;
-  return n;
+// Register slots per thread for mpl jobs; 0: job state in shared memory.
+__host__ __device__ constexpr int reg_slots(int mpl) {
+  return mpl <= 32 ? 1 : mpl <= 64 ? 2 : mpl <= 128 ? 4 : mpl <= 256 ? 8 : 0;
 }
 
-// The same for a uniform shared by the warp: one ballot per 32 branches.
-__device__ int pick_branch(const Spec& s, float u) {
-  int n = 0;
-  for (int b0 = 0; b0 < s.n_b; b0 += 32) {
-    const int b = b0 + (threadIdx.x & 31);
-    n += __popc(__ballot_sync(FULL, b < s.n_b && s.bcum[b] < u));
+// Events drawn at once, one per thread of the warp.
+constexpr int kBatch = 32;
+
+// Byte offsets of a lane's shared memory: (K) queue info {is_queue,
+// servers}, (K) laws, (kBatch events, 2 draws, K) service draws, (B, Lr)
+// visits, (B) branch law; traced, (B) miss classes, the (mpl, Lr) enter
+// and leave stamps and a word per thread for stores that go nowhere; with
+// R = 0, six (mpl) job arrays.
+struct Layout {
+  int q, law, draw, vis, cum, miss, enter, leave, trash, jobs, bytes;
+};
+
+__host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
+                                         bool trace, bool smem_jobs) {
+  Layout s;
+  int o = 0;
+  s.q = o;
+  o += 8 * n_k;
+  s.law = o;
+  o += static_cast<int>(sizeof(Law)) * n_k;
+  s.draw = o;
+  o += 4 * kBatch * 2 * n_k;
+  s.vis = o;
+  o += 4 * n_b * n_l;
+  s.cum = o;
+  o += 4 * n_b;
+  s.miss = o;
+  o += trace ? 4 * n_b : 0;
+  s.enter = o;
+  o += trace ? 4 * mpl * n_l : 0;
+  s.leave = o;
+  o += trace ? 4 * mpl * n_l : 0;
+  s.trash = o;
+  o += trace ? 4 * 32 : 0;
+  s.jobs = o;
+  o += smem_jobs ? 24 * mpl : 0;
+  s.bytes = o;
+  return s;
+}
+
+// A thread's jobs: slot r holds job me + 32 r.  Fields: absolute ready
+// time (mod 2**32), station, next station on the route (-1: the request
+// completes there), branch, position, enqueue sequence (BIG_SEQ in
+// service, NO_JOB for an unused slot).
+template <int R>
+struct Jobs {
+  uint32_t ready_[R];
+  int st_[R], nx_[R], br_[R], pos_[R], enq_[R];
+  __device__ __forceinline__ void bind(unsigned char*, int, int) {}
+  __device__ __forceinline__ int slots() const { return R; }
+  __device__ __forceinline__ uint32_t& ready(int r) { return ready_[r]; }
+  __device__ __forceinline__ int& st(int r) { return st_[r]; }
+  __device__ __forceinline__ int& nx(int r) { return nx_[r]; }
+  __device__ __forceinline__ int& br(int r) { return br_[r]; }
+  __device__ __forceinline__ int& pos(int r) { return pos_[r]; }
+  __device__ __forceinline__ int& enq(int r) { return enq_[r]; }
+  // f(rj) on slot rj (none for rj < 0), through constant indices: the
+  // slots stay registers
+  template <class F>
+  __device__ __forceinline__ void at(int rj, F f) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r == rj) f(r);
   }
-  return n;
-}
+};
 
-// visits[b, pos] with JAX's clamped gather on the branch index.
-__device__ __forceinline__ int visit(const Spec& s, int b, int pos) {
-  return s.visits[min(b, s.n_b - 1) * s.n_l + pos];
-}
-
-__device__ __forceinline__ void pick_min(int& v, int& i, int v2, int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
+// mpl > 256: the same slots in shared memory, arrays indexed by job.
+template <>
+struct Jobs<0> {
+  uint32_t* ready_;
+  int *st_, *nx_, *br_, *pos_, *enq_;
+  int n_;
+  __device__ void bind(unsigned char* p, int mpl, int me) {
+    int* a = reinterpret_cast<int*>(p) + me;
+    ready_ = reinterpret_cast<uint32_t*>(a);
+    st_ = a + mpl;
+    nx_ = a + 2 * mpl;
+    br_ = a + 3 * mpl;
+    pos_ = a + 4 * mpl;
+    enq_ = a + 5 * mpl;
+    n_ = me < mpl ? (mpl - 1 - me) / 32 + 1 : 0;
   }
-}
-
-// Butterfly (value, index) argmin: every lane gets the first minimum.
-__device__ __forceinline__ void warp_argmin(int& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const int v2 = __shfl_xor_sync(FULL, v, off);
-    const int i2 = __shfl_xor_sync(FULL, i, off);
-    pick_min(v, i, v2, i2);
+  __device__ __forceinline__ int slots() const { return n_; }
+  __device__ __forceinline__ uint32_t& ready(int r) { return ready_[32 * r]; }
+  __device__ __forceinline__ int& st(int r) { return st_[32 * r]; }
+  __device__ __forceinline__ int& nx(int r) { return nx_[32 * r]; }
+  __device__ __forceinline__ int& br(int r) { return br_[32 * r]; }
+  __device__ __forceinline__ int& pos(int r) { return pos_[32 * r]; }
+  __device__ __forceinline__ int& enq(int r) { return enq_[32 * r]; }
+  template <class F>
+  __device__ __forceinline__ void at(int rj, F f) {
+    if (rj >= 0 && rj < n_) f(rj);
   }
-}
+};
 
-template <bool kTrace>
-__global__ void __launch_bounds__(32)
-    sim_kernel(const int* __restrict__ isq, const float* __restrict__ svc,
-               const int* __restrict__ did, const float* __restrict__ dpar,
-               const float* __restrict__ bcum, const int* __restrict__ visits,
-               const int* __restrict__ servers, const int* __restrict__ seeds,
-               float* __restrict__ x_out, int* __restrict__ completed_out,
-               int* __restrict__ events_out, float* __restrict__ tmeas_out,
-               Rings rings, int n_k, int n_b, int n_l, int mpl,
-               int n_requests, int warmup, int max_events) {
-  extern __shared__ int sm[];
-  int* ready = sm;             // (mpl) ns until done, INF_NS while waiting
-  int* station = ready + mpl;  // (mpl)
-  int* branch = station + mpl; // (mpl)
-  int* pos = branch + mpl;     // (mpl)
-  int* enq = pos + mpl;        // (mpl) enqueue sequence, BIG_SEQ if none
-  int* busy = enq + mpl;       // (K) busy servers per station
-  // kTrace only: (mpl, L) enter / leave stamps of each job's request, µs
-  float* enter_s = reinterpret_cast<float*>(busy + n_k);
-  float* leave_s = enter_s + mpl * n_l;
-
+template <int kTrace, int R>
+__global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane_id = blockIdx.x;
   const int me = threadIdx.x;
-  Spec s{isq + lane_id * n_k,     svc + lane_id * n_k,
-         did + lane_id * n_k,     dpar + lane_id * n_k * 4,
-         bcum + lane_id * n_b,    visits + lane_id * n_b * n_l,
-         servers + lane_id * n_k, n_b, n_l};
-  const uint32_t base = mix(static_cast<uint32_t>(seeds[lane_id]) + GOLDEN);
+  const int n_k = a.n_k, n_b = a.n_b, n_l = a.n_l, mpl = a.mpl;
+  const Layout lay = layout(n_k, n_b, n_l, mpl, kTrace > 0, R == 0);
+  int2* q = reinterpret_cast<int2*>(smem + lay.q);
+  Law* law = reinterpret_cast<Law*>(smem + lay.law);
+  int* draw = reinterpret_cast<int*>(smem + lay.draw);
+  int* vis = reinterpret_cast<int*>(smem + lay.vis);
+  float* cum = reinterpret_cast<float*>(smem + lay.cum);
+  int* miss = reinterpret_cast<int*>(smem + lay.miss);
+  float* enter_s = reinterpret_cast<float*>(smem + lay.enter);
+  float* leave_s = reinterpret_cast<float*>(smem + lay.leave);
+  float* trash = reinterpret_cast<float*>(smem + lay.trash);
 
-  // init: every job starts a request at its (think) first station
-  for (int i = me; i < mpl; i += 32) {
-    const int b = count_below(s, u01(base, i));
-    const int st = visit(s, b, 0);
-    ready[i] = service_ns(u01(base, mpl + i), s, st);
-    station[i] = st;
-    branch[i] = b;
-    pos[i] = 0;
-    enq[i] = BIG_SEQ;
-  }
-  for (int k = me; k < n_k; k += 32) busy[k] = 0;
-  if constexpr (kTrace) {
-    for (int i = me; i < 2 * mpl * n_l; i += 32) enter_s[i] = 0.0f;
+  // stage the lane's spec
+  {
+    const int ok = lane_id * n_k;
+    for (int k = me; k < n_k; k += 32) {
+      q[k] = make_int2(a.isq[ok + k], a.servers[ok + k]);
+      law[k] = make_law(a.svc + ok, a.did + ok, a.dpar + 4 * ok, k);
+    }
+    for (int i = me; i < n_b * n_l; i += 32) vis[i] = a.visits[lane_id * n_b * n_l + i];
+    for (int b = me; b < n_b; b += 32) {
+      cum[b] = a.bcum[lane_id * n_b + b];
+      if constexpr (kTrace > 0) miss[b] = rings.bmiss[lane_id * n_b + b];
+    }
+    if constexpr (kTrace > 0) {
+      for (int i = me; i < 2 * mpl * n_l; i += 32) enter_s[i] = 0.0f;
+    }
   }
   __syncwarp();
 
-  int seq_ctr = 0, completed = 0, warm_completed = -1, ctr = 2 * mpl,
-      events = 0;
+  // visits[b, p] with JAX's clamped gather on the branch index, and the
+  // station after position p (-1 past the route's end)
+  auto visit = [&](int b, int p) { return vis[min(b, n_b - 1) * n_l + p]; };
+  auto after = [&](int b, int p) { return p + 1 < n_l ? visit(b, p + 1) : -1; };
+
+  const uint32_t base = mix(static_cast<uint32_t>(a.seeds[lane_id]) + GOLDEN);
+  const int max_events = a.max_events[lane_id];
+
+  // init: every job starts a request at its (think) first station
+  Jobs<R> jobs;
+  jobs.bind(smem + lay.jobs, mpl, me);
+#pragma unroll
+  for (int r = 0; r < jobs.slots(); ++r) {
+    const int i = me + 32 * r;
+    if (i < mpl) {
+      const int b = count_below(cum, n_b, u01(base, i));
+      const int st = visit(b, 0);
+      jobs.ready(r) = static_cast<uint32_t>(service_ns(u01(base, mpl + i), law[st]));
+      jobs.st(r) = st;
+      jobs.nx(r) = after(b, 0);
+      jobs.br(r) = b;
+      jobs.pos(r) = 0;
+      jobs.enq(r) = BIG_SEQ;
+    } else {
+      jobs.ready(r) = NEVER;
+      jobs.st(r) = NO_JOB;
+      jobs.nx(r) = NO_JOB;
+      jobs.br(r) = 0;
+      jobs.pos(r) = 0;
+      jobs.enq(r) = NO_JOB;
+    }
+  }
+
+  uint32_t clock = 0;
+  int seq_ctr = 0, completed = 0, warm_completed = -1, events = 0;
   float elapsed_us = 0.0f, warm_elapsed_us = 0.0f;
-  while (completed < n_requests && events < max_events) {
-    const float u_svc1 = u01(base, ctr), u_svc2 = u01(base, ctr + 1),
-                u_branch = u01(base, ctr + 2);
-    ctr += 3;
-
-    int t = IMAX, j = IMAX;
-    for (int i = me; i < mpl; i += 32) pick_min(t, j, ready[i], i);
-    warp_argmin(t, j);
-    elapsed_us = __fmaf_rn(static_cast<float>(t), static_cast<float>(1e-3), elapsed_us);
-    const int k_cur = station[j];
-    __syncwarp();
-    for (int i = me; i < mpl; i += 32) {
-      const int r = ready[i];
-      ready[i] = r < INF_NS ? r - t : INF_NS;
-    }
-    __syncwarp();
-
-    // hand the server job j held (if any) to its FIFO successor
-    if (s.isq[k_cur]) {
-      int seq = BIG_SEQ, w = IMAX;
-      for (int i = me; i < mpl; i += 32) {
-        const bool waiting = i != j && station[i] == k_cur && ready[i] == INF_NS;
-        pick_min(seq, w, waiting ? enq[i] : BIG_SEQ, i);
+  // this thread's event of the batch: its branch draw, the branch's first
+  // station and the station after it
+  int my_branch = 0, my_first = 0, my_first_nx = 0;
+  int slot = kBatch;  // the current event's place in its batch
+  int ring_row = 0;   // kTrace: completed % cap
+  // kTrace: one event's trace stores, made at the top of the next event
+  // (and after the last), where nothing they need is still in flight
+  struct {
+    bool done = false;
+    size_t row = 0;
+    int req = 0, branch = 0, miss = 0, nvis = 0;
+    float enter = 0.0f, leave = 0.0f;  // this thread's slot of the record
+    float *enter_at, *leave_at;         // this thread's stamp slot of job j
+    float enter_stamp = 0.0f, leave_stamp = 0.0f;
+  } tr;
+  tr.enter_at = tr.leave_at = trash + me;
+  auto store_trace = [&]() {
+    if constexpr (kTrace > 0) {
+      *tr.leave_at = tr.leave_stamp;
+      *tr.enter_at = tr.enter_stamp;
+      if (tr.done) {  // threads other than 0 and past the route: scrap row
+        const size_t scrap = static_cast<size_t>(lane_id) * (rings.cap + 1) + rings.cap;
+        const size_t row0 = me == 0 ? tr.row : scrap;
+        rings.req[row0] = tr.req;
+        rings.branch[row0] = tr.branch;
+        rings.cls[row0] = tr.miss ? CLS_MISS : CLS_HIT;
+        rings.nvis[row0] = tr.nvis;
+        rings.parked[row0] = 0.0f;
+        const size_t row_v = (me < n_l ? tr.row : scrap) * n_l + min(me, n_l - 1);
+        rings.enter[row_v] = tr.enter;
+        rings.leave[row_v] = tr.leave;
       }
-      warp_argmin(seq, w);
-      const int svc_ns = service_ns(u_svc1, s, k_cur);
-      const int busy_cur = busy[k_cur];
-      __syncwarp();
-      if (me == 0) {
-        if (seq < BIG_SEQ) {
-          ready[w] = svc_ns;
-          enq[w] = BIG_SEQ;
-        } else {
-          busy[k_cur] = busy_cur - 1;
-        }
+    }
+  };
+  while (completed < a.n_requests && events < max_events) {
+    store_trace();
+    if (slot == kBatch) {
+      // draw the next kBatch events, event e = events + me here (its
+      // counters 2 mpl + 3 e + {0, 1, 2})
+      __syncwarp();  // the last batch's table reads are done
+      const int ctr = 2 * mpl + 3 * (events + me);
+      const float u1 = u01(base, ctr), u2 = u01(base, ctr + 1);
+      my_branch = count_below(cum, n_b, u01(base, ctr + 2));
+      my_first = visit(my_branch, 0);
+      my_first_nx = after(my_branch, 0);
+      int* dm = draw + me * 2 * n_k;
+      for (int k = 0; k < n_k; ++k) {
+        const Law w = law[k];
+        dm[k] = service_ns(u1, w);
+        dm[n_k + k] = service_ns(u2, w);
       }
       __syncwarp();
+      slot = 0;
     }
+    const int new_branch = __shfl_sync(FULL, my_branch, slot);
+    const int first = __shfl_sync(FULL, my_first, slot);
+    const int first_nx = __shfl_sync(FULL, my_first_nx, slot);
+    const int* d = draw + slot * 2 * n_k;
 
-    // advance job j along its route (or complete and restart)
-    const int nxt = pos[j] + 1;
-    const int bj = branch[j];
-    const int route_next = nxt < n_l ? visit(s, bj, nxt) : -1;
+    // t = the least remaining time, j = the first job with it
+    uint32_t lv = NEVER;
+    int li = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < jobs.slots(); ++r) {
+      const uint32_t left = jobs.enq(r) == BIG_SEQ ? jobs.ready(r) - clock : NEVER;
+      if (left < lv) {
+        lv = left;
+        li = me + 32 * r;
+      }
+    }
+    const uint32_t t = __reduce_min_sync(FULL, lv);
+    const int j = __reduce_min_sync(FULL, lv == t ? li : INT_MAX);
+    clock += t;
+    elapsed_us = __fmaf_rn(static_cast<float>(static_cast<int>(t)),
+                           static_cast<float>(1e-3), elapsed_us);
+
+    // job j's place, from its owner
+    const int owner = j & 31;
+    int o_st = 0, o_nx = 0, o_br = 0, o_pos = 0;  // meaningful in the owner
+    jobs.at(j >> 5, [&](int r) {
+      o_st = jobs.st(r);
+      o_nx = jobs.nx(r);
+      o_br = jobs.br(r);
+      o_pos = jobs.pos(r);
+    });
+    const int k_cur = __shfl_sync(FULL, o_st, owner);
+    const int route_next = __shfl_sync(FULL, o_nx, owner);
+    // kTrace: j's branch and position, and this thread's stamp slot of
+    // j's request, read now so that the record's stores wait on nothing
+    int bj = 0, pos_j = 0;
+    float enter_v = 0.0f, leave_v = 0.0f;
+    if constexpr (kTrace > 0) {
+      bj = __shfl_sync(FULL, o_br, owner);
+      pos_j = __shfl_sync(FULL, o_pos, owner);
+      enter_v = enter_s[j * n_l + min(me, n_l - 1)];
+      leave_v = leave_s[j * n_l + min(me, n_l - 1)];
+    }
+    // the station after j's next one, unless j completes (owner's view)
+    const int nx_cont = after(o_br, o_pos + 1);
+
+    // the FIFO successor of j at k_cur: the least enqueue sequence among
+    // the jobs waiting there (none at a think station)
+    int lseq = BIG_SEQ;
+    // j's next station, and the servers busy there once j has left: the
+    // other jobs in service at it, plus the successor if it starts there
     const bool done = route_next < 0;
-    const int new_branch = pick_branch(s, u_branch);
-    const int k_next = done ? visit(s, new_branch, 0) : route_next;
-    const int pos_j = nxt - 1;
-    const int pos_next = done ? 0 : nxt;
-    if constexpr (kTrace) {
-      // the finished request's record, its last visit left just now
-      if (done) {
-        const size_t row =
-            static_cast<size_t>(lane_id) * (rings.cap + 1) + completed % rings.cap;
-        if (me == 0) {
-          rings.req[row] = completed;
-          rings.branch[row] = bj;
-          rings.cls[row] =
-              rings.bmiss[lane_id * s.n_b + min(bj, s.n_b - 1)] ? CLS_MISS : CLS_HIT;
-          rings.nvis[row] = pos_j + 1;
-          rings.parked[row] = 0.0f;
-        }
-        for (int v = me; v < n_l; v += 32) {
-          rings.enter[row * n_l + v] = enter_s[j * n_l + v];
-          rings.leave[row * n_l + v] = v == pos_j ? elapsed_us : leave_s[j * n_l + v];
+    const int k_next = done ? first : route_next;
+    const int2 qn = q[k_next];
+    const int svc_w = d[k_cur], svc_j = d[n_k + k_next];
+    int lbusy = 0;
+#pragma unroll
+    for (int r = 0; r < jobs.slots(); ++r) {
+      const int e = jobs.enq(r), st = jobs.st(r);
+      if (e != BIG_SEQ && st == k_cur && e < lseq) lseq = e;
+      lbusy += (e == BIG_SEQ && st == k_next && me + 32 * r != j) ? 1 : 0;
+    }
+    const int seq = __reduce_min_sync(FULL, lseq);
+    const bool handover = seq < BIG_SEQ;
+    const int busy_next =
+        __reduce_add_sync(FULL, lbusy) + (handover && k_next == k_cur ? 1 : 0);
+    const bool starts_now = !qn.x || busy_next < qn.y;
+
+    // the owners' updates, predicated: a branch here costs more than
+    // it skips.  The successor starts service, j moves on.
+    {
+      const uint32_t ready_w = clock + static_cast<uint32_t>(svc_w);
+#pragma unroll
+      for (int r = 0; r < jobs.slots(); ++r) {
+        if (handover && jobs.enq(r) == seq) {
+          jobs.ready(r) = ready_w;
+          jobs.enq(r) = BIG_SEQ;
         }
       }
     }
+    {  // slot -1 outside j's owner
+      const uint32_t ready_j = clock + static_cast<uint32_t>(svc_j);
+      const int enq_j = starts_now ? BIG_SEQ : seq_ctr;
+      jobs.at(me == owner ? j >> 5 : -1, [&](int r) {
+        jobs.ready(r) = ready_j;
+        jobs.enq(r) = enq_j;
+        jobs.st(r) = k_next;
+        jobs.nx(r) = done ? first_nx : nx_cont;
+        jobs.br(r) = done ? new_branch : o_br;
+        jobs.pos(r) = done ? 0 : o_pos + 1;
+      });
+    }
+
+    if constexpr (kTrace > 0) {
+      // the finished request's record, its last visit left just now, and
+      // the stamps: held in registers, stored at the top of the next event
+      const int pos_next = done ? 0 : pos_j + 1;
+      float* enter_j = enter_s + j * n_l;
+      float* leave_j = leave_s + j * n_l;
+      const size_t row = static_cast<size_t>(lane_id) * (rings.cap + 1) + ring_row;
+      tr.done = done;
+      tr.row = row;
+      tr.req = completed;
+      tr.branch = bj;
+      tr.miss = miss[min(bj, n_b - 1)];  // read here, used an event later
+      tr.nvis = pos_j + 1;
+      tr.enter = enter_v;
+      tr.leave = me == pos_j ? elapsed_us : leave_v;
+      ring_row = done ? (ring_row + 1 == rings.cap ? 0 : ring_row + 1) : ring_row;
+      // stamp slot v belongs to thread v % 32: it rewrites its slot (the
+      // new stamp or the value it read), threads past the route a trash word
+      tr.leave_at = me < n_l ? leave_j + me : trash + me;
+      tr.leave_stamp = me == pos_j ? elapsed_us : leave_v;
+      tr.enter_at = me < n_l ? enter_j + me : trash + me;
+      tr.enter_stamp = me == pos_next ? elapsed_us : enter_v;
+      if constexpr (kTrace == 2) {  // routes longer than a warp: slots 32..
+        for (int u = me + 32; done && u < n_l; u += 32) {
+          rings.enter[row * n_l + u] = enter_j[u];
+          rings.leave[row * n_l + u] = u == pos_j ? elapsed_us : leave_j[u];
+        }
+        if (pos_j >= 32 && (pos_j & 31) == me) leave_j[pos_j] = elapsed_us;
+        if (pos_next >= 32 && (pos_next & 31) == me) enter_j[pos_next] = elapsed_us;
+      }
+    }
+
     completed += done ? 1 : 0;
-
-    // place j at k_next
-    const int svc_next = service_ns(u_svc2, s, k_next);
-    const bool is_q = s.isq[k_next] != 0;
-    const int busy_next = busy[k_next];
-    const bool starts_now = !is_q || busy_next < s.servers[k_next];
-    __syncwarp();
-    if (me == 0) {
-      ready[j] = starts_now ? svc_next : INF_NS;
-      enq[j] = starts_now ? BIG_SEQ : seq_ctr;
-      if (is_q && starts_now) busy[k_next] = busy_next + 1;
-      station[j] = k_next;
-      branch[j] = done ? new_branch : bj;
-      pos[j] = pos_next;
-      if constexpr (kTrace) {
-        leave_s[j * n_l + pos_j] = elapsed_us;
-        enter_s[j * n_l + pos_next] = elapsed_us;
-      }
-    }
-    __syncwarp();
     seq_ctr += starts_now ? 0 : 1;
-
     // warmup bookkeeping
-    if (completed >= warmup && warm_completed < 0) {
+    if (completed >= a.warmup && warm_completed < 0) {
       warm_completed = completed;
       warm_elapsed_us = elapsed_us;
     }
     events += 1;
+    ++slot;
   }
+  store_trace();
   if (me == 0) {
     const float t_meas = fmaxf(elapsed_us - warm_elapsed_us, static_cast<float>(1e-6));
-    x_out[lane_id] = static_cast<float>(completed - warm_completed) / t_meas;
-    completed_out[lane_id] = completed;
-    events_out[lane_id] = events;
-    tmeas_out[lane_id] = t_meas;
-    if constexpr (kTrace) rings.n_count[lane_id] = completed;  // one record each
+    a.x[lane_id] = static_cast<float>(completed - warm_completed) / t_meas;
+    a.completed[lane_id] = completed;
+    a.events[lane_id] = events;
+    a.tmeas[lane_id] = t_meas;
+    if constexpr (kTrace > 0) rings.n_count[lane_id] = completed;  // one record each
   }
 }
 
-// 4-byte words of a lane's shared state: five (mpl) job arrays, (K) busy
-// counts and, traced, the (mpl, L) enter and leave stamps.
-__host__ __device__ constexpr int shared_ints(int n_k, int mpl, int n_l,
-                                              bool trace) {
-  return 5 * mpl + n_k + (trace ? 2 * mpl * n_l : 0);
-}
-
-template <bool kTrace>
-int launch(const int* isq, const float* svc, const int* did, const float* dpar,
-           const float* bcum, const int* visits, const int* servers,
-           const int* seeds, float* x, int* completed, int* events,
-           float* tmeas, const Rings& rings, int lanes, int n_k, int n_b,
-           int n_l, int mpl, int n_requests, int warmup, int max_events,
-           void* stream) {
-  const int bytes = shared_ints(n_k, mpl, n_l, kTrace) * (int)sizeof(int);
+template <int kTrace, int R>
+int launch_slots(const Args& a, const Rings& rings, int lanes, void* stream) {
+  const int bytes = layout(a.n_k, a.n_b, a.n_l, a.mpl, kTrace > 0, R == 0).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      sim_kernel<kTrace>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      sim_kernel<kTrace, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   if (lanes == 0) return 0;
-  sim_kernel<kTrace><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      isq, svc, did, dpar, bcum, visits, servers, seeds, x, completed, events,
-      tmeas, rings, n_k, n_b, n_l, mpl, n_requests, warmup, max_events);
+  sim_kernel<kTrace, R><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
+      a, rings);
   return (int)cudaGetLastError();
+}
+
+template <int kTrace>
+int launch(const Args& a, const Rings& rings, int lanes, void* stream) {
+  switch (reg_slots(a.mpl)) {
+    case 1: return launch_slots<kTrace, 1>(a, rings, lanes, stream);
+    case 2: return launch_slots<kTrace, 2>(a, rings, lanes, stream);
+    case 4: return launch_slots<kTrace, 4>(a, rings, lanes, stream);
+    case 8: return launch_slots<kTrace, 8>(a, rings, lanes, stream);
+    default: return launch_slots<kTrace, 0>(a, rings, lanes, stream);
+  }
 }
 
 }  // namespace
 
-extern "C" int event_sim_shared_bytes(int n_k, int mpl, int n_l, int trace) {
-  return shared_ints(n_k, mpl, n_l, trace != 0) * (int)sizeof(int);
+extern "C" int event_sim_shared_bytes(int n_k, int n_b, int n_l, int mpl,
+                                      int trace) {
+  return layout(n_k, n_b, n_l, mpl, trace != 0, reg_slots(mpl) == 0).bytes;
 }
+
+// Register slots per thread of the instantiation that runs mpl jobs (0:
+// job state in shared memory).
+extern "C" int event_sim_slots(int mpl) { return reg_slots(mpl); }
 
 // Launch one warp per lane on `stream`; returns the cudaError_t.
 extern "C" int event_sim_launch(const int* isq, const float* svc, const int* did,
                                 const float* dpar, const float* bcum,
                                 const int* visits, const int* servers,
-                                const int* seeds, float* x, int* completed,
-                                int* events, float* tmeas, int lanes, int n_k,
-                                int n_b, int n_l, int mpl, int n_requests,
-                                int warmup, int max_events, void* stream) {
-  return launch<false>(isq, svc, did, dpar, bcum, visits, servers, seeds, x,
-                       completed, events, tmeas, Rings{}, lanes, n_k, n_b, n_l,
-                       mpl, n_requests, warmup, max_events, stream);
+                                const int* seeds, const int* max_events,
+                                float* x, int* completed, int* events,
+                                float* tmeas, int lanes, int n_k, int n_b,
+                                int n_l, int mpl, int n_requests, int warmup,
+                                void* stream) {
+  const Args a{isq, svc, did, dpar, bcum, visits, servers, seeds, max_events,
+               x, completed, events, tmeas, n_k, n_b, n_l, mpl, n_requests,
+               warmup};
+  return launch<0>(a, Rings{}, lanes, stream);
 }
 
 // The traced kernel: as event_sim_launch, plus the (lanes, B) bmiss table
@@ -366,13 +606,16 @@ extern "C" int event_sim_launch(const int* isq, const float* svc, const int* did
 extern "C" int event_sim_traced_launch(
     const int* isq, const float* svc, const int* did, const float* dpar,
     const float* bcum, const int* visits, const int* servers, const int* seeds,
-    const int* bmiss, float* x, int* completed, int* events, float* tmeas,
-    int* n_count, int* req, int* branch, int* cls, int* nvis, float* parked,
-    float* enter, float* leave, int lanes, int n_k, int n_b, int n_l, int mpl,
-    int n_requests, int warmup, int max_events, int cap, void* stream) {
+    const int* max_events, const int* bmiss, float* x, int* completed,
+    int* events, float* tmeas, int* n_count, int* req, int* branch, int* cls,
+    int* nvis, float* parked, float* enter, float* leave, int lanes, int n_k,
+    int n_b, int n_l, int mpl, int n_requests, int warmup, int cap,
+    void* stream) {
+  const Args a{isq, svc, did, dpar, bcum, visits, servers, seeds, max_events,
+               x, completed, events, tmeas, n_k, n_b, n_l, mpl, n_requests,
+               warmup};
   const Rings rings{bmiss, n_count, req, branch, cls, nvis, parked, enter,
                     leave, cap};
-  return launch<true>(isq, svc, did, dpar, bcum, visits, servers, seeds, x,
-                      completed, events, tmeas, rings, lanes, n_k, n_b, n_l,
-                      mpl, n_requests, warmup, max_events, stream);
+  return n_l > 32 ? launch<2>(a, rings, lanes, stream)
+                  : launch<1>(a, rings, lanes, stream);
 }

@@ -152,7 +152,7 @@ class LaneOutputs(NamedTuple):
 
 
 def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
-                    warmup: int, mpl: int, max_events: int,
+                    warmup: int, mpl: int, max_events: torch.Tensor,
                     trace_cap: int = 0,
                     bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
@@ -170,7 +170,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
-    spends ``max_events``, and the loop ends when every lane has stopped.
+    spends its own budget ``max_events[lane]`` ((L,) int32), and the loop
+    ends when every lane has stopped.
     Active lanes share the event index, so the uniforms of event ``e``
     (counters ``2*mpl + 3e + {0, 1, 2}``), the service draw at every
     station and the branch draw are computed ``_CHUNK`` events at a time.
@@ -202,6 +203,7 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     busy = torch.zeros(spec.is_queue.shape, dtype=torch.int64, device=dev)
     zeros = torch.zeros(n_l, dtype=torch.int64, device=dev)
     seq_ctr, completed, events = zeros.clone(), zeros.clone(), zeros.clone()
+    max_events = max_events.long()
     warm_completed = zeros - 1
     elapsed = torch.zeros(n_l, dtype=torch.float32, device=dev)
     warm_elapsed = elapsed.clone()
@@ -319,14 +321,16 @@ def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
 
 
 def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
-              warmup: int, mpl: int, max_events: int, trace_cap: int = 0,
+              warmup: int, mpl: int, max_events: torch.Tensor,
+              trace_cap: int = 0,
               bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
     """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
     ``spec`` holds the per-lane network arrays (see :class:`_LaneSpec`;
-    ``is_queue`` may be bool or int32) and ``seeds`` the (L,) int32 lane
-    seeds, all on one device.  ``trace_cap > 0`` runs the traced kernel
+    ``is_queue`` may be bool or int32), ``seeds`` the (L,) int32 lane
+    seeds and ``max_events`` the (L,) int32 per-lane event budgets, all on
+    one device.  ``trace_cap > 0`` runs the traced kernel
     and needs ``bmiss``, the (L, B) bool or int32 per-branch miss-class
     table; the result then carries the filled rings.  Untraced and traced
     launches are counted apart (``sim_lanes.launches``,
@@ -341,8 +345,9 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             "dist_params": ((n_l, n_k, 4), (torch.float32,)),
             "branch_cum": ((n_l, n_b), (torch.float32,)),
             "visits": ((n_l, n_b, n_r), (torch.int32,)),
-            "servers": ((n_l, n_k), (torch.int32,))}
-    arrays = dict(spec._asdict())
+            "servers": ((n_l, n_k), (torch.int32,)),
+            "max_events": ((n_l,), (torch.int32,))}
+    arrays = dict(spec._asdict(), max_events=max_events)
     if trace_cap < 0:
         raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
     if trace_cap:
@@ -366,14 +371,16 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if seeds.device.type != "cuda":
         raise ValueError(f"no event-sim kernel for device {seeds.device}")
     lib = _build.load_library()
-    nbytes = lib.event_sim_shared_bytes(n_k, mpl, n_r, int(trace_cap > 0))
+    nbytes = lib.event_sim_shared_bytes(n_k, n_b, n_r, mpl,
+                                        int(trace_cap > 0))
     if nbytes > _build.MAX_SHARED_BYTES:
         raise ValueError(f"event-sim lane state needs {nbytes} bytes of "
-                         f"shared memory (mpl={mpl}, K={n_k}, L={n_r}, "
-                         f"traced={trace_cap > 0}); a block may use at most "
-                         f"{_build.MAX_SHARED_BYTES}")
+                         f"shared memory (mpl={mpl}, K={n_k}, B={n_b}, "
+                         f"L={n_r}, traced={trace_cap > 0}); a block may use "
+                         f"at most {_build.MAX_SHARED_BYTES}")
     ins = [a.contiguous() for a in spec._replace(
-        is_queue=spec.is_queue.to(torch.int32))] + [seeds.contiguous()]
+        is_queue=spec.is_queue.to(torch.int32))] + [
+            seeds.contiguous(), max_events.contiguous()]
     dev = seeds.device
     outs = [torch.empty(n_l, dtype=dt, device=dev) for dt in
             (torch.float32, torch.int32, torch.int32, torch.float32)]
@@ -387,13 +394,12 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 bmiss.to(torch.int32).contiguous().data_ptr(),
                 *(a.data_ptr() for a in outs),
                 *(a.data_ptr() for a in rings),
-                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, max_events,
-                trace_cap, stream)
+                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, trace_cap,
+                stream)
         else:
             err = lib.event_sim_launch(
                 *(a.data_ptr() for a in ins), *(a.data_ptr() for a in outs),
-                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, max_events,
-                stream)
+                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, stream)
     _build.check(err, "event-sim kernel launch")
     if trace_cap:
         sim_lanes.traced_launches += 1
@@ -422,28 +428,70 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
 
     Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`: the
     per-p_hit specs tiled across seeds, lane seeds ``seed*1000 + p_index``
-    (int32 arithmetic, as the reference) and the warmup / event budget
-    ``max_events = n_requests * (Lr + 2) * 3``; with ``trace > 0`` also
+    (int32 arithmetic, as the reference) and the warmup / per-lane event
+    budget ``max_events = n_requests * (Lr + 2) * 3``; with ``trace > 0`` also
     ``trace_cap`` and the (L, B) ``bmiss`` table (:func:`branch_miss` of
     the first p_hit's network, the same for every lane).
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
-    spec: SimSpec = stack_specs(specs)
-    warmup = int(n_requests * warmup_frac)
-    max_events = int(n_requests * (spec.visits.shape[-1] + 2) * 3)
-    n_p, n_s = len(p_hits), len(seeds)
-    lane_spec = _LaneSpec(*(torch.cat([a] * n_s) for a in spec[:7]))
+    n_p = len(specs)
     seed_v = np.concatenate(
         [np.full(n_p, s, np.int32) * np.int32(1000)
          + np.arange(n_p, dtype=np.int32) for s in seeds])
-    kwargs = dict(n_requests=n_requests, warmup=warmup, mpl=net.mpl,
-                  max_events=max_events)
+    lane_spec, seed_t, kwargs = pad_lanes(specs * len(seeds), seed_v.tolist(),
+                                          n_requests, warmup_frac)
     if trace:
         bmiss = np.broadcast_to(branch_miss(specs[0]),
-                                (n_p * n_s, spec.visits.shape[1]))
+                                (len(seed_v), lane_spec.visits.shape[1]))
         kwargs.update(trace_cap=int(trace),
                       bmiss=torch.from_numpy(bmiss.astype(np.int32)).to(device))
-    return lane_spec, torch.from_numpy(seed_v).to(device), kwargs
+    return lane_spec, seed_t, kwargs
+
+
+def _budget(n_requests: int, spec: SimSpec) -> int:
+    """The reference's event budget of one network: ``n_requests * (Lr +
+    2) * 3`` events, ``Lr`` its own route length."""
+    return int(n_requests * (spec.visits.shape[-1] + 2) * 3)
+
+
+def pad_lanes(specs: Sequence[SimSpec], seeds: Sequence[int],
+              n_requests: int, warmup_frac: float):
+    """One lane per compiled spec, networks of different shapes padded into
+    one grid (:func:`~repro_torch.core.simspec.stack_specs`).
+
+    Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`, on the
+    specs' device: lane ``i`` runs ``specs[i]`` on lane seed ``seeds[i]``
+    with its own network's event budget, so each lane's outputs are
+    those of its network simulated alone on that seed.  The specs must
+    share one ``mpl``.
+    """
+    if len(specs) != len(seeds):
+        raise ValueError(f"{len(specs)} specs but {len(seeds)} seeds")
+    spec = stack_specs(specs)
+    dev = spec.visits.device
+    budgets = torch.tensor([_budget(n_requests, s) for s in specs],
+                           dtype=torch.int32, device=dev)
+    kwargs = dict(n_requests=n_requests, warmup=int(n_requests * warmup_frac),
+                  mpl=spec.mpl, max_events=budgets)
+    seed_v = torch.tensor(list(seeds), dtype=torch.int32, device=dev)
+    return _LaneSpec(*spec[:7]), seed_v, kwargs
+
+
+def simulate_cells(cells, n_requests: int, warmup_frac: float = 0.25,
+                   device: str = "cuda") -> np.ndarray:
+    """Throughput (requests/µs) of each ``(network, p_hit, lane_seed)``
+    cell, every cell a lane of ONE launch.
+
+    A cell's result is bit for bit that of its network simulated alone at
+    ``p_hit`` on that lane seed (``simulate_network(net, [p_hit],
+    seeds=(s,))`` runs lane seed ``s * 1000``).  The networks may differ
+    in shape but must share one ``mpl``.
+    """
+    dev = resolve_device(device)
+    specs = [compile_network(net, float(p), device=dev) for net, p, _ in cells]
+    spec, seed_v, kwargs = pad_lanes(specs, [int(s) for _, _, s in cells],
+                                     n_requests, warmup_frac)
+    return sim_lanes(spec, seed_v, **kwargs).x.cpu().numpy()
 
 
 def simulate_grid(net, p_hits, n_requests: int = 40_000,

@@ -32,7 +32,7 @@ Not ported yet, and raising ``NotImplementedError``: mamba2 and its
 hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
 ``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11),
 the cluster forecast ``n_shards > 1`` (item 9), the hierarchy forecast
-``tiers > 0`` (item 10) and ``forecast_slo`` (item 14, with the latency
+``tiers > 0`` (item 10) and ``forecast_slo`` (item 16, with the latency
 package).
 """
 
@@ -379,10 +379,13 @@ class Engine:
             "stream sketch (ROADMAP queue 1 item 8) and obs/profile.py "
             "(ROADMAP queue 1 item 11)")
 
-    def forecast_slo(self, *args, **kwargs):
+    def forecast_slo(self, step_us: float, prefill_us: float,
+                     arrival_rate: float, slo_us: float,
+                     percentile: float = 0.99, p_grid=None,
+                     profile=None, **net_kwargs):
         raise NotImplementedError(
             "forecast_slo needs the latency package, not ported yet "
-            "(ROADMAP queue 1 item 14)")
+            "(ROADMAP queue 1 item 16)")
 
     def forecast_network(self, step_us: float, prefill_us: float,
                          replicas: int = 1, batched_update: bool = False,

@@ -9,6 +9,7 @@ formulas, within 1e-5.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,9 @@ import pytest
 import torch
 
 from repro.core import lru_network as jlru_network
+from repro.core import s3fifo_network as js3fifo_network
+from repro.core import slru_network as jslru_network
+from repro.core.simulator import simulate_network as jsimulate_network
 from repro.core.simspec import compile_network as jcompile
 from repro.kernels import event_sim as jes
 from repro_torch.convert import spec_from_numpy
@@ -133,6 +137,162 @@ def test_options_outside_the_slice_raise():
     # tracing is ported; the sketches that may ride along are not
     with pytest.raises(NotImplementedError, match="sketch_cap.*ROADMAP"):
         simulate_network(net, [0.5], device="cpu", sketch_cap=16, trace=8)
+
+
+def test_reference_keywords_accepted():
+    """simulate_network takes every keyword of the reference's signature,
+    with the reference's defaults, backend apart (the port's one engine
+    is the reference's "pallas" engine)."""
+    ref = inspect.signature(jsimulate_network).parameters
+    port = inspect.signature(simulate_network).parameters
+    assert set(ref) <= set(port)
+    for name, par in ref.items():
+        if name != "backend":
+            assert port[name].default == par.default, name
+    assert port["backend"].default == "pallas"
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"coalesce_theta": 0.5}, "item 6.2"),
+    ({"max_in_system": 64}, "item 6.3"),
+    ({"window_us": 5.0}, "item 8"),
+])
+def test_unported_reference_keywords_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        simulate_network(tpm.lru_network(), [0.5], device="cpu", **kw)
+
+
+def test_backend_keyword():
+    net = tpm.lru_network(disk_us=100.0, mpl=24)
+    with pytest.raises(ValueError, match="threefry.*backend='pallas'"):
+        simulate_network(net, [0.5], backend="jax", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend 'cuda'"):
+        simulate_network(net, [0.5], backend="cuda", device="cpu")
+    kw = dict(n_requests=200, seeds=(0,), device="cpu")
+    base = simulate_network(net, [0.5, 0.9], **kw)
+    given = simulate_network(net, [0.5, 0.9], backend="pallas",
+                             coalesce_theta=0.0, max_in_system=128,
+                             window_us=0.0, **kw)
+    np.testing.assert_array_equal(given.throughput, base.throughput)
+
+
+def _alone(spec, seed, n_req, **over):
+    """One compiled spec simulated alone, in its own unpadded lane."""
+    lane, seeds, kw = tes.pad_lanes([spec], [seed], n_req, 0.25)
+    kw.update(over)
+    return tes.sim_lanes(lane, seeds, **kw)
+
+
+def _assert_lane_equal(grid, i, alone):
+    for f in ("x", "completed", "events", "t_measured"):
+        assert torch.equal(getattr(grid, f)[i:i + 1], getattr(alone, f)), f
+
+
+def _three_networks(det=False):
+    nets = [tpm.lru_network(disk_us=100.0, mpl=24),
+            tpm.s3fifo_network(disk_us=100.0, mpl=24),
+            tpm.slru_network(disk_us=100.0, mpl=24, disk_servers=2)]
+    return [_det(n) for n in nets] if det else nets
+
+
+def test_padded_grid_matches_each_network_alone():
+    """Three networks of unequal K, B and Lr padded into one grid: lane
+    for lane, the outputs of each network simulated alone, bit for bit."""
+    specs = [tcompile(n, p, device="cpu")
+             for n, p in zip(_three_networks(), (0.6, 0.8, 0.9))]
+    shapes = [(s.svc_ns.shape[0], *s.visits.shape) for s in specs]
+    assert all(len(set(dim)) == 3 for dim in zip(*shapes)), shapes
+    seeds = [0, 7, 2001]
+    lane, seed_v, kw = tes.pad_lanes(specs, seeds, 400, 0.25)
+    assert tuple(lane.visits.shape) == (3, *map(max, list(zip(*shapes))[1:]))
+    grid = tes.sim_lanes(lane, seed_v, **kw)
+    assert grid.completed.tolist() == [400] * 3
+    for i, (spec, seed) in enumerate(zip(specs, seeds)):
+        _assert_lane_equal(grid, i, _alone(spec, seed, 400))
+
+
+def test_padded_grid_matches_reference_lanes():
+    """The same padded grid with deterministic service against the
+    reference's twin engine running each network alone: the same events."""
+    p, n_req, seeds = (0.6, 0.8, 0.9), 300, [0, 7, 2001]
+    nets_t = _three_networks(det=True)
+    nets_j = [_det(jlru_network(disk_us=100.0, mpl=24)),
+              _det(js3fifo_network(disk_us=100.0, mpl=24)),
+              _det(jslru_network(disk_us=100.0, mpl=24, disk_servers=2))]
+    specs = [tcompile(n, q, device="cpu") for n, q in zip(nets_t, p)]
+    lane, seed_v, kw = tes.pad_lanes(specs, seeds, n_req, 0.25)
+    grid = tes.sim_lanes(lane, seed_v, **kw)
+    for i, (net, q) in enumerate(zip(nets_j, p)):
+        js = jcompile(net, q)
+        arrays = tuple(jnp.asarray(getattr(js, f))[None]
+                       for f in js._fields[:7])
+        jx, jc, je, jt = jes._twin_grid(
+            arrays, jnp.asarray([seeds[i]], jnp.int32), n_requests=n_req,
+            warmup=int(n_req * 0.25), mpl=24,
+            max_events=n_req * (js.visits.shape[-1] + 2) * 3)
+        assert int(grid.completed[i]) == int(jc[0])
+        assert int(grid.events[i]) == int(je[0])
+        np.testing.assert_allclose(float(grid.x[i]), float(jx[0]), rtol=1e-6)
+
+
+def test_branch_clamp_survives_padding():
+    """A hand-made lane whose cumulative branch law ends at 0.5: a draw
+    above it picks branch B = 2, which reads the last real route (JAX's
+    clamped gather).  Padded beside a wider network, whose padding puts
+    a copy of that route at row 2, the lane is bit for bit the lane alone,
+    its trace records included; about half its requests take the clamp."""
+    lru = tcompile(tpm.lru_network(disk_us=100.0, mpl=24), 0.7, device="cpu")
+    hand = lru._replace(branch_cum=torch.tensor([0.3, 0.5]))
+    wide = tcompile(tpm.s3fifo_network(disk_us=100.0, mpl=24), 0.8,
+                    device="cpu")
+    lane, seed_v, kw = tes.pad_lanes([hand, wide], [3, 4], 400, 0.25)
+    assert lane.visits.shape[1] == 4
+    assert torch.equal(lane.visits[0, 2:], lane.visits[0, 1:2].expand(2, 7))
+    miss = tes.branch_miss(hand)  # the padded rows copy the last one
+    bmiss = torch.from_numpy(np.stack(
+        [np.r_[miss, miss[-1:], miss[-1:]], tes.branch_miss(wide)]
+    ).astype(np.int32))
+    grid = tes.sim_lanes(lane, seed_v, trace_cap=512, bmiss=bmiss, **kw)
+    alone = _alone(hand, 3, 400, trace_cap=512, bmiss=bmiss[:1, :2])
+    _assert_lane_equal(grid, 0, alone)
+    _assert_lane_equal(grid, 1, _alone(wide, 4, 400))
+    for f in ("req", "branch", "cls", "nvis"):
+        assert torch.equal(getattr(grid.rings, f)[0],
+                           getattr(alone.rings, f)[0]), f
+    for f in ("enter_us", "leave_us"):
+        assert torch.equal(getattr(grid.rings, f)[0, :, :4],
+                           getattr(alone.rings, f)[0]), f
+    clamped = float((alone.rings.branch[0, :400] == 2).float().mean())
+    assert 0.4 < clamped < 0.6, clamped
+
+
+def test_per_lane_event_budget():
+    """Each lane keeps its own network's budget; a lane whose budget runs
+    out before n_requests stops there, and its neighbour does not."""
+    specs = [tcompile(tpm.lru_network(disk_us=100.0, mpl=24), 0.7,
+                      device="cpu"),
+             tcompile(tpm.slru_network(disk_us=100.0, mpl=24), 0.9,
+                      device="cpu")]
+    lane, seed_v, kw = tes.pad_lanes(specs, [0, 1], 400, 0.25)
+    assert kw["max_events"].tolist() == [400 * (4 + 2) * 3, 400 * (5 + 2) * 3]
+    kw["max_events"] = torch.tensor([300, kw["max_events"][1]],
+                                    dtype=torch.int32)
+    grid = tes.sim_lanes(lane, seed_v, **kw)
+    assert int(grid.events[0]) == 300 and int(grid.completed[0]) < 400
+    assert int(grid.completed[1]) == 400
+    assert int(grid.events[1]) < int(kw["max_events"][1])
+    _assert_lane_equal(grid, 0, _alone(
+        specs[0], 0, 400, max_events=torch.tensor([300], dtype=torch.int32)))
+    _assert_lane_equal(grid, 1, _alone(specs[1], 1, 400))
+
+
+def test_padded_grid_needs_one_mpl():
+    specs = [tcompile(tpm.lru_network(mpl=24), 0.7, device="cpu"),
+             tcompile(tpm.lru_network(mpl=48), 0.7, device="cpu")]
+    with pytest.raises(ValueError, match="one mpl"):
+        tes.pad_lanes(specs, [0, 1], 100, 0.25)
+    with pytest.raises(ValueError, match="2 specs but 1 seeds"):
+        tes.pad_lanes(specs[:1] * 2, [0], 100, 0.25)
 
 
 @pytest.mark.cuda

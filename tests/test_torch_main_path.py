@@ -14,6 +14,8 @@ import pytest
 from repro.core import harness as jharness
 from repro.core.simulator import simulate_network as jsimulate_network
 from repro_torch.core import harness as tharness
+from repro_torch.core.simulator import simulate_network as tsimulate_network
+from repro_torch.kernels import event_sim as tes
 
 SIM_RTOL = 0.06
 
@@ -71,6 +73,31 @@ def test_sweep_matches_reference(policy, window):
         np.testing.assert_allclose(x, ref.throughput[0], rtol=SIM_RTOL)
         # same uniforms, same float32 formulas: the same trajectory
         np.testing.assert_allclose(x, ref.throughput[0], rtol=1e-5)
+
+
+def test_sweep_simulates_every_size_in_one_launch(monkeypatch):
+    """``x_sim`` of a sweep, every size a lane of one event-sim call, is
+    bit for bit each size's network simulated alone by simulate_network
+    (seed 0)."""
+    calls = []
+    real = tes.sim_lanes
+
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tes, "sim_lanes", counted)
+    sizes = [40, 120, 300]
+    kw = dict(key_space=512, n_requests=2000)
+    t = tharness.sweep_cache_sizes("slru", sizes, simulate=True,
+                                   sim_requests=600, device="cpu", **kw)
+    assert calls == [len(sizes)]
+    monkeypatch.setattr(tes, "sim_lanes", real)
+    for c, x in zip(sizes, t["x_sim"]):
+        m = tharness.measure_cache("slru", c, device="cpu", **kw)
+        alone = tsimulate_network(m.network, [m.hit_ratio], n_requests=600,
+                                  seeds=(0,), device="cpu")
+        assert x == float(alone.throughput[0])
 
 
 def test_run_cache_trace_matches_reference():

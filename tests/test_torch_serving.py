@@ -9,6 +9,8 @@ must serve the same tokens and end with the same ``stats()`` as the JAX
 yet raise, naming their ROADMAP item.
 """
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -249,6 +251,13 @@ def test_forecast_network_equals_the_reference(models, kw):
     assert a == b
 
 
+def test_forecast_slo_takes_the_reference_parameters():
+    ref = inspect.signature(JEngine.forecast_slo).parameters
+    port = inspect.signature(Engine.forecast_slo).parameters
+    assert [(p.name, p.kind, p.default) for p in port.values()] == \
+        [(p.name, p.kind, p.default) for p in ref.values()]
+
+
 def test_unported_modes_raise(models):
     _, cfg, _, tp = models
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -266,7 +275,7 @@ def test_unported_modes_raise(models):
         eng.forecast_network(6000.0, 40.0, n_shards=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.forecast_network(6000.0, 40.0, tiers=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         eng.forecast_slo(6000.0, 40.0, arrival_rate=0.01, slo_us=5e4)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.observed_profile()
