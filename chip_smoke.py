@@ -9,12 +9,19 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's fifteen instantiations; then
+   spills of each of the event-sim kernel's fifteen instantiations and of
+   the replay kernel's 14 (seven policies x two state layouts); then
    ``cuobjdump --dump-sass`` of the library: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
+   the edge lanes of ``tests/test_torch_replay_cuda.py`` (capacity 0, 1,
+   2, CLOCK's max_scan 0, SLRU's protected_frac 1.0, S3-FIFO's
+   small_frac 1.0 and 2.0, Prob-LRU's q 0 and 1; one-key and
+   all-distinct streams; pad 64) and key space 2**17, each in every
+   state layout that fits (shared memory; device memory) and through the
+   wrapper;
 4. event-sim kernel vs its plain version on the card: a network with
    deterministic service, identical event counts; every instantiation
    (mpl 1, 24, 48, 72, 144: 1, 2, 4, 8 register slots per thread; mpl
@@ -51,10 +58,11 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
-   monotone curve asserted, through the kernels (launch counts > 0; the
-   event-sim kernel exactly 4 + 7 times, one launch per sweep), every
-   throughput within 1e-6 of what the earlier event-sim kernel computed
-   (``MAIN_PATH_X``);
+   monotone curve asserted, through the kernels (the event-sim kernel
+   exactly 4 + 7 times, one launch per sweep; the replay kernel 7
+   times), every throughput within 1e-6 of what the earlier event-sim
+   kernel computed (``MAIN_PATH_X``) and every sweep's p_hit exactly the
+   earlier replay kernel's hit counts (``MAIN_PATH_HITS``);
 8. the traced path: the LRU network at 100 us over P_GRID x 3 seeds x 16k
    requests with lossless 16384-record rings, its records reconciled with
    the throughput, per-station utilization printed, one lane written as a
@@ -91,8 +99,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    and the device's busy share;
 11. full size: per-launch kernel times (CUDA events) at the main path's
    shapes, beside their plain versions' times and the work's bound; the
-   plain versions' outputs are held against the kernels' (LRU replay of
-   5 x 60k requests bit for bit and against the Mattson sweep; one
+   plain versions' outputs are held against the kernels' (every policy's
+   replay launch of 5 x 60k requests against py_ref, request by request,
+   and its classes against ``classify_inflight``; each launch's chain
+   bound, the dependent loads of its longest lane as ``py_ref`` replays
+   it (one per request, one per hit that relinks, one per scan step)
+   times one dependent shared-memory load, measured by a pointer chase
+   (``CHASE_SRC``); LRU's also bit for bit against the
+   plain version and the Mattson sweep; one
    measured-network lane at 16k requests with identical event counts;
    the LRU network's 21 lanes x 16k requests, untraced and traced with
    lossless 16384-record rings, against one run of the traced plain
@@ -143,6 +157,49 @@ POLICY_PARAMS = {
 # formulas: the same trajectory, throughput equal up to summation order
 SIM_RTOL = 1e-6
 CHECK_T, CHECK_FILL = 5000, 3400  # the replay check's trace and its fill
+# the lane's state in device memory: key space 2**17, a short stream
+REPLAY_BIG_KEYS, REPLAY_BIG_T = 1 << 17, 600
+# the replay bound's unit: one thread follows next[] over a random cycle
+# of CHASE_N ints for CHASE_STEPS dependent loads, timed by clock64
+CHASE_N, CHASE_STEPS = 1024, 1 << 20
+CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const int* __restrict__ next, int n, int steps,
+                      int shared, long long* cycles, int* sink) {
+  extern __shared__ int s[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = next[i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const int* p = shared ? s : next;
+  int j = 0;
+  for (int k = 0; k < n; ++k) j = p[j];  // one lap to warm L1
+  const long long t0 = clock64();
+  for (int k = 0; k < steps; ++k) j = p[j];
+  const long long t1 = clock64();
+  *cycles = t1 - t0;
+  *sink = j;
+}
+extern "C" int chase_launch(const int* next, int n, int steps, int shared,
+                            long long* cycles, int* sink, void* stream) {
+  chase<<<1, 32, n * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
+      next, n, steps, shared, cycles, sink);
+  return (int)cudaGetLastError();
+}
+"""
+# the main path's hits over the 45 000 measured requests of each size
+# (IMPL_CAPS), as commit 76fa561's replay kernel counted them on an NVIDIA
+# H100 80GB HBM3 at 700.00 W: replay is exact, so each sweep's p_hit must
+# be these counts over 45 000
+MAIN_PATH_MEASURED = 45_000
+MAIN_PATH_HITS = {
+    "lru": (19288, 28007, 34716, 39763, 43129),
+    "fifo": (17016, 25755, 32783, 38384, 42478),
+    "prob_lru": (18515, 27337, 34241, 39437, 43093),
+    "clock": (19915, 28486, 34972, 39751, 42913),
+    "slru": (22231, 29765, 35631, 40085, 43139),
+    "s3fifo": (23453, 30563, 35773, 39787, 42002),
+    "sieve": (24889, 31250, 36347, 40320, 43162),
+}
 SIM_REQUESTS, SEEDS = 16_000, (0, 1, 2)
 # one mpl per instantiation of the event-sim kernel: job state in 1, 2, 4
 # and 8 register slots per thread (mpl <= 32, 64, 128, 256), then in
@@ -354,24 +411,24 @@ def sass_counts(rec):
     rec["flash_sass"] = counts
 
 
-def start_event_sim_ptxas():
-    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu`` with the library's
-    flags, started beside the library's own build."""
+def start_ptxas():
+    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu`` and ``csrc/replay.cu``
+    with the library's flags, started beside the library's own build."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    return subprocess.Popen(
+    return {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-         str(_build.CSRC / "event_sim.cu"), "-o", str(out / "event_sim.o")],
+         str(_build.CSRC / f"{name}.cu"), "-o", str(out / f"{name}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ("event_sim", "replay")}
 
 
-def event_sim_ptxas(proc, rec):
-    """Registers, stack frame and spills of each event-sim instantiation
-    (untraced, traced, traced for routes over 32 visits; R register slots
-    per thread, R = 0: shared memory), as ptxas reports them; raises unless
-    all fifteen compiled."""
+def ptxas_info(proc, pattern, name_of):
+    """{instantiation: registers, stack and spills} from ``proc``'s ptxas
+    report; ``pattern`` matches an entry function's name and ``name_of``
+    names it from the match."""
     import re
 
     out, err = proc.communicate()
@@ -379,11 +436,9 @@ def event_sim_ptxas(proc, rec):
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}{err}")
     info, fn = {}, None
     for line in (out + err).splitlines():
-        m = re.search(r"Compiling entry function .*sim_kernelILi([012])ELi(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry function .*" + pattern, line)
         if m:
-            fn = (("untraced", "traced", "traced, routes over 32")[int(m.group(1))]
-                  + f" R={m.group(2)}")
+            fn = name_of(m)
             info[fn] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -394,11 +449,40 @@ def event_sim_ptxas(proc, rec):
         m = re.search(r"Used (\d+) registers", line)
         if fn and m:
             info[fn]["registers"] = int(m.group(1))
+    return info
+
+
+def event_sim_ptxas(procs, rec):
+    """Registers, stack frame and spills of each event-sim instantiation
+    (untraced, traced, traced for routes over 32 visits; R register slots
+    per thread, R = 0: shared memory), as ptxas reports them; raises unless
+    all fifteen compiled."""
+    info = ptxas_info(
+        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)E",
+        lambda m: (("untraced", "traced", "traced, routes over 32")[
+            int(m.group(1))] + f" R={m.group(2)}"))
     if len(info) != 15 or not all(len(v) == 4 for v in info.values()):
         raise AssertionError(f"ptxas reported {info}")
     for fn, v in sorted(info.items()):
         print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
     rec["event_sim_ptxas"] = info
+
+
+def replay_ptxas(procs, rec):
+    """Registers, stack frame and spills of each replay instantiation (one
+    per policy and state layout); raises unless all 14 compiled."""
+    from repro_torch.cache.flat import POLICY_IDS
+    from repro_torch.kernels.replay import LAYOUTS
+
+    names = list(POLICY_IDS)
+    info = ptxas_info(procs["replay"], r"replay_kernelILi(\d)ELi(\d)E",
+                      lambda m: f"{names[int(m.group(1))]} "
+                                f"{LAYOUTS[int(m.group(2))]}")
+    if len(info) != 14 or not all(len(v) == 4 for v in info.values()):
+        raise AssertionError(f"ptxas reported {info}")
+    for fn, v in sorted(info.items()):
+        print(f"ptxas replay {fn}: {json.dumps(v)}", flush=True)
+    rec["replay_ptxas"] = info
 
 
 def long_route_network(mpl):
@@ -455,15 +539,37 @@ def hold_sim(what, kern, plain) -> float:
     return err
 
 
+def hold_replay_layouts(what, policy, grid):
+    """The kernel in each of its state layouts that fits the lanes (and
+    the wrapper, in the layout it picks) against the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import replay as kr
+
+    plain = kr.replay_lanes_plain(policy, *grid.args, grid.key_space,
+                                  grid.pad)
+    for kind in kr.LAYOUTS:
+        layout = kr.layout_bytes(policy, grid.key_space, grid.pad, kind)
+        if not kr.layout_fits(layout, grid.pad):
+            continue
+        hold_replay(f"{what}, {kind} layout", kr._launch(
+            _build.load_library(), policy, layout, grid.args, grid.key_space,
+            grid.pad), plain)
+    hold_replay(f"{what}, wrapper", kr.replay_lanes(
+        policy, *grid.args, grid.key_space, grid.pad), plain)
+
+
 def check_replay(rec):
     """Every policy but LRU (held at full length in ``full_size``) at the
     main path's lane shape: key_space 4096, the five sizes (pad 3300),
     window 8 with re-issues, two seeds.  The trace opens with 3400
     distinct keys, so every size is full and evicting from then on, and
-    goes on with the main path's Zipf stream."""
+    goes on with the main path's Zipf stream.  Then the edge lanes
+    (``EDGE_CASES`` of ``tests/test_torch_replay_cuda.py``) and key space
+    2**17, in every state layout that fits."""
     import numpy as np
     from repro_torch.core.harness import coin_stream, zipf_trace
     from repro_torch.kernels import replay as kr
+    from test_torch_replay_cuda import EDGE_CASES, edge_stream
 
     keys, us = [], []
     for seed in (0, 1):
@@ -481,6 +587,26 @@ def check_replay(rec):
                     kr.replay_lanes(policy, *grid.args, grid.key_space, grid.pad),
                     kr.replay_lanes_plain(policy, *grid.args, grid.key_space,
                                           grid.pad))
+    for policy, params, stream, caps, pad_to in EDGE_CASES:
+        keys, us, key_space = edge_stream(stream)
+        grid = kr.grid_lanes(policy, keys, us, caps, key_space=key_space,
+                             pad_to=pad_to, window=4, fail_prob=0.1,
+                             device="cuda", **params)
+        hold_replay_layouts(f"edge {policy} {params} {stream} {grid.shape}",
+                            policy, grid)
+    rng = np.random.default_rng(12)
+    big = rng.integers(0, REPLAY_BIG_KEYS, size=(1, REPLAY_BIG_T))
+    big[0, ::3] = big[0, :REPLAY_BIG_T // 3]  # repeats, so there are hits
+    big_us = rng.random(big.shape, dtype=np.float32)
+    for policy, params in POLICY_PARAMS.items():
+        grid = kr.grid_lanes(policy, big, big_us, (5, 60),
+                             key_space=REPLAY_BIG_KEYS, window=8,
+                             fail_prob=0.1, device="cuda", **params)
+        kind = kr.replay_layout(policy, grid.key_space, grid.pad).kind
+        if kind != "global":
+            raise AssertionError(f"key space 2**17 took the {kind} layout")
+        hold_replay_layouts(f"key space 2**17 {policy} {grid.shape}",
+                            policy, grid)
     rec["replay_max_abs_err"] = 0
 
 
@@ -751,14 +877,22 @@ def main_path(rec):
 
 def hold_main_path(rec, launches):
     """The main path launched the event-sim kernel once per simulated grid
-    and once per sweep, and reproduced ``MAIN_PATH_X``."""
+    and once per sweep and the replay kernel once per sweep, reproduced
+    ``MAIN_PATH_X`` and each sweep's hit counts (``MAIN_PATH_HITS``)."""
     import numpy as np
 
-    want = len(DISKS) + 1 + len(POLICY_PARAMS)
-    if launches != want:
-        raise AssertionError(f"the main path launched the event-sim kernel "
-                             f"{launches} times, not {want}")
+    want = {"event_sim": len(DISKS) + 1 + len(POLICY_PARAMS),
+            "replay": len(POLICY_PARAMS)}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"the main path launched the {name} kernel "
+                                 f"{launches[name]} times, not {n}")
     got = rec["main_path"]
+    for policy, hits in MAIN_PATH_HITS.items():
+        p_hit = got["sweeps"][policy]["p_hit"]
+        if p_hit != [h / MAIN_PATH_MEASURED for h in hits]:
+            raise AssertionError(f"{policy} sweep: p_hit {p_hit} is not "
+                                 f"{hits} over {MAIN_PATH_MEASURED}")
     pairs = [(f"lru disk={d}", got["lru_sim"][d]["x"], x)
              for d, x in MAIN_PATH_X["lru_sim"].items()]
     pairs.append(("fifo", got["fifo_sim"], MAIN_PATH_X["fifo_sim"]))
@@ -769,10 +903,12 @@ def hold_main_path(rec, launches):
         np.testing.assert_allclose(x, ref, rtol=MAIN_PATH_RTOL, err_msg=what)
         worst = max(worst, float(np.max(np.abs(np.subtract(x, ref))
                                         / np.abs(ref))))
-    print(f"main path: {launches} event-sim launches; every throughput within "
+    print(f"main path: {launches['event_sim']} event-sim and "
+          f"{launches['replay']} replay launches; every sweep's p_hit equal "
+          f"to the earlier kernel's hit counts; every throughput within "
           f"{MAIN_PATH_RTOL} of the earlier kernel's (largest relative "
           f"difference {worst:.3g})", flush=True)
-    rec["main_path_vs_earlier_kernel"] = {"launches": launches,
+    rec["main_path_vs_earlier_kernel"] = {"launches": dict(launches),
                                           "max_rel_diff": worst}
 
 
@@ -928,6 +1064,114 @@ def timed_plain(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def chain_steps(policy, keys, acc) -> int:
+    """Dependent loads on one lane's chain, as the kernel's steps make them
+    for ``py_ref``'s answers ``acc`` to ``keys``: one per request (the
+    lookup, with the candidates a miss would take loaded beside it), one
+    per hit that relinks its slot (LRU and Prob-LRU off the list's head;
+    every SLRU hit, and one more for its demotion), one per scan step
+    (CLOCK's and S3-FIFO's reinsertions, SIEVE's walk).  A lower bound:
+    S3-FIFO's ghost counts and free bitmap, and SLRU's eviction from T,
+    are left out."""
+    steps, head = len(acc), None
+    for k, a in zip(keys, acc):
+        delink, _, tail, scan = a.ops
+        steps += scan
+        if policy in ("lru", "prob_lru"):
+            steps += int(a.hit and delink and k != head)
+            head = k if (not a.hit or delink) else head
+        elif policy == "slru" and a.hit:
+            steps += 1 + tail
+    return steps
+
+
+def hold_py_ref(rec, policy, params, grid, trace, us, outs):
+    """Hits, evicted keys and op vectors of every lane of a sweep's launch
+    against the port's pure-Python policies (``cache/py_ref.py``), request
+    by request.  Where they part, the plain version decides (and the
+    case is recorded for ROADMAP queue 3).  Returns each lane's
+    ``chain_steps``."""
+    import numpy as np
+    from repro_torch.cache.py_ref import PY_POLICIES
+    from repro_torch.kernels import replay as kr
+
+    # py_ref's S3-FIFO scans at most 3 reinsertions, max_scan's value here
+    kw = {k: v for k, v in params.items()
+          if not (policy == "s3fifo" and k == "max_scan")}
+    got = [o.cpu().numpy() for o in outs[:3]]
+    keys, coins = trace.tolist(), us.tolist()
+    steps, parts = [], False
+    for i, cap in enumerate(IMPL_CAPS):
+        ref = PY_POLICIES[policy](cap, **kw)
+        acc = [ref.access(k, u) for k, u in zip(keys, coins)]
+        steps.append(chain_steps(policy, keys, acc))
+        want = (np.array([a.hit for a in acc]),
+                np.array([a.evicted_key for a in acc]),
+                np.array([a.ops[0] | a.ops[1] << 1 | a.ops[2] << 9
+                          | a.ops[3] << 12 for a in acc]))
+        bad = [n for n, g, w in zip(("hits", "evicted", "ops"), got, want)
+               if not np.array_equal(g[i], w)]
+        if bad and not parts:
+            hold_replay(f"{policy} {grid.shape} (py_ref parts at size {cap}: "
+                        f"{bad})", outs, kr.replay_lanes_plain(
+                            policy, *grid.args, grid.key_space, grid.pad))
+            rec.setdefault("py_ref_parts", {})[f"{policy}@{cap}"] = bad
+            parts = True
+    if not parts:
+        print(f"replay {policy} full size: kernel == py_ref (hits, evicted, "
+              f"ops)", flush=True)
+    return steps
+
+
+def build_chase():
+    """Compile ``CHASE_SRC`` with the library's flags and load it."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "chase"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "chase.cu").write_text(CHASE_SRC)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    str(out / "chase.cu"), "-o", str(out / "chase.so")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out / "chase.so"))
+    lib.chase_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p] * 3)
+    lib.chase_launch.restype = ctypes.c_int
+    return lib
+
+
+def load_latency(lib) -> dict:
+    """ns and cycles per dependent load of the pointer chase, in shared
+    memory and in device memory (L1-resident after the warm-up lap)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels._build import check
+
+    order = np.random.default_rng(0).permutation(CHASE_N)
+    nxt = np.empty(CHASE_N, np.int32)
+    nxt[order] = np.roll(order, -1)  # one cycle through every slot
+    nxt_t = torch.from_numpy(nxt).cuda()
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = {}
+    for where, shared in (("shared", 1), ("device", 0)):
+        def launch():
+            return lib.chase_launch(nxt_t.data_ptr(), CHASE_N, CHASE_STEPS,
+                                    shared, cycles.data_ptr(), sink.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+        check(launch(), "chase launch")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        check(launch(), "chase launch")
+        end.record()
+        torch.cuda.synchronize()
+        out[where] = {"ns": start.elapsed_time(end) * 1e6 / CHASE_STEPS,
+                      "cycles": int(cycles.item()) / CHASE_STEPS}
+    return out
+
+
 def full_size(rec):
     """Each kernel at the main path's shapes: timed per launch (CUDA events)
     and held against its plain version, run once on the same inputs and
@@ -935,25 +1179,50 @@ def full_size(rec):
     import numpy as np
     import torch
     from repro_torch.cache.flat import unpack_ops
-    from repro_torch.cache.replay import lru_sweep
+    from repro_torch.cache.replay import classify_inflight, lru_sweep
     from repro_torch.core.harness import coin_stream, measure_cache, zipf_trace
     from repro_torch.core.policy_models import lru_network
     from repro_torch.kernels import event_sim as es
     from repro_torch.kernels import replay as kr
 
-    # replay: a sweep's launch (5 lanes x 60k requests, ks 4096, window 8)
+    # replay: each sweep's launch (5 lanes x 60k requests, ks 4096, window
+    # 8), timed, held against py_ref and classify_inflight; LRU's also
+    # against the plain version and the Mattson sweep
     trace = zipf_trace(60_000, 4096, 0.99, 0)
     us = coin_stream(60_000, 0)
-    per_policy = {}
+    latency = load_latency(build_chase())
+    rec["load_latency"] = latency
+    print(f"dependent load: {json.dumps(latency)}", flush=True)
+    per_policy, chains, outs_of = {}, {}, {}
     for policy, params in POLICY_PARAMS.items():
         grid = kr.grid_lanes(policy, trace, us, IMPL_CAPS, key_space=4096,
                              window=8, device="cuda", **params)
         per_policy[policy] = cuda_ms(
             lambda g=grid, p=policy: kr.replay_lanes(p, *g.args, g.key_space,
                                                      g.pad), reps=3)
+        outs = kr.replay_lanes(policy, *grid.args, grid.key_space, grid.pad)
+        # the chain of the longest lane, counted from the inputs by py_ref
+        chains[policy] = max(hold_py_ref(rec, policy, params, grid, trace,
+                                         us, outs))
+        outs_of[policy] = outs
+    classes = torch.stack([outs_of[p][3] for p in POLICY_PARAMS]).cpu()
+    want = classify_inflight(trace, torch.stack(
+        [outs_of[p][0] for p in POLICY_PARAMS]).cpu() != 0, 8,
+        key_space=4096, device="cpu")
+    if not np.array_equal(classes.numpy(), want):
+        raise AssertionError("replay kernel classes != classify_inflight")
+    print("replay full size, every policy: classes == classify_inflight "
+          "(bit-identical)", flush=True)
+    chain_ms = {p: n * latency["shared"]["ns"] * 1e-6
+                for p, n in chains.items()}
+    for policy, ms in per_policy.items():
+        print(f"replay {policy}: {ms:.3f} ms per launch; chain bound "
+              f"{chain_ms[policy]:.3f} ms ({chains[policy]} dependent steps "
+              f"of {latency['shared']['ns']:.2f} ns); "
+              f"{ms / chain_ms[policy]:.2f}x the bound", flush=True)
     grid = kr.grid_lanes("lru", trace, us, IMPL_CAPS, key_space=4096,
                          window=8, device="cuda")
-    outs = kr.replay_lanes("lru", *grid.args, grid.key_space, grid.pad)
+    outs = outs_of["lru"]
     plain, replay_plain_ms = timed_plain(
         lambda: kr.replay_lanes_plain("lru", *grid.args, grid.key_space,
                                       grid.pad))
@@ -967,8 +1236,9 @@ def full_size(rec):
     n_l, n_t = grid.args[2].shape
     evictions = int(((outs[2] >> 9) & 0x7).sum())
     replay_bytes = 4 * (n_l * 7 + 3 * n_l * n_t + 4 * n_l * n_t)
-    # per request ~16 scalar operations; per eviction one masked argmin
-    # over the padded slot axis (a compare and a select per slot)
+    # a figure of work, not the bound: ~16 scalar operations per request
+    # and one compare and select per padded slot per eviction, as if
+    # they ran in parallel
     replay_ops = 16 * n_l * n_t + 2 * grid.pad * evictions
 
     # event sim, one disk speed's (p_hit x seed) grid, 21 lanes x 16k
@@ -1059,7 +1329,12 @@ def full_size(rec):
         t_ops = ops / SCALAR_OPS_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    rb, rby = bound(replay_bytes, replay_ops)
+    # the replay launch is a chain of dependent loads per lane: its bound
+    # is the longest lane's chain, far above its bytes and operations.  It
+    # is a latency; the kernel line names it "operations", as it counts
+    # dependent operations (each at one load's latency)
+    rb = max(bound(replay_bytes, replay_ops)[0], chain_ms["lru"])
+    rby = "operations"
     sb, sby = bound(one_bytes, one_ops)
     tb, tby = bound(sim_bytes + 4 * seeds.numel() * spec.visits.shape[1]
                     + ring_bytes, sim_ops)
@@ -1067,7 +1342,9 @@ def full_size(rec):
     lb, lby = bound(lru["bytes"], 2 * lru["shape"][0] + lru["shape"][1])
     rec["timing"] = {
         "replay_ms_per_policy": per_policy, "replay_plain_ms": replay_plain_ms,
+        "replay_chain_steps": chains, "replay_chain_bound_ms": chain_ms,
         "replay_bytes": replay_bytes, "replay_ops": replay_ops,
+        "replay_work_bound_ms": bound(replay_bytes, replay_ops)[0],
         "replay_shape": [n_l, n_t, grid.key_space, grid.pad],
         "sim_ms": sim_ms, "sim_events": int(out.events.long().sum()),
         "sim_bytes": sim_bytes, "sim_ops": sim_ops,
@@ -2072,6 +2349,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))  # the replay's edge lanes
     # float32 products in full float32, as the reference's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2089,10 +2367,11 @@ def main() -> int:
     card = phases.run("device", card_line)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    ptxas = start_event_sim_ptxas()
+    ptxas = start_ptxas()
     phases.run("build", _build.load_library)
     rec = {"card": card}
     phases.run("event_sim_ptxas", event_sim_ptxas, ptxas, rec)
+    phases.run("replay_ptxas", replay_ptxas, ptxas, rec)
     phases.run("sass", sass_counts, rec)
     phases.run("replay_vs_plain", check_replay, rec)
     phases.run("event_sim_vs_plain", check_event_sim, rec)
@@ -2107,7 +2386,7 @@ def main() -> int:
     phases.run("main_path", main_path, rec)
     launches = {"replay": kr.replay_lanes.launches,
                 "event_sim": es.sim_lanes.launches}
-    hold_main_path(rec, launches["event_sim"])
+    hold_main_path(rec, launches)
     es.sim_lanes.traced_launches = 0
     phases.run("traced_path", traced_path, rec)
     launches["event_sim_traced"] = es.sim_lanes.traced_launches

@@ -30,10 +30,11 @@ MAX_SHARED_BYTES = 232_448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry points: (argtypes, restype).  Every launcher returns cudaError_t.
 _SIGNATURES = {
-    "replay_launch": ([_I] + [_P] * 9 + [_I] * 4 + [_P], _I),
-    "replay_shared_bytes": ([_I, _I], _I),
+    "replay_launch": ([_I, _I] + [_P] * 10 + [_LL] + [_I] * 4 + [_P], _I),
+    "replay_bytes": ([_I, _LL, _LL, _I, _I], _LL),
     "event_sim_launch": ([_P] * 13 + [_I] * 7 + [_P], _I),
     "event_sim_traced_launch": ([_P] * 22 + [_I] * 8 + [_P], _I),
     "event_sim_shared_bytes": ([_I] * 5, _I),

@@ -8,10 +8,12 @@ fetch-expiry table, and writes per request: hit, evicted key, packed op
 vector and class.
 
 :func:`replay_lanes` is the kernel wrapper.  On a CUDA tensor it launches
-the hand-written kernel (``csrc/replay.cu``: one thread block per lane,
-the lane's state in shared memory) or raises; on a CPU tensor it runs the
-plain PyTorch version, :func:`replay_lanes_plain`, which loops the flat
-steps over the stream with every lane batched.  The two are bit-identical.
+the hand-written kernel (``csrc/replay.cu``: one warp per lane, each
+policy's lists in place of the flat engine's masked argmins) or raises; on
+a CPU tensor it runs the plain PyTorch version, :func:`replay_lanes_plain`,
+which loops the flat steps over the stream with every lane batched.  The
+two are bit-identical.  :func:`replay_layout` places a lane's state: in
+shared memory, or in device memory when it does not fit there.
 """
 
 from __future__ import annotations
@@ -27,6 +29,61 @@ from repro_torch.cache.replay import (DELAYED_HIT, TRUE_HIT, TRUE_MISS,
                                       _FAR_PAST, _padded, _resolve_key_space,
                                       _window_stream)
 from repro_torch.kernels import _build
+
+# Where a lane's state lives (``LAYOUT`` in ``csrc/replay.cu``): per-key
+# tables and slot arrays in shared memory with int16 links, or all in
+# device memory with int32 links.
+LAYOUTS = ("shared", "global")
+_STAGE_BYTES = 7 * 32 * 4  # one batch of 32 requests in and out
+_INT16_MAX_PAD = 1 << 15
+
+
+class ReplayLayout(NamedTuple):
+    """A lane's state layout and its bytes (``csrc/replay.cu``'s)."""
+
+    kind: str            # one of LAYOUTS
+    shared_bytes: int    # dynamic shared memory per block
+    scratch_bytes: int   # device-memory scratch per lane
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def layout_bytes(policy: str, key_space: int, pad: int,
+                 kind: str) -> ReplayLayout:
+    """The bytes of one lane's state in layout ``kind``: the per-key
+    region (expiry int32, key2slot, S3-FIFO's ghost counts) and the
+    per-slot region (slot2key int32, S3-FIFO's ghost ring and free
+    bitmaps, two links, the reference and membership bytes)."""
+    link = 4 if kind == "global" else 2
+    words = -(-pad // 32)
+    keys = _align16(4 * key_space) + _align16(link * key_space)
+    slots = _align16(4 * pad) + 2 * _align16(link * pad)
+    if policy == "s3fifo":
+        keys += _align16(link * key_space)
+        slots += (_align16(4 * pad) + _align16(4 * words)
+                  + _align16(4 * -(-words // 32)))
+    slots += _align16(pad) * ((policy in ("clock", "s3fifo", "sieve"))
+                              + (policy in ("slru", "s3fifo")))
+    if kind == "shared":
+        return ReplayLayout(kind, _STAGE_BYTES + keys + slots, 0)
+    return ReplayLayout(kind, _STAGE_BYTES, keys + slots)
+
+
+def layout_fits(layout: ReplayLayout, pad: int) -> bool:
+    """Whether one block holds the layout's shared memory, and its int16
+    links the pad."""
+    return layout.kind == "global" or (
+        pad <= _INT16_MAX_PAD
+        and layout.shared_bytes <= _build.MAX_SHARED_BYTES)
+
+
+def replay_layout(policy: str, key_space: int, pad: int) -> ReplayLayout:
+    """The first layout of LAYOUTS that fits (the last always does)."""
+    layouts = (layout_bytes(policy, key_space, pad, kind) for kind in LAYOUTS)
+    return next(lay for lay in layouts if layout_fits(lay, pad))
+
 
 class ReplayGridResult(NamedTuple):
     """Replay grid output on the run's device, shaped (C, S, T).
@@ -105,6 +162,7 @@ def replay_lanes(policy: str, pvecs: torch.Tensor, qs: torch.Tensor,
     if policy not in flat.POLICY_IDS:
         raise KeyError(f"unknown policy {policy!r}")
     _check_lane_inputs(pvecs, qs, keys, us, windows)
+    _check_params(policy, pvecs, pad)
     if keys.device.type == "cpu":
         return replay_lanes_plain(policy, pvecs, qs, keys, us, windows,
                                   key_space, pad)
@@ -112,23 +170,44 @@ def replay_lanes(policy: str, pvecs: torch.Tensor, qs: torch.Tensor,
         raise ValueError(f"no replay kernel for device {keys.device}")
     if keys.numel() and (int(keys.min()) < 0 or int(keys.max()) >= key_space):
         raise ValueError(f"keys out of range for key_space={key_space}")
-    lib = _build.load_library()
-    nbytes = lib.replay_shared_bytes(key_space, pad)
-    if nbytes > _build.MAX_SHARED_BYTES:
-        raise ValueError(
-            f"replay lane state needs {nbytes} bytes of shared memory "
-            f"(key_space={key_space}, pad={pad}); a block may use at most "
-            f"{_build.MAX_SHARED_BYTES}")
+    return _launch(_build.load_library(), policy,
+                   replay_layout(policy, key_space, pad),
+                   (pvecs, qs, keys, us, windows), key_space, pad)
+
+
+def _check_params(policy: str, pvecs: torch.Tensor, pad: int) -> None:
+    """Both versions index slots by the parameters: hold them to the slot
+    arrays (``flat_lane_params`` gives cap <= pad for a grid)."""
+    if pad < 1:
+        raise ValueError(f"pad must be >= 1, got {pad}")
+    p = pvecs.cpu()
+    cap, ghost = p[:, flat.P_CAP], p[:, flat.P_GHOST_CAP]
+    if p.numel() and int(cap.max()) > pad:
+        raise ValueError(f"capacity {int(cap.max())} > pad {pad}")
+    if policy == "s3fifo" and p.numel() and not (
+            int(ghost.min()) >= 1 and int(ghost.max()) <= pad):
+        raise ValueError(f"ghost ring capacity outside [1, pad={pad}]")
+
+
+def _launch(lib, policy: str, layout: ReplayLayout, args, key_space: int,
+            pad: int) -> Tuple[torch.Tensor, ...]:
+    """One launch of ``lib``'s replay kernel in ``layout`` on the inputs'
+    device, counted in ``replay_lanes.launches``; the scratch is allocated
+    here, for every lane."""
+    keys = args[2]
     n_l, n_t = keys.shape
     outs = [torch.empty((n_l, n_t), dtype=torch.int32, device=keys.device)
             for _ in range(4)]
+    scratch = torch.empty(max(1, n_l * layout.scratch_bytes),
+                          dtype=torch.uint8, device=keys.device)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.replay_launch(
-            flat.POLICY_IDS[policy], pvecs.data_ptr(), qs.data_ptr(),
-            keys.data_ptr(), us.data_ptr(), windows.data_ptr(),
-            *(o.data_ptr() for o in outs), n_l, n_t, key_space, pad, stream)
-    _build.check(err, "replay kernel launch")
+            flat.POLICY_IDS[policy], LAYOUTS.index(layout.kind),
+            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+            scratch.data_ptr(), scratch.numel(), n_l, n_t, key_space, pad,
+            stream)
+    _build.check(err, f"replay kernel launch ({layout.kind} layout)")
     replay_lanes.launches += 1
     return tuple(outs)
 

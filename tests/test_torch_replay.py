@@ -4,7 +4,10 @@
 plain version, the flat steps looped over the stream) must equal
 ``repro.kernels.replay.replay_grid_pallas`` bit for bit on every policy:
 hits, evicted keys, packed ops and the fused delayed-hit classes, with
-scalar windows, per-request windows and ``fail_prob > 0``.
+scalar windows, per-request windows and ``fail_prob > 0``, and on the
+edge lanes of ``test_torch_replay_cuda.EDGE_CASES`` (tolerance: exact).
+The kernel itself is held against the plain version on the card in
+``test_torch_replay_cuda.py``.
 """
 
 import numpy as np
@@ -15,55 +18,10 @@ from repro.cache import replay as jreplay
 from repro.kernels import replay as jkreplay
 from repro_torch.cache import flat
 from repro_torch.cache import replay as treplay
-from repro_torch.core.harness import miss_window_stream
-from repro_torch.kernels import _build
 from repro_torch.kernels import replay as tkreplay
-
-KEY_SPACE = 96
-T = 800
-
-PARAMS = {
-    "lru": {},
-    "fifo": {},
-    "prob_lru": {"q": 0.5},
-    "clock": {"max_scan": 3},
-    "slru": {"protected_frac": 0.5},
-    "s3fifo": {"small_frac": 0.25, "max_scan": 3},
-    "sieve": {},
-}
-
-# (policy, window, fail_prob, pad_to): scalar and per-request windows,
-# re-issue stretching, and slot arrays padded past the largest capacity
-CASES = [
-    ("lru", "scalar", 0.1, None),
-    ("fifo", "per_request", 0.0, 48),
-    ("prob_lru", "scalar", 0.0, None),
-    ("clock", "per_request", 0.2, 45),
-    ("slru", "scalar", 0.1, None),
-    ("s3fifo", "per_request", 0.0, None),
-    ("sieve", "scalar", 0.2, 41),
-]
-CAPS = [5, 17, 40]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    return "cuda"
-
-
-def _streams(seed=0, n_seeds=2, n=T):
-    rng = np.random.default_rng(seed)
-    ranks = np.arange(1, KEY_SPACE + 1)
-    probs = ranks ** -0.99 / np.sum(ranks ** -0.99)
-    keys = rng.choice(KEY_SPACE, size=(n_seeds, n), p=probs)
-    us = rng.random((n_seeds, n), dtype=np.float32)
-    return keys, us
-
-
-def _window(kind, n=T):
-    return 6 if kind == "scalar" else miss_window_stream(n, 5.0, seed=3)
+from test_torch_replay_cuda import (CAPS, CASES, EDGE_CASES, KEY_SPACE,
+                                    PARAMS, T, edge_stream, streams,
+                                    window_of)
 
 
 def _assert_grid_equal(t, j):
@@ -78,8 +36,8 @@ def _assert_grid_equal(t, j):
 
 @pytest.mark.parametrize("policy,kind,fail_prob,pad_to", CASES)
 def test_fused_grid_bit_identical(policy, kind, fail_prob, pad_to):
-    keys, us = _streams()
-    kw = dict(key_space=KEY_SPACE, pad_to=pad_to, window=_window(kind),
+    keys, us = streams()
+    kw = dict(key_space=KEY_SPACE, pad_to=pad_to, window=window_of(kind),
               fail_prob=fail_prob, fail_seed=4, **PARAMS[policy])
     t = tkreplay.replay_grid_fused(policy, keys, us, CAPS, device="cpu", **kw)
     j = jkreplay.replay_grid_pallas(policy, keys, us, CAPS, **kw)
@@ -93,7 +51,7 @@ def test_fused_grid_bit_identical(policy, kind, fail_prob, pad_to):
 
 def test_kernel_body_interpreter_matches():
     """One tiny case against the JAX kernel body itself (interpret=True)."""
-    keys, us = _streams(seed=5, n_seeds=1, n=160)
+    keys, us = streams(seed=5, n_seeds=1, n=160)
     kw = dict(key_space=KEY_SPACE, window=4, **PARAMS["sieve"])
     t = tkreplay.replay_grid_fused("sieve", keys, us, [6, 11], device="cpu",
                                    **kw)
@@ -104,7 +62,7 @@ def test_kernel_body_interpreter_matches():
 
 @pytest.mark.parametrize("policy", ["slru", "clock"])
 def test_replay_grid_matches_reference(policy):
-    keys, us = _streams(seed=2, n=600)
+    keys, us = streams(seed=2, n=600)
     t = treplay.replay_grid(policy, keys, us, [4, 19], key_space=KEY_SPACE,
                             device="cpu", **PARAMS[policy])
     j = jreplay.replay_grid(policy, keys, us, [4, 19], key_space=KEY_SPACE,
@@ -115,7 +73,7 @@ def test_replay_grid_matches_reference(policy):
 
 
 def test_lru_sweep_matches_reference():
-    keys, _ = _streams(seed=3, n_seeds=1, n=4000)
+    keys, _ = streams(seed=3, n_seeds=1, n=4000)
     caps = [1, 7, 30, 95]
     th, to = treplay.lru_sweep(keys[0], caps)
     jh, jo = jreplay.lru_sweep(keys[0], caps)
@@ -126,9 +84,9 @@ def test_lru_sweep_matches_reference():
 @pytest.mark.parametrize("window,fail_prob", [(5, 0.0), (3, 0.25),
                                               ("per_request", 0.1)])
 def test_classify_inflight_matches_reference(window, fail_prob):
-    keys, _ = _streams(seed=4)
+    keys, _ = streams(seed=4)
     hits = np.random.default_rng(9).random((3, 2, T)) < 0.6
-    w = _window("per_request") if window == "per_request" else window
+    w = window_of("per_request") if window == "per_request" else window
     t = treplay.classify_inflight(keys, hits, w, key_space=KEY_SPACE,
                                   fail_prob=fail_prob, fail_seed=2,
                                   device="cpu")
@@ -147,7 +105,7 @@ def test_window_and_attempt_streams_match():
 
 
 def test_validation_errors():
-    keys, us = _streams(n=50)
+    keys, us = streams(n=50)
     with pytest.raises(ValueError, match="shape mismatch"):
         tkreplay.replay_grid_fused("lru", keys, us[:, :-1], [8],
                                    key_space=KEY_SPACE, device="cpu")
@@ -170,47 +128,51 @@ def test_wrapper_checks_inputs():
             torch.zeros((2, 5), dtype=torch.int32))
     with pytest.raises(ValueError, match="keys must be torch.int32"):
         tkreplay.replay_lanes("lru", *args, key_space=4, pad=4)
-
-
-def _lane_shared_bytes(key_space, pad):
-    """replay.cu's lane layout: key2slot + expiry (key_space each),
-    slot2key/ts/bit/aux/ghost (pad each), the registers and the reduction
-    scratch of a 256-thread block (8 warps)."""
-    return 4 * (2 * key_space + 5 * pad + flat.N_REGS + 2 * (256 // 32 + 1))
+    # parameters that would index past the slot arrays
+    args = (args[0], args[1], keys.to(torch.int32)) + args[3:]
+    args[0][:, flat.P_CAP] = 5
+    with pytest.raises(ValueError, match="capacity 5 > pad 4"):
+        tkreplay.replay_lanes("lru", *args, key_space=4, pad=4)
+    args[0][:, flat.P_CAP] = 2
+    with pytest.raises(ValueError, match="ghost ring capacity"):
+        tkreplay.replay_lanes("s3fifo", *args, key_space=4, pad=4)
+    with pytest.raises(ValueError, match="pad must be >= 1"):
+        tkreplay.replay_lanes("lru", *args, key_space=4, pad=0)
 
 
 def test_shared_memory_budget():
-    # the main path's lane (key_space 4096, pad 3300) fits in one block
-    assert _lane_shared_bytes(4096, 3300) <= _build.MAX_SHARED_BYTES
-    assert _lane_shared_bytes(40_000, 3300) > _build.MAX_SHARED_BYTES
+    """Which layout a lane's state gets (``replay.replay_layout``)."""
+    # the main path's lanes keep everything in one block's shared memory
+    for policy in flat.POLICY_IDS:
+        lay = tkreplay.replay_layout(policy, 4096, 3300)
+        assert lay.kind == "shared" and lay.scratch_bytes == 0
+        assert lay.shared_bytes <= 232_448
+    # LRU at 4096 / 3300: 896 bytes of staging, expiry and key2slot (int32,
+    # int16 per key), slot2key, prv, nxt (int32, int16, int16 per slot;
+    # each array rounded up to 16 bytes)
+    assert tkreplay.replay_layout("lru", 4096, 3300).shared_bytes == (
+        896 + (4 + 2) * 4096 + 4 * 3300 + 2 * 6608)
+    # state that does not fit in one block's shared memory, or slot arrays
+    # past int16 links, goes to device memory with int32 links: only the
+    # staging stays in shared memory
+    for policy in flat.POLICY_IDS:
+        for key_space in (40_000, 1 << 17, 1 << 22):
+            lay = tkreplay.replay_layout(policy, key_space, 3300)
+            assert lay.kind == "global" and lay.shared_bytes == 896
+            assert lay.scratch_bytes >= 8 * key_space + 12 * 3300
+    assert tkreplay.replay_layout("s3fifo", 4096, 20_000).kind == "global"
+    assert tkreplay.replay_layout("sieve", 4096, 20_000).kind == "shared"
+    for policy in flat.POLICY_IDS:
+        lay = tkreplay.replay_layout(policy, 96, 40_000)
+        assert lay == tkreplay.layout_bytes(policy, 96, 40_000, "global")
+        assert lay.shared_bytes == 896
 
 
-@pytest.mark.cuda
-def test_shared_memory_layout_on_card(cuda_device):
-    lib = _build.load_library()
-    for key_space, pad in ((4096, 3300), (96, 41)):
-        assert (lib.replay_shared_bytes(key_space, pad)
-                == _lane_shared_bytes(key_space, pad))
-    keys = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
-    args = (torch.zeros((1, 6), dtype=torch.int32, device=cuda_device),
-            torch.zeros(1, dtype=torch.float32, device=cuda_device), keys,
-            torch.zeros((1, 4), dtype=torch.float32, device=cuda_device),
-            torch.zeros((1, 4), dtype=torch.int32, device=cuda_device))
-    with pytest.raises(ValueError, match="shared memory"):
-        tkreplay.replay_lanes("lru", *args, key_space=40_000, pad=3300)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
-    keys, us = _streams(seed=6)
-    for policy, kind, fail_prob, pad_to in CASES:
-        kw = dict(key_space=KEY_SPACE, pad_to=pad_to, window=_window(kind),
-                  fail_prob=fail_prob, **PARAMS[policy])
-        before = tkreplay.replay_lanes.launches
-        k = tkreplay.replay_grid_fused(policy, keys, us, CAPS,
-                                       device=cuda_device, **kw)
-        assert tkreplay.replay_lanes.launches == before + 1
-        p = tkreplay.replay_grid_fused(policy, keys, us, CAPS, device="cpu",
-                                       **kw)
-        for a, b in zip(k, p):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+@pytest.mark.parametrize("policy,params,stream,caps,pad_to", EDGE_CASES)
+def test_edge_lanes_bit_identical(policy, params, stream, caps, pad_to):
+    keys, us, key_space = edge_stream(stream)
+    kw = dict(key_space=key_space, pad_to=pad_to, window=4, fail_prob=0.1,
+              fail_seed=4, **params)
+    t = tkreplay.replay_grid_fused(policy, keys, us, caps, device="cpu", **kw)
+    j = jkreplay.replay_grid_pallas(policy, keys, us, caps, **kw)
+    _assert_grid_equal(t, j)
