@@ -9,8 +9,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's fifteen instantiations and of
-   the replay kernel's 14 (seven policies x two state layouts); then
+   spills of each of the event-sim kernel's fifteen instantiations, of
+   the replay kernel's 14 (seven policies x two state layouts) and of the
+   chunked WKV kernel's nine (three type combinations x three head
+   widths); then
    ``cuobjdump --dump-sass`` of the library: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
@@ -49,12 +51,15 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    64-token steps), and a full-width decode batch (32 sequences x 128
    pages of 16 tokens over a 4096-page pool, ragged seq_lens) in bf16 and
    in float32;
-6c. the WKV6 kernel vs its plain version: the reference's WKV_CASES from
-   a zero state (2e-4 float32, 2e-2 bf16, T = 100 its padding path), a
-   random state in and out (y and the final state within 2e-4), one
-   decode step (T = 1), and the full-width prefill shape (B 2, T 2048,
-   64 heads of 64, the model's types) within 1e-4 of the largest |y| and
-   |state|;
+6c. the WKV6 kernels vs their plain version (T >= 64 the chunked kernel,
+   T < 64 the sequential one): the reference's WKV_CASES from a zero
+   state (2e-4 float32, 2e-2 bf16, T = 100 its padding path), a random
+   state in and out (y and the final state within 2e-4), one decode step
+   (T = 1), the full-width prefill shape (B 2, T 2048, 64 heads of 64,
+   the model's types) within 1e-4 of the largest |y| and |state|, and the
+   chunked kernel's cases of ``tests/test_torch_wkv_cuda.py`` (every type
+   combination and head width, ragged T up to 2047, model decays, decays
+   of exactly 0 and 1 on both routes), each case's route asserted;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -84,7 +89,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 9c. the rwkv6 family on full-width rwkv6-7b (random weights, seed 0;
    the internlm2 models freed first, peak device memory printed after
    each phase): the prefill path (a timed bf16 ``forward`` on 2 x 2048
-   tokens, 32 WKV launches per forward; in float32 on 1 x 256 tokens the
+   tokens, 32 WKV launches per forward, all on the chunked kernel; in
+   float32 on 1 x 256 tokens the
    logits through the kernel within 1e-4 of their scale of the same
    forward with ``_wkv_scan`` patched to the plain version, and of a
    240-token prefill followed by 16 ``decode_step``s) and the serve path
@@ -119,9 +125,11 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    type; over K/V gathered beforehand for the paged kernel), the flash
    kernels each in its type (the tensor-core kernel in bf16, the
    float32-units kernel in float32) with and without the window, with the
-   achieved TFLOP/s and the share of the bound; the WKV kernel at the
-   prefill shape and the engine's decode step (B 4, T 1) beside its plain
-   version and its bound (no library call computes WKV6).
+   achieved TFLOP/s and the share of the bound; the WKV kernels at the
+   prefill shape (the chunked kernel, and the sequential one on the same
+   inputs) and the engine's decode step (B 4, T 1, the sequential kernel)
+   beside their plain version and their bound (no library call computes
+   WKV6); the chunked kernel must be the faster at the prefill shape.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  Details
@@ -247,6 +255,7 @@ TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
 LRU_PATH = (1 << 22, 4096, 64)  # slots, ids per batch, batches
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+TF32_TENSOR_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 # tests/test_kernels.py's FLASH_CASES, then the full-width prefill shape
 # (internlm2-1.8b: B 4, 16 query heads, 8 KV heads, T = S = 2048, d_head 128)
 # without and with a 1024-token window
@@ -412,8 +421,9 @@ def sass_counts(rec):
 
 
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu`` and ``csrc/replay.cu``
-    with the library's flags, started beside the library's own build."""
+    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``, ``csrc/replay.cu`` and
+    ``csrc/linear_scan.cu`` with the library's flags, started beside the
+    library's own build."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ptxas"
@@ -422,13 +432,13 @@ def start_ptxas():
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          str(_build.CSRC / f"{name}.cu"), "-o", str(out / f"{name}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("event_sim", "replay")}
+        for name in ("event_sim", "replay", "linear_scan")}
 
 
 def ptxas_info(proc, pattern, name_of):
     """{instantiation: registers, stack and spills} from ``proc``'s ptxas
     report; ``pattern`` matches an entry function's name and ``name_of``
-    names it from the match."""
+    names it from the match; entries it does not match are skipped."""
     import re
 
     out, err = proc.communicate()
@@ -436,10 +446,11 @@ def ptxas_info(proc, pattern, name_of):
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{out}{err}")
     info, fn = {}, None
     for line in (out + err).splitlines():
-        m = re.search(r"Compiling entry function .*" + pattern, line)
-        if m:
-            fn = name_of(m)
-            info[fn] = {}
+        if "Compiling entry function" in line:  # entries of other kernels: None
+            m = re.search(pattern, line)
+            fn = name_of(m) if m else None
+            if fn:
+                info[fn] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -483,6 +494,23 @@ def replay_ptxas(procs, rec):
     for fn, v in sorted(info.items()):
         print(f"ptxas replay {fn}: {json.dumps(v)}", flush=True)
     rec["replay_ptxas"] = info
+
+
+def wkv_ptxas(procs, rec):
+    """Registers, stack frame and spills of each chunked WKV instantiation
+    (three type combinations x three head widths); raises unless all nine
+    compiled."""
+    types = {"fff": "f32", "13__nv_bfloat16S1_S1_": "bf16",
+             "13__nv_bfloat16ff": "bf16/f32/f32"}
+    info = ptxas_info(procs["linear_scan"],
+                      r"wkv6_chunked_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)E",
+                      lambda m: f"{types.get(m.group(1), m.group(1))} dh={m.group(2)} "
+                                f"C={m.group(3)} jblocks={m.group(4)}")
+    if len(info) != 9 or not all(len(v) == 4 for v in info.values()):
+        raise AssertionError(f"ptxas reported {info}")
+    for fn, v in sorted(info.items()):
+        print(f"ptxas wkv6_chunked {fn}: {json.dumps(v)}", flush=True)
+    rec["wkv_ptxas"] = info
 
 
 def long_route_network(mpl):
@@ -1846,15 +1874,19 @@ def paged_on_pool(rec, eng):
 
 def wkv_inputs(B, T, H, dh, io, wt, seed, decay="sigmoid"):
     """r, k, v (``io``), w (``wt``) and u (float32) on the card.  w is the
-    sigmoid of a normal, as the reference's test, or the model's
-    exp(-exp(x)) with x uniform in [-8, 4]."""
+    sigmoid of a normal, as the reference's test ("sigmoid"; "exact": with
+    a tenth of the entries exactly 0 and a tenth exactly 1), or the model's
+    exp(-exp(x)) with x uniform in [-8, 4] ("model")."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     r, k, v = (torch.randn((B, T, H, dh), generator=g, device="cuda").to(
         _dtype(io)) for _ in range(3))
-    if decay == "sigmoid":
+    if decay in ("sigmoid", "exact"):
         w = torch.sigmoid(torch.randn((B, T, H, dh), generator=g, device="cuda"))
+        if decay == "exact":
+            pick = torch.rand((B, T, H, dh), generator=g, device="cuda")
+            w = torch.where(pick < 0.1, 0.0, torch.where(pick > 0.9, 1.0, w))
     else:
         x = torch.rand((B, T, H, dh), generator=g, device="cuda") * 12.0 - 8.0
         w = torch.exp(-torch.exp(x))
@@ -1881,13 +1913,17 @@ def hold_scaled(what, got, want, rel) -> float:
 
 
 def check_wkv(rec):
-    """The WKV kernel against its plain version: the reference's WKV_CASES
-    from a zero state (through ``ops.wkv6_scan``), a random initial state
-    in and out (y and the final state), one decode step, and the full-width
-    prefill shape in the model's types."""
+    """The WKV kernels against their plain version: the reference's
+    WKV_CASES from a zero state (through ``ops.wkv6_scan``), a random
+    initial state in and out (y and the final state), one decode step, the
+    full-width prefill shape in the model's types; then the chunked
+    kernel's cases of ``tests/test_torch_wkv_cuda.py`` (every type
+    combination and head width at T = 130, ragged T, decays of exactly 0
+    and 1 on both routes), each case's route asserted."""
     import torch
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import ops
+    from test_torch_wkv_cuda import CHUNKED_CASES, RAGGED_T
 
     err = 0.0
     for i, (B, T, H, dh, chunk, dt) in enumerate(WKV_CASES):
@@ -1918,6 +1954,30 @@ def check_wkv(rec):
                                           "float32", tol=WKV_TOL["float32"]),
                       hold_attention(f"{what} state", got_s, want_s,
                                      "float32", tol=WKV_TOL["float32"]))
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    cases = [(2, 130, 3, dh, *(names[d] for d in combo), "model")
+             for combo, dh in CHUNKED_CASES]
+    cases += [(1, T, 4, 64, "bfloat16", "float32", "float32", "model")
+              for T in RAGGED_T]
+    cases += [(2, T, 2, 32, *(names[d] for d in combo), "exact")
+              for combo in ls.TYPE_COMBOS for T in (65, 33)]
+    for i, (B, T, H, dh, io, wt, yt, decay) in enumerate(cases):
+        r, k, v, w, u = wkv_inputs(B, T, H, dh, io, wt, seed=40 + i, decay=decay)
+        g = torch.Generator(device="cuda").manual_seed(80 + i)
+        s0 = torch.randn((B, H, dh, dh), generator=g, device="cuda")
+        before = (ls.wkv6_scan.launches, ls.wkv6_scan.chunked_launches)
+        got_s, got_y = ls.wkv6_scan(r, k, v, w, u, s0.clone(), y_dtype=_dtype(yt))
+        chunked = ls.wkv6_scan.chunked_launches - before[1]
+        if (ls.wkv6_scan.launches - before[0], chunked) != (
+                1, int(ls.route_for(T) == "chunked")):
+            raise AssertionError(f"wkv6_scan T {T} took the wrong route")
+        want_s, want_y = ls.wkv6_scan_plain(r, k, v, w, u, s0.clone())
+        what = (f"wkv6_scan {ls.route_for(T)} {(B, T, H, dh, io, wt, yt)} "
+                f"{decay} decays")
+        err = max(err, hold_attention(f"{what} y", got_y, want_y.to(_dtype(yt)),
+                                      yt, tol=WKV_TOL[yt]),
+                  hold_attention(f"{what} state", got_s, want_s, "float32",
+                                 tol=WKV_TOL["float32"]))
     rec["wkv6_scan_max_abs_err"] = err
 
 
@@ -1961,7 +2021,7 @@ def peak_memory(what):
 
 def rwkv_prefill_path(rec, model, model32):
     """Full-width rwkv6-7b: a bf16 ``forward`` on 2 x 2048 tokens, timed
-    (32 WKV launches per forward); in float32 on 1 x 256 tokens, the logits
+    (32 WKV launches per forward, all on the chunked route); in float32 on 1 x 256 tokens, the logits
     through the kernel against the same forward with ``_wkv_scan`` replaced
     by the plain version, and against a prefill of 240 tokens followed by
     16 single-token ``decode_step``s, each within 1e-4 of the logits'
@@ -1980,16 +2040,18 @@ def rwkv_prefill_path(rec, model, model32):
         0, cfg.vocab, (B, T)).astype(np.int32)).cuda()
     out = {"shape": [B, T]}
     for label in ("first", "timed"):
-        before = ls.wkv6_scan.launches
+        before = (ls.wkv6_scan.launches, ls.wkv6_scan.chunked_launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = transformer.forward(params, toks, cfg)[0]
         torch.cuda.synchronize()
         out[f"bf16_forward_s_{label}"] = time.perf_counter() - t0
-        n = ls.wkv6_scan.launches - before
-        if n != cfg.n_layers:
-            raise AssertionError(f"a bf16 forward launched the WKV kernel {n} "
-                                 f"times, not {cfg.n_layers}")
+        n = ls.wkv6_scan.launches - before[0]
+        n_chunked = ls.wkv6_scan.chunked_launches - before[1]
+        if not n == n_chunked == cfg.n_layers:
+            raise AssertionError(f"a bf16 forward launched the WKV kernels {n} "
+                                 f"times, {n_chunked} of them chunked, not "
+                                 f"{cfg.n_layers} chunked")
         if logits.shape != (B, T, cfg.vocab) or not torch.isfinite(logits).all():
             raise AssertionError("rwkv bf16 prefill logits: bad shape or "
                                  "non-finite")
@@ -2025,7 +2087,7 @@ def rwkv_prefill_path(rec, model, model32):
     print(f"rwkv prefill {cfg.name} bf16 {B}x{T}: forward "
           f"{out['bf16_forward_s_timed']:.4f} s (first "
           f"{out['bf16_forward_s_first']:.4f} s), {cfg.n_layers} WKV launches "
-          f"per forward", flush=True)
+          f"per forward, all chunked", flush=True)
     print(f"rwkv prefill float32 1x{RWKV_CHECK_T}: kernel vs plain scan max "
           f"|d logit| {d_plain:.4g} of a {scale:.4g} scale (argmax agreement "
           f"{out['float32']['argmax_agreement']:.4f}); prefill {RWKV_SPLIT} + "
@@ -2218,15 +2280,28 @@ def rwkv_serve_path(rec, model, model32):
     rec["rwkv_serve_path"] = out
 
 
+def wkv_chunked_flops(B, T, H, dh, chunk=64) -> int:
+    """Operations of the chunked form's products, each taken once (split
+    TF32 runs two or three tensor-core products for each): per chunk of
+    each (b, h), (r D) S0 and (k D)^T V, 2 C dh^2 each, and the intra
+    matrix A with A V, C^2 dh each over the block lower triangle."""
+    return B * H * -(-T // chunk) * 2 * dh * chunk * (2 * dh + chunk)
+
+
 def wkv_rows(rec):
-    """The WKV kernel at the prefill path's shape (B 2, T 2048) and at the
-    engine's decode step (B 4, T 1), in the model's types with a state in
-    and out: the device time per launch (``device_ms``), the host-inclusive
-    time of launches one after another (CUDA events), the plain version's
-    time, and the bound: the larger of the bytes (r/k/v bf16, w and y
-    float32, u, the state read and written) over the memory rate and
-    6 B T H dh^2 operations over the float32 rate.  No single PyTorch call
-    computes WKV6, so the library time is none."""
+    """The WKV kernels at the prefill path's shape (B 2, T 2048: the
+    chunked route, and the sequential kernel on the same inputs) and at the
+    engine's decode step (B 4, T 1: the sequential route), in the model's
+    types with a state in and out: the device time per launch
+    (``device_ms``), the host-inclusive time of launches one after another
+    (CUDA events), the plain version's time, and the bound: the larger of
+    the bytes (r/k/v bf16, w and y float32, u, the state read and written)
+    over the memory rate and the route's operations, for the chunked route
+    its products (``wkv_chunked_flops``) at the TF32 tensor-core rate, for
+    the sequential route 6 B T H dh^2 operations at the float32 rate (also
+    printed beside the chunked route's bound, as ``recurrence_bound_ms``,
+    the sequential kernel's bound).  No single PyTorch call computes WKV6,
+    so the library time is none."""
     import torch
     from repro_torch.kernels import linear_scan as ls
 
@@ -2239,24 +2314,36 @@ def wkv_rows(rec):
         state = torch.zeros((B, H, dh, dh), device="cuda")
         nbytes = (3 * r.numel() * r.element_size() + 2 * w.numel() * 4
                   + u.numel() * 4 + 2 * state.numel() * 4)
-        ops = 6 * B * T * H * dh * dh
+        route = ls.route_for(T)
+        ops = (wkv_chunked_flops(B, T, H, dh) if route == "chunked"
+               else 6 * B * T * H * dh * dh)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / SCALAR_OPS_PER_S * 1e3
+        t_ops = ops / (TF32_TENSOR_FLOPS if route == "chunked"
+                       else SCALAR_OPS_PER_S) * 1e3
 
-        def kernel():
-            ls.launch(r, k, v, w, u, state, torch.float32)
+        def kernel(route=route):
+            ls.launch(r, k, v, w, u, state, torch.float32, route=route)
 
         rows[name] = {
-            "shape": list(shape), "bytes": nbytes, "ops": ops,
+            "shape": list(shape), "route": route, "bytes": nbytes, "ops": ops,
             "ms": device_ms(kernel, reps=reps),
             "launch_host_ms": cuda_ms(kernel, reps=reps),
             "plain_ms": cuda_ms(lambda: ls.wkv6_scan_plain(r, k, v, w, u, state),
                                 reps=plain_reps),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if route == "chunked":
+            rows[name]["sequential_ms"] = device_ms(
+                lambda: kernel("sequential"), reps=reps)
+            rows[name]["recurrence_bound_ms"] = (6 * B * T * H * dh * dh
+                                                 / SCALAR_OPS_PER_S * 1e3)
         print(f"wkv6_scan {name} {shape}: " + json.dumps(rows[name]), flush=True)
-    rec["timing"]["wkv"] = rows
     pf = rows["prefill"]
+    if not pf["ms"] < pf["sequential_ms"]:
+        raise AssertionError(f"the chunked WKV kernel ({pf['ms']:.4f} ms) is not "
+                             f"faster than the sequential one "
+                             f"({pf['sequential_ms']:.4f} ms) at the prefill shape")
+    rec["timing"]["wkv"] = rows
     return [{"name": "wkv6_scan", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
              "replaces": "src/repro/kernels/linear_scan.py:23",
@@ -2372,6 +2459,7 @@ def main() -> int:
     rec = {"card": card}
     phases.run("event_sim_ptxas", event_sim_ptxas, ptxas, rec)
     phases.run("replay_ptxas", replay_ptxas, ptxas, rec)
+    phases.run("wkv_ptxas", wkv_ptxas, ptxas, rec)
     phases.run("sass", sass_counts, rec)
     phases.run("replay_vs_plain", check_replay, rec)
     phases.run("event_sim_vs_plain", check_event_sim, rec)
@@ -2423,10 +2511,13 @@ def main() -> int:
     # the rwkv6 family on full-width rwkv6-7b, bf16 and float32 copies
     model, model32 = rwkv_models(phases)
     peak_memory("rwkv_init")
-    ls.wkv6_scan.launches = 0
+    ls.wkv6_scan.launches = ls.wkv6_scan.chunked_launches = 0
     phases.run("rwkv_prefill_path", rwkv_prefill_path, rec, model, model32)
     phases.run("rwkv_serve_path", rwkv_serve_path, rec, model, model32)
     launches["wkv6_scan"] = ls.wkv6_scan.launches
+    rec["wkv_route_launches"] = {
+        "chunked": ls.wkv6_scan.chunked_launches,
+        "sequential": ls.wkv6_scan.launches - ls.wkv6_scan.chunked_launches}
     del model, model32
     torch.cuda.empty_cache()
     for name, n in launches.items():

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "paged_attention_launch": ([_I] + [_P] * 6 + [_I] * 6 + [_P], _I),
     "paged_attention_shared_bytes": ([_I] * 4, _I),
     "wkv6_launch": ([_I] * 3 + [_P] * 8 + [_I] * 4 + [_P], _I),
+    "wkv6_chunked_launch": ([_I] * 3 + [_P] * 8 + [_I] * 4 + [_P], _I),
 }
 
 
