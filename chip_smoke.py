@@ -10,11 +10,13 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
    spills of each of the event-sim kernel's fifteen instantiations, of
-   the replay kernel's 14 (seven policies x two state layouts) and of the
+   the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
-   widths); then
+   widths) and of the split-TF32 flash kernel's ten (float32 at d_head
+   16, 32, 64, 80, 128, 168; bf16 at 16, 32, 80, 168); then
    ``cuobjdump --dump-sass`` of the library: the tensor-core flash
-   kernel's instantiations must hold HGMMA (``wgmma``) instructions;
+   kernel's instantiations must hold HGMMA (``wgmma``) instructions and
+   every split-TF32 one HMMA (``mma.sync``);
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
@@ -40,13 +42,15 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    the device, with an empty batch, and per kernel);
 6b. flash- and paged-attention kernels vs their plain versions within
    the reference's tolerances (2e-5 float32, 2e-2 bf16): the reference's
-   FLASH_CASES, ragged bf16 cases (T = S = 100 at d_head 128 and 64) and
+   FLASH_CASES, ragged bf16 cases (T = S = 100 at d_head 128 and 64),
    the full-width prefill shape (B 4, 16/8 heads, T = S = 2048, d_head
-   128, causal, window 0 and 1024) in bf16 and in float32; every bf16 case
-   at d_head 64/128 goes to the tensor-core kernel, exactly one launch,
-   and is also held to mean |kernel - plain| <= 5e-3 mean |plain| (a
-   dropped K/V tile goes over it where bf16's elementwise 2e-2 may not
-   see it); the float32 cases go to the float32-units kernel;
+   128, causal, window 0 and 1024) in bf16 and in float32, and the head
+   widths 80 and 168 in both types (ragged, windowed, bidirectional, and
+   the full-width heads of qwen3-32b and gemma3-27b at 2048 tokens); every
+   bf16 case at d_head 64/128 goes to the tensor-core kernel, exactly one
+   launch, and is also held to mean |kernel - plain| <= 5e-3 mean |plain|
+   (a dropped K/V tile goes over it where bf16's elementwise 2e-2 may not
+   see it); every other case to the split-TF32 kernel, exactly one launch;
    PAGED_CASES, seq_len 0 and 1, a float32 table of 16 pages (up to four
    64-token steps), and a full-width decode batch (32 sequences x 128
    pages of 16 tokens over a 4096-page pool, ragged seq_lens) in bf16 and
@@ -79,7 +83,7 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    0): the prefill path (``forward`` with the flash kernel vs
    ``chunked_attention`` on 2 x 2048 tokens, in bf16 and float32; 24
    flash launches per forward, on the tensor-core kernel in bf16 and the
-   float32-units kernel in float32; in float32 the logits agree within 1e-4
+   split-TF32 kernel in float32; in float32 the logits agree within 1e-4
    of their scale and the next token at >= 99% of positions), the serve path (the ``Engine`` on
    ``launch/serve.py``'s stream: bf16 timed with its ``forecast_network``;
    float32 tokens equal with and without the prefix cache, ``stats()``
@@ -124,8 +128,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    ``F.scaled_dot_product_attention`` (a yardstick only; in the inputs'
    type; over K/V gathered beforehand for the paged kernel), the flash
    kernels each in its type (the tensor-core kernel in bf16, the
-   float32-units kernel in float32) with and without the window, with the
-   achieved TFLOP/s and the share of the bound; the WKV kernels at the
+   split-TF32 kernel in float32, bound by its three products per product
+   at the TF32 rate, the float32-unit rate's figure kept beside it) with
+   and without the window, with the achieved TFLOP/s and the share of the
+   bound; the WKV kernels at the
    prefill shape (the chunked kernel, and the sequential one on the same
    inputs) and the engine's decode step (B 4, T 1, the sequential kernel)
    beside their plain version and their bound (no library call computes
@@ -276,6 +282,20 @@ FLASH_FULL = ((4, 2048, 2048, 16, 8, 128, True, 0, "bfloat16"),
 # the same shapes in float32, held at 2e-5: at 2048 keys an output is about
 # 0.04, so bf16's 2e-2 could not see a dropped or mis-staged K/V tile
 FLASH_FULL_F32 = tuple(c[:8] + ("float32",) for c in FLASH_FULL)
+# the split-TF32 kernel's head widths 80 and 168 (32-column K/V tiles) in
+# both types: ragged, a window that masks whole tiles, bidirectional with
+# GQA 8, and the full-width heads of qwen3-32b (64 / 8 heads of 80) and
+# gemma3-27b (32 / 16 heads of 168) at 2048 tokens
+FLASH_WIDE = (
+    (1, 300, 300, 4, 2, 80, True, 0, "float32"),
+    (1, 300, 300, 4, 2, 168, True, 0, "float32"),
+    (1, 300, 300, 4, 2, 80, True, 0, "bfloat16"),
+    (1, 300, 300, 4, 2, 168, True, 0, "bfloat16"),
+    (1, 600, 600, 4, 1, 168, True, 100, "float32"),
+    (2, 64, 200, 8, 1, 80, False, 0, "bfloat16"),
+    (1, 2048, 2048, 64, 8, 80, True, 0, "float32"),
+    (1, 2048, 2048, 32, 16, 168, True, 0, "float32"),
+)
 # tests/test_kernels.py's PAGED_CASES (random seq_lens), then seq_len 0 and
 # 1, then a full-width decode batch: 32 sequences of 128 pages of 16 tokens
 # over a 4096-page pool (268 MB of K/V), ragged seq_lens
@@ -293,9 +313,11 @@ PAGED_CASES = (
 PAGED_FULL = (32, 16, 8, 128, 16, 128, 4096, "bfloat16", "ragged")
 PAGED_FULL_F32 = PAGED_FULL[:7] + ("float32", "ragged")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py::_tol
-# mean |kernel - plain| <= FLASH_MEAN_REL mean |plain| for the tensor-core
-# kernel: rounding p to bf16 stays under half of it, a dropped 64-key tile
-# goes over twice it (tests/test_torch_attention.py, on the CPU)
+# mean |kernel - plain| <= FLASH_MEAN_REL mean |plain| for every bf16 flash
+# case, where the elementwise 2e-2 cannot see a dropped or mis-staged K/V
+# tile: the tensor-core kernel's rounding of p to bf16 stays under half of
+# it, one dropped K/V tile of either kernel goes over twice it
+# (tests/test_torch_attention.py, on the CPU)
 FLASH_MEAN_REL = 5e-3
 ARCH = "internlm2-1.8b"
 PREFILL_SHAPE = (2, 2048)  # sequences x tokens of the prefill path
@@ -394,7 +416,8 @@ def device_ms(fn, reps: int) -> float:
 def sass_counts(rec):
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
     flash kernel instantiation, from ``cuobjdump --dump-sass`` of the built
-    library; raises unless every tensor-core instantiation holds HGMMA."""
+    library; raises unless every tensor-core instantiation holds HGMMA and
+    each of the split-TF32 kernel's ten holds HMMA."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -415,15 +438,18 @@ def sass_counts(rec):
     tc = {f: c for f, c in counts.items() if "flash_sm90_kernel" in f}
     if len(tc) != 2 or not all(c["HGMMA"] > 0 for c in tc.values()):
         raise AssertionError(f"tensor-core flash kernel without HGMMA: {counts}")
+    split = {f: c for f, c in counts.items() if "flash_kernelI" in f}
+    if len(split) != 10 or not all(c["HMMA"] > 0 for c in split.values()):
+        raise AssertionError(f"split-TF32 flash kernel without HMMA: {counts}")
     for f, c in counts.items():
         print(f"sass {f}: {c}", flush=True)
     rec["flash_sass"] = counts
 
 
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``, ``csrc/replay.cu`` and
-    ``csrc/linear_scan.cu`` with the library's flags, started beside the
-    library's own build."""
+    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``, ``csrc/replay.cu``,
+    ``csrc/linear_scan.cu`` and ``csrc/flash_attention.cu`` with the
+    library's flags, started beside the library's own build."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ptxas"
@@ -432,7 +458,7 @@ def start_ptxas():
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          str(_build.CSRC / f"{name}.cu"), "-o", str(out / f"{name}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("event_sim", "replay", "linear_scan")}
+        for name in ("event_sim", "replay", "linear_scan", "flash_attention")}
 
 
 def ptxas_info(proc, pattern, name_of):
@@ -511,6 +537,20 @@ def wkv_ptxas(procs, rec):
     for fn, v in sorted(info.items()):
         print(f"ptxas wkv6_chunked {fn}: {json.dumps(v)}", flush=True)
     rec["wkv_ptxas"] = info
+
+
+def flash_ptxas(procs, rec):
+    """Registers, stack frame and spills of each split-TF32 flash
+    instantiation (float32 at six head widths, bf16 at four); raises unless
+    all ten compiled."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    info = ptxas_info(procs["flash_attention"], r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      lambda m: f"{types[m.group(1)]} dh={m.group(2)}")
+    if len(info) != 10 or not all(len(v) == 4 for v in info.values()):
+        raise AssertionError(f"ptxas reported {info}")
+    for fn, v in sorted(info.items()):
+        print(f"ptxas flash_attention {fn}: {json.dumps(v)}", flush=True)
+    rec["flash_ptxas"] = info
 
 
 def long_route_network(mpl):
@@ -1053,6 +1093,7 @@ def profile_main_path(rec):
     and its share of the unprofiled main path's wall time (the profiler
     itself slows the host several-fold)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scratch = {}
@@ -1066,7 +1107,8 @@ def profile_main_path(rec):
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
+        # kernels only: a host operation's device time is its kernels'
+        if us > 0 and ev.device_type == DeviceType.CUDA:
             name = ("replay" if "replay_kernel" in ev.key else
                     "event_sim" if "sim_kernel" in ev.key else "other")
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
@@ -1511,14 +1553,16 @@ def hold_mean(what, got, want, rel) -> float:
 
 def check_flash(rec):
     """Both flash kernels against their plain versions at the reference's
-    FLASH_CASES, the ragged bf16 cases and the full-width prefill shape, in
-    bf16 and float32.  Each case must launch the kernel ``kernel_for``
-    names, once; a tensor-core case is held to FLASH_MEAN_REL as well."""
+    FLASH_CASES, the ragged bf16 cases, the full-width prefill shape in
+    bf16 and float32, and the head widths 80 and 168 (FLASH_WIDE).  Each
+    case must launch the kernel ``kernel_for`` names, once; a bf16 case is
+    held to FLASH_MEAN_REL as well."""
+    import torch
     from repro_torch.kernels import flash_attention as fl
 
     err = {"flash_attention": 0.0, "flash_attention_sm90": 0.0}
-    mean_rel = 0.0
-    cases = FLASH_CASES + FLASH_RAGGED_BF16 + FLASH_FULL + FLASH_FULL_F32
+    mean_rel = {"flash_attention": 0.0, "flash_attention_sm90": 0.0}
+    cases = FLASH_CASES + FLASH_RAGGED_BF16 + FLASH_FULL + FLASH_FULL_F32 + FLASH_WIDE
     for i, case in enumerate(cases):
         q, k, v = flash_inputs(case, seed=i)
         causal, window = case[6], case[7]
@@ -1528,16 +1572,17 @@ def check_flash(rec):
         got = fl.flash_attention(q, k, v, causal=causal, window=window)
         if (fl.flash_attention.launches - n0,
                 fl.flash_attention.tensor_core_launches - tc0) != (1, int(tc)):
-            raise AssertionError(f"{case}: not one launch of the {name} kernel")
+            raise AssertionError(f"{case}: not one launch of the "
+                                 f"{fl.kernel_for(q.dtype, case[5])} kernel")
         want = fl.flash_attention_plain(q, k, v, causal, window)
         err[name] = max(err[name], hold_attention(f"{name} {case}", got, want,
                                                   case[8]))
-        if tc:
-            mean_rel = max(mean_rel, hold_mean(f"{name} {case}", got, want,
-                                               FLASH_MEAN_REL))
+        if q.dtype == torch.bfloat16:
+            mean_rel[name] = max(mean_rel[name], hold_mean(
+                f"{name} {case}", got, want, FLASH_MEAN_REL))
     for name, e in err.items():
         rec[f"{name}_max_abs_err"] = e
-    rec["flash_attention_sm90_mean_rel_err"] = mean_rel
+        rec[f"{name}_bf16_mean_rel_err"] = mean_rel[name]
 
 
 def check_paged(rec):
@@ -2366,8 +2411,10 @@ def attention_timing():
     on a path) and the work's bound.  The flash kernels run each in its
     type at the prefill path's shape, with and without the window: the
     tensor-core kernel in bf16 (bound at the bf16 tensor-core rate), the
-    float32-units kernel in float32 (bound at the float32 rate); each row
-    has its achieved TFLOP/s and the share of its bound."""
+    split-TF32 kernel in float32 (bound by its three tensor-core products
+    per product, two for bf16 inputs, at the TF32 rate; the same work at
+    the float32-unit rate is kept as ``scalar_bound_ms``); each row has its
+    achieved TFLOP/s and the share of its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
@@ -2391,8 +2438,13 @@ def attention_timing():
              if not window else None,
              "flops": 4 * B * H * dh * pairs,
              "bytes": (2 * B * T * H + 2 * B * S * KV) * dh * q.element_size()}
-        r["bound_ms"], r["bound_by"] = attention_bound(
-            r, BF16_TENSOR_FLOPS if tc else SCALAR_OPS_PER_S)
+        if tc:
+            r["bound_ms"], r["bound_by"] = attention_bound(r, BF16_TENSOR_FLOPS)
+        else:
+            products = 2 if q.dtype == torch.bfloat16 else 3  # split TF32
+            r["bound_ms"], r["bound_by"] = attention_bound(
+                r, TF32_TENSOR_FLOPS / products)
+            r["scalar_bound_ms"] = r["flops"] / SCALAR_OPS_PER_S * 1e3
         r["tflops"] = r["flops"] / r["ms"] / 1e9
         r["bound_share"] = r["bound_ms"] / r["ms"]
         rows[f"{'sm90' if tc else 'f32'}_window{window}"] = r
@@ -2460,6 +2512,7 @@ def main() -> int:
     phases.run("event_sim_ptxas", event_sim_ptxas, ptxas, rec)
     phases.run("replay_ptxas", replay_ptxas, ptxas, rec)
     phases.run("wkv_ptxas", wkv_ptxas, ptxas, rec)
+    phases.run("flash_ptxas", flash_ptxas, ptxas, rec)
     phases.run("sass", sass_counts, rec)
     phases.run("replay_vs_plain", check_replay, rec)
     phases.run("event_sim_vs_plain", check_event_sim, rec)
@@ -2497,7 +2550,7 @@ def main() -> int:
             == cfg.n_layers):
         raise AssertionError(f"the prefill path launched the tensor-core flash "
                              f"kernel {launches['flash_attention_sm90']} times "
-                             f"and the float32-units one "
+                             f"and the split-TF32 one "
                              f"{launches['flash_attention']}, not "
                              f"{cfg.n_layers} each (one bf16 and one float32 "
                              f"forward)")

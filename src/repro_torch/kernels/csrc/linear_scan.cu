@@ -112,6 +112,9 @@
 #define WKV_ASYNC_COPY 1
 #endif
 
+#define TF32_SPLIT WKV_SPLIT_TF32
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int TILE = 32;  // timesteps staged per tile (sequential kernel)
@@ -183,65 +186,6 @@ int launch_typed(const void* r, const void* k, const void* v, const void* w, con
 constexpr int NW = 8;              // warps per block
 constexpr int NTHREADS = NW * 32;
 constexpr int SUB = 16;            // sub-chunk: the diagonal blocks' size
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// An operand fragment of mma.m16n8k8 in TF32: hi, and with the split, lo,
-// with x = hi + lo to ~2^-22.  An operand that is EXACT (a bf16 value) is
-// its own hi.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <bool EXACT, int N>
-__device__ __forceinline__ Frag<N> make_frag(const float (&x)[N]) {
-  Frag<N> f;
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    if (EXACT) {
-      f.hi[e] = __float_as_uint(x[e]);
-      f.lo[e] = 0u;
-    } else {
-      f.hi[e] = tf32_rna(x[e]);
-      f.lo[e] = WKV_SPLIT_TF32 ? tf32_rna(x[e] - __uint_as_float(f.hi[e])) : 0u;
-    }
-  }
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// a b in split TF32: hi.hi into d, the small terms into dlo (their own
-// accumulator, so that the three products of a step do not wait on each
-// other); the caller adds dlo to d at the end.
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void mma_split(float (&d)[4], float (&dlo)[4], const Frag<4>& a,
-                                          const Frag<2>& b) {
-  if (WKV_SPLIT_TF32 && !A_EXACT) mma_tf32(dlo, a.lo, b.hi);
-  if (WKV_SPLIT_TF32 && !B_EXACT) mma_tf32(dlo, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
 
 // N (8 or 16) consecutive elements of a staged row, 16-byte aligned, as
 // float32.
@@ -494,12 +438,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float av[4] = {sR[(m0 + g) * RS + k0 + t4], sR[(m0 + g + 8) * RS + k0 + t4],
                              sR[(m0 + g) * RS + k0 + t4 + 4],
                              sR[(m0 + g + 8) * RS + k0 + t4 + 4]};
-        const Frag<4> fa = make_frag<false>(av);
+        const Frag<4> fa = split_frag<false>(av);
 #pragma unroll
         for (int nh = 0; nh < NH; ++nh) {
           const float* kr = &sK[(s0 + 8 * nh + g) * RS + k0 + t4];
           const float bv[2] = {kr[0] * mid0, kr[4] * mid1};
-          mma_split<false, false>(acc[nh], lo[nh], fa, make_frag<false>(bv));
+          mma_split<false, false>(acc[nh], lo[nh], fa, split_frag<false>(bv));
         }
       }
 #pragma unroll
@@ -520,7 +464,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float* rr = &sR2[(SUB / 2 * a + g) * RS + k0 + t4];
         const float* kr = &sK2[(SUB / 2 * a + g) * RS + k0 + t4];
         const float av[4] = {rr[0], 0.f, rr[4], 0.f}, bv[2] = {kr[0], kr[4]};
-        mma_split<false, false>(acc, lo, make_frag<false>(av), make_frag<false>(bv));
+        mma_split<false, false>(acc, lo, split_frag<false>(av), split_frag<false>(bv));
       }
       store2(&sA[(SUB * a + SUB / 2 + g) * AS + SUB * a + 2 * t4], acc[0] + lo[0],
              acc[1] + lo[1]);
@@ -552,12 +496,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float av[4] = {sK[(k0 + t4) * RS + i0] * tl0, sK[(k0 + t4) * RS + i1] * tl1,
                              sK[(k0 + t4 + 4) * RS + i0] * tl0,
                              sK[(k0 + t4 + 4) * RS + i1] * tl1};
-        const Frag<4> fa = make_frag<false>(av);
+        const Frag<4> fa = split_frag<false>(av);
 #pragma unroll
         for (int x = 0; x < NPS; ++x) {
           const int n = 8 * (sn0 + x) + g;
           const float bv[2] = {to_f32(V(k0 + t4)[n]), to_f32(V(k0 + t4 + 4)[n])};
-          mma_split<false, V_EXACT>(st[x], lo[x], fa, make_frag<V_EXACT>(bv));
+          mma_split<false, V_EXACT>(st[x], lo[x], fa, split_frag<V_EXACT>(bv));
         }
       }
 #pragma unroll
@@ -624,12 +568,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           const float av[4] = {sA[(m0 + g) * AS + k0 + t4], sA[(m0 + g + 8) * AS + k0 + t4],
                                sA[(m0 + g) * AS + k0 + t4 + 4],
                                sA[(m0 + g + 8) * AS + k0 + t4 + 4]};
-          const Frag<4> fa = make_frag<false>(av);
+          const Frag<4> fa = split_frag<false>(av);
 #pragma unroll
           for (int x = 0; x < NPT; ++x) {
             const int n = 8 * (n0 + x) + g;
             const float bv[2] = {to_f32(V(k0 + t4)[n]), to_f32(V(k0 + t4 + 4)[n])};
-            mma_split<false, V_EXACT>(acc[x], lo[x], fa, make_frag<V_EXACT>(bv));
+            mma_split<false, V_EXACT>(acc[x], lo[x], fa, split_frag<V_EXACT>(bv));
           }
         }
       }
@@ -640,12 +584,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                              sR[(m0 + g + 8) * RS + k0 + t4] * h0,
                              sR[(m0 + g) * RS + k0 + t4 + 4] * h1,
                              sR[(m0 + g + 8) * RS + k0 + t4 + 4] * h1};
-        const Frag<4> fa = make_frag<false>(av);
+        const Frag<4> fa = split_frag<false>(av);
 #pragma unroll
         for (int x = 0; x < NPT; ++x) {
           const int n = 8 * (n0 + x) + g;
           const float bv[2] = {S0[(k0 + t4) * SS + n], S0[(k0 + t4 + 4) * SS + n]};
-          mma_split<false, false>(acc[x], lo[x], fa, make_frag<false>(bv));
+          mma_split<false, false>(acc[x], lo[x], fa, split_frag<false>(bv));
         }
       }
 #pragma unroll

@@ -16,18 +16,22 @@ raises; on CPU tensors it runs the plain version of the same kernel,
   logits are the unscaled bf16 dot summed in float32, then scaled; p is
   rounded to bf16 for the P V product; l sums the float32 p.  The plain
   version follows that arithmetic over the same 128-column tiles.
-* ``"float32_units"`` (``csrc/flash_attention.cu``), float32 at every
-  ``dh`` of :data:`HEAD_DIMS` and bf16 at the others: 64-row q tiles,
-  64-column K/V tiles, every product and sum float32 on the float32 units;
-  its plain version is the model's ``chunked_attention`` in float32 over
-  those tiles.
+* ``"split_tf32"`` (``csrc/flash_attention.cu``), float32 at every
+  ``dh`` of :data:`HEAD_DIMS` and bf16 at the others: 128-row q tiles,
+  K/V tiles of :func:`split_tf32_cols` columns landing by ``cp.async`` in
+  two stages, both products on the tensor cores (``mma.sync``) in split
+  TF32 (three products per float32 product, two where K or V is bf16,
+  ~2**-21 relative); its plain version is the model's
+  ``chunked_attention`` in float32 over those tiles.
 
 Both keep the reference's finite ``NEG_INF = -2e38`` (a fully masked tile
 sums garbage with weight one that the first valid tile multiplies by
 ``alpha = exp(-2e38 - m) = 0``) and output ``acc / max(l, 1e-30)`` in q's
-dtype.  The float32-units kernel keeps the reference's arithmetic exactly
-(q scaled by ``dh**-0.5`` in float32 before the dot, p float32).  The
-wrapper never falls back from one kernel to the other.  The causal mask is
+dtype.  The split-TF32 kernel keeps the reference's arithmetic (q scaled
+by ``dh**-0.5`` in float32 before the dot, p float32) but for the split's
+rounding and a fast exponential, far inside the reference's float32
+tolerance of 2e-5.  The wrapper never falls back from one kernel to the
+other.  The causal mask is
 meaningful only for T == S (the reference calls the kernel only without a
 cache, where that holds); the wrapper raises on causal with T != S.
 """
@@ -42,25 +46,32 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
-BQ = BK = 64  # the float32-units kernel's q-tile rows and K/V-tile columns
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)  # the float32-units kernel's instantiations
+# the split-TF32 kernel's instantiations (bf16 at TC_HEAD_DIMS excepted)
+HEAD_DIMS = (16, 32, 64, 80, 128, 168)
 TC_BK = 128  # the tensor-core kernel's K/V-tile columns
 TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's instantiations, bf16 only
 
 
 def kernel_for(dtype: torch.dtype, dh: int) -> str:
     """The kernel that takes ``(dtype, dh)`` on the card: ``"tensor_core"``
-    for bf16 at :data:`TC_HEAD_DIMS`, ``"float32_units"`` for float32 or
+    for bf16 at :data:`TC_HEAD_DIMS`, ``"split_tf32"`` for float32 or
     bf16 at the other :data:`HEAD_DIMS`; raises for anything else."""
     if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
         return "tensor_core"
     if dtype in DTYPE_CODES and dh in HEAD_DIMS:
-        return "float32_units"
+        return "split_tf32"
     raise ValueError(f"no flash kernel for {dtype} at d_head {dh}: the "
                      f"tensor-core kernel takes bfloat16 at d_head "
-                     f"{TC_HEAD_DIMS}, the float32-units kernel float32 or "
+                     f"{TC_HEAD_DIMS}, the split-TF32 kernel float32 or "
                      f"bfloat16 at {HEAD_DIMS}")
+
+
+def split_tf32_cols(dh: int) -> int:
+    """The split-TF32 kernel's K/V-tile columns at head width ``dh``: 64,
+    or 32 above 128, where two stages of 64 columns do not fit in shared
+    memory beside the float32 q tile."""
+    return 32 if dh > 128 else 64
 
 
 def tensor_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,7 +120,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain PyTorch version of the kernel that takes these inputs:
     :func:`tensor_core_plain` rounded to bf16 for bf16 at
     :data:`TC_HEAD_DIMS`; else ``chunked_attention`` in float32 over the
-    float32-units kernel's 64-column K/V tiles, in order, K/V padded with
+    split-TF32 kernel's K/V tiles (:func:`split_tf32_cols`), in order (the
+    kernel's split products are its deliberate difference), K/V padded with
     zeros to a tile multiple and the padding masked (so a row with no
     valid column averages the tile's padding as the kernel's does).
     Shapes as :func:`flash_attention`."""
@@ -120,11 +132,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return tensor_core_plain(q, k, v, causal, window).to(q.dtype)
     B, T = q.shape[:2]
     S = k.shape[1]
-    pad = (0, 0, 0, 0, 0, -S % BK)
+    bk = split_tf32_cols(q.shape[-1])
+    pad = (0, 0, 0, 0, 0, -S % bk)
     rows = torch.arange(T, device=q.device).expand(B, T)
     out = chunked_attention(q.float(), F.pad(k.float(), pad),
                             F.pad(v.float(), pad), rows, S, causal, window,
-                            chunk=BK)
+                            chunk=bk)
     return out.to(q.dtype)
 
 
@@ -163,12 +176,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {dev}")
-    kind = kernel_for(q.dtype, q.shape[-1])
-    out = launch(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)
-    flash_attention.launches += 1
-    if kind == "tensor_core":
-        flash_attention.tensor_core_launches += 1
-    return out
+    return launch(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)
 
 
 flash_attention.launches = 0  # kernel launches, both kernels (CUDA path only)
@@ -187,17 +195,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     """Launch the kernel :func:`kernel_for` names on inputs
     :func:`flash_attention` has validated (contiguous CUDA tensors); no
     host synchronisation.  An error of that kernel raises: no other kernel
-    is tried."""
+    is tried.  Counts the launch on :func:`flash_attention` once the kernel
+    is queued."""
     B, T, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     kind = kernel_for(q.dtype, dh)
     lib = _build.load_library()
     out = torch.empty_like(q)
+    # both kernels copy 16-byte pieces (TMA, cp.async) from aligned addresses
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     with _on_card(q.device) as stream:
         if kind == "tensor_core":
-            # TMA reads from 16-byte aligned addresses
-            q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone()
-                       for x in (q, k, v))
             err = lib.flash_attention_sm90_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 T, S, H, KV, dh, int(bool(causal)), window, stream)
@@ -207,4 +215,6 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                 v.data_ptr(), out.data_ptr(), B, T, S, H, KV, dh,
                 int(bool(causal)), window, stream)
     _build.check(err, f"flash-attention kernel launch ({kind})")
+    flash_attention.launches += 1
+    flash_attention.tensor_core_launches += kind == "tensor_core"
     return out

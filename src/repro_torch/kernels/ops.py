@@ -21,7 +21,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The reference's ``bq``/``bk`` TPU tiles have no counterpart: bf16 at
     d_head 64/128 runs the tensor-core kernel on 128 x 128 tiles, float32
-    and the other head widths the float32-units kernel on 64 x 64 tiles
+    and the other head widths the split-TF32 kernel on 128-row q tiles
+    and 64- (32 above d_head 128) column K/V tiles
     (``flash_attention.kernel_for``).  Causal attention needs T == S.
     """
     return _flash.flash_attention(q, k, v, causal=causal, window=window)

@@ -8,7 +8,9 @@ run on CPU tensors), ``chunked_attention`` and ``attention`` in its three
 modes.  Tolerances are the reference's own (``tests/test_kernels.py``):
 2e-5 in float32, 2e-2 in bfloat16.  The tensor-core flash kernel's plain
 version (bf16 at d_head 64/128) is also held to a direct einsum of its
-arithmetic, within 1e-6.  The CUDA kernels are held against
+arithmetic, within 1e-6; the split-TF32 kernel's (every other width) is
+held at d_head 80 and 168 (qwen3-32b's, gemma3-27b's) to the jnp oracle
+and to the Pallas kernel in interpret mode.  The CUDA kernels are held against
 their plain versions in ``tests/test_torch_attention_cuda.py``, on the
 card.
 """
@@ -241,12 +243,42 @@ def test_flash_mean_criterion_sees_a_dropped_tile():
     assert mean_rel(dropped) > 5e-3 * 2
 
 
+@pytest.mark.parametrize("dh", [16, 80, 168])
+def test_flash_mean_criterion_sees_a_dropped_split_tile(dh):
+    """``chip_smoke.py`` holds every bf16 case of the split-TF32 kernel to
+    the same mean criterion.  Its bf16 inputs are exact in TF32, so what it
+    may differ by is the plain version's float32 rounding: the same
+    attention in float64 rounded to bf16 stays far inside 5e-3; one of the
+    kernel's K/V tiles (64 keys, or 32 at d_head 168) left out of 2048
+    falls far outside."""
+    case = (1, 64, 2048, 4, 2, dh, False, 0, BF16)
+    (_, tq), (_, tk), (_, tv) = flash_inputs(case, seed=12)
+    plain = tflash.flash_attention_plain(tq, tk, tv, False, 0)
+    qd = tq.double().reshape(1, 64, 2, 2, dh) * dh**-0.5
+    p = torch.softmax(torch.einsum("btkgd,bskd->btkgs", qd, tk.double()), -1)
+    f64 = torch.einsum("btkgs,bskd->btkgd", p, tv.double()).reshape(
+        tq.shape).to(torch.bfloat16)
+    bk = tflash.split_tf32_cols(dh)
+    keep = torch.cat([torch.arange(2 * bk), torch.arange(3 * bk, 2048)])
+    dropped = tflash.flash_attention_plain(tq, tk[:, keep], tv[:, keep],
+                                           False, 0)
+
+    def mean_rel(a):
+        return float((a.float() - plain.float()).abs().mean()
+                     / plain.float().abs().mean())
+
+    assert mean_rel(f64) < 5e-3 / 2
+    assert mean_rel(dropped) > 5e-3 * 2
+
+
 @pytest.mark.parametrize("dtype,dh,kind", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 16, "float32_units"), (torch.bfloat16, 32, "float32_units"),
-    (torch.float32, 64, "float32_units"), (torch.float32, 128, "float32_units"),
-    (torch.bfloat16, 80, None), (torch.bfloat16, 168, None),
-    (torch.float32, 80, None), (torch.float16, 64, None)])
+    (torch.bfloat16, 16, "split_tf32"), (torch.bfloat16, 32, "split_tf32"),
+    (torch.float32, 64, "split_tf32"), (torch.float32, 128, "split_tf32"),
+    (torch.bfloat16, 80, "split_tf32"), (torch.bfloat16, 168, "split_tf32"),
+    (torch.float32, 80, "split_tf32"), (torch.float16, 64, None),
+    (torch.float32, 168, "split_tf32"), (torch.float32, 84, None),
+    (torch.bfloat16, 100, None)])
 def test_flash_kernel_for_dispatch(dtype, dh, kind):
     if kind is None:
         with pytest.raises(ValueError, match="no flash kernel"):
@@ -266,17 +298,19 @@ class _FakeLibrary:
         return self.err
 
     def flash_attention_launch(self, *args):
-        self.calls.append("float32_units")
+        self.calls.append("split_tf32")
+        self.args = args
         return self.err
 
 
 @pytest.mark.parametrize("err", [0, 700])
 @pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "tensor_core"),
-                                        (torch.float32, "float32_units")])
+                                        (torch.float32, "split_tf32")])
 def test_flash_launch_takes_one_kernel_and_never_swaps(monkeypatch, dtype,
                                                        kind, err):
-    """``launch`` calls the one kernel ``kernel_for`` names; when it fails,
-    it raises and no other kernel is tried."""
+    """``launch`` calls the one kernel ``kernel_for`` names and counts it
+    on ``flash_attention``; when it fails, it raises, counts nothing and no
+    other kernel is tried."""
     lib = _FakeLibrary(err)
     monkeypatch.setattr(tflash._build, "load_library", lambda: lib)
     monkeypatch.setattr(tflash, "_on_card",
@@ -291,9 +325,93 @@ def test_flash_launch_takes_one_kernel_and_never_swaps(monkeypatch, dtype,
     else:
         assert tflash.launch(q, k, k, True, 0).shape == q.shape
     assert lib.calls == [kind]
-    # the counters belong to flash_attention, which counts CUDA launches only
-    assert tflash.flash_attention.launches == n0
-    assert tflash.flash_attention.tensor_core_launches == tc0
+    launched = int(not err)  # counted where the kernel is queued, only then
+    assert tflash.flash_attention.launches == n0 + launched
+    assert tflash.flash_attention.tensor_core_launches == (
+        tc0 + launched * (kind == "tensor_core"))
+
+
+def test_flash_launch_aligns_the_split_tf32_inputs(monkeypatch):
+    """The split-TF32 kernel copies 16-byte pieces by ``cp.async``: a view
+    that starts 4 bytes into its storage is copied to an aligned tensor
+    before the launch, as the tensor-core kernel's inputs are."""
+    lib = _FakeLibrary(0)
+    monkeypatch.setattr(tflash._build, "load_library", lambda: lib)
+    monkeypatch.setattr(tflash, "_on_card",
+                        lambda device: contextlib.nullcontext(0))
+    base = torch.zeros(1 + 8 * 2 * 80)
+    q = base[1:].view(1, 8, 2, 80)
+    assert q.data_ptr() % 16
+    n0 = tflash.flash_attention.launches
+    tflash.launch(q, q, q, True, 0)
+    assert lib.calls == ["split_tf32"]
+    assert all(p % 16 == 0 for p in lib.args[1:5])
+    assert tflash.flash_attention.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# the split-TF32 kernel's new head widths: 80 (qwen3-32b) and 168
+# (gemma3-27b), whose K/V tiles are 32 columns wide
+# ---------------------------------------------------------------------------
+
+SPLIT_WIDE_CASES = [
+    # (B, T, S, H, KV, dh, causal, window, dtype)
+    (1, 100, 100, 4, 2, 80, True, 0, F32),  # ragged T, GQA 2
+    (1, 130, 130, 4, 1, 168, True, 0, F32),  # ragged, GQA 4, five tiles
+    (1, 160, 160, 2, 2, 80, True, 40, F32),  # sliding window
+    (1, 160, 160, 4, 2, 168, True, 40, F32),
+    (2, 40, 96, 4, 2, 168, False, 0, F32),  # bidirectional, T != S
+    (2, 40, 96, 8, 1, 80, False, 0, F32),  # GQA 8
+    (1, 100, 100, 4, 2, 80, True, 0, BF16),
+    (1, 130, 130, 2, 1, 168, True, 24, BF16),
+    (2, 40, 96, 4, 4, 80, False, 0, BF16),
+    (1, 100, 100, 4, 2, 168, True, 0, BF16),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_WIDE_CASES)
+def test_flash_split_tf32_plain_matches_ref(case):
+    causal, window, dtype = case[6], case[7], case[8]
+    assert tflash.kernel_for(TDT[dtype], case[5]) == "split_tf32"
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(case, seed=13)
+    want = jref.flash_attention_ref(jq.swapaxes(1, 2), jk.swapaxes(1, 2),
+                                    jv.swapaxes(1, 2), causal=causal,
+                                    window=window).swapaxes(1, 2)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dh", [80, 168])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_flash_split_tf32_plain_matches_interpret_kernel(dh, dtype, causal,
+                                                         window):
+    """The Pallas kernel in interpret mode (64 x 64 tiles) at the new
+    widths: ragged T = S = 100, GQA 2."""
+    case = (1, 100, 100, 4, 2, dh, causal, window, dtype)
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(case, seed=14)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                bq=64, bk=64, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dh", [80, 168])
+def test_flash_fully_masked_window_tiles_are_wiped_at_new_widths(dh):
+    """Window 8 at T = 200: a row past the first tile finds its first
+    tiles wholly masked (tiles of 32 columns at d_head 168, of 64 at 80);
+    the garbage they sum with weight one is zeroed by the first valid
+    tile."""
+    case = (1, 200, 200, 2, 1, dh, True, 8, F32)
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(case, seed=15)
+    want = jref.flash_attention_ref(jq.swapaxes(1, 2), jk.swapaxes(1, 2),
+                                    jv.swapaxes(1, 2), causal=True,
+                                    window=8).swapaxes(1, 2)
+    got = tflash.flash_attention_plain(tq, tk, tv, causal=True, window=8)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(F32))
 
 
 # ---------------------------------------------------------------------------

@@ -98,7 +98,8 @@ def build(variants: dict, baseline: Path | None) -> dict:
         cu = OUT / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared",
+            [_nvcc(), *NVCC_FLAGS, "-I", str(SRC.parent),
+             *(f"-D{d}" for d in defines), "-shared",
              str(cu), "-o", str(OUT / f"{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
