@@ -9,7 +9,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's fifteen instantiations, of
+   spills of each of the event-sim kernel's 25 instantiations (closed,
+   traced, traced for long routes, coalescing, open loop), of
    the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
    widths) and of the split-TF32 flash kernel's ten (float32 at d_head
@@ -64,6 +65,12 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    chunked kernel's cases of ``tests/test_torch_wkv_cuda.py`` (every type
    combination and head width, ragged T up to 2047, model decays, decays
    of exactly 0 and 1 on both routes), each case's route asserted;
+6d. the event-sim kernel's coalescing and open-loop instantiations vs
+   their plain versions (``coalesce_vs_plain``, ``open_vs_plain``): the
+   cases of ``tests/test_torch_event_sim_cuda.py`` (1 to 64 flows,
+   uniform and Zipf(0.99), one and two disk ranks, every register-slot
+   count and shared memory; pools of 4 to 300 slots, with and without
+   bursts), every output identical on deterministic service;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -76,6 +83,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    requests with lossless 16384-record rings, its records reconciled with
    the throughput, per-station utilization printed, one lane written as a
    Perfetto trace and read back (traced launch count > 0);
+8b. the delayed-hits and latency path (``figures_path``): every
+   assertion of ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py``
+   (the analytic p* shift, the simulated recovery on a bounded disk, the
+   measured sweep's sigma and coalesced bound) and ``fig_latency.py`` (the
+   analytic inversion, the open loop against Erlang-C, per-class
+   sojourns under coalescing, the SLO optimum) through the port at the
+   benchmarks' sizes, each figure's wall time printed; the coalescing and
+   open-loop kernels' launches are counted here;
 9. the batched-LRU path: 64 Zipf batches of 4096 ids through
    ``ops.lru_batch_update`` on a 2**22-slot recency table, held against
    each slot's last access (launch count > 0);
@@ -135,7 +150,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    prefill shape (the chunked kernel, and the sequential one on the same
    inputs) and the engine's decode step (B 4, T 1, the sequential kernel)
    beside their plain version and their bound (no library call computes
-   WKV6); the chunked kernel must be the faster at the prefill shape.
+   WKV6); the chunked kernel must be the faster at the prefill shape;
+12. the coalescing and open-loop instantiations timed on one lane of the
+   figures' networks beside their plain versions (``ext_timing``), and
+   the figures' own launches.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  Details
@@ -220,6 +238,23 @@ SIM_REQUESTS, SEEDS = 16_000, (0, 1, 2)
 # shared memory; each held against the plain version at SIM_MPL_REQUESTS
 SIM_MPLS = (1, 24, 48, 72, 144, 300)
 SIM_MPL_REQUESTS = 500
+# coalesce_vs_plain / open_vs_plain: requests per lane of each case of
+# tests/test_torch_event_sim_cuda.py's COALESCE_CASES / OPEN_CASES
+CO_REQUESTS, OPEN_REQUESTS = 300, 200
+# the figures path: benchmarks/common.py's N_SIM_REQUESTS and the sizes of
+# benchmarks/table2_classify.py, fig_delayed_hits.py and fig_latency.py
+FIG_REQUESTS = 16_000
+T2_REQUESTS, T2_KEYS, T2_CAPACITY = 20_000, 2048, 256
+DH_FLOWS, DH_DISK_US, DH_IO_DEPTH = (8, 64), 100.0, 8
+DH_P_SIM = (0.5, 0.8, 0.95)
+DH_SWEEP_CAPS = (96, 384, 1024, 2048)
+LAT_DISK_US, LAT_DISK_US_SIM = 100.0, 5.0
+LAT_LOAD_FRAC, LAT_SIM_LOAD, LAT_SLO_US = 0.85, 0.838, 250.0
+LAT_P_SIM = (0.70, 0.90, 0.98)
+LAT_CO_IO_DEPTH, LAT_CO_LAMBDA, LAT_CO_FLOWS = 8, 0.12, 16
+# the coalescing and open-loop rows: one lane of the figures' networks,
+# short enough to time the plain version too
+EXT_TIMING_REQUESTS = 1_500
 # the main path's throughputs (requests/us) as the event-sim kernel of
 # commit ca3464b (one lane per network, state in shared memory) computed
 # them on an NVIDIA H100 80GB HBM3 at 700.00 W: same arithmetic, so the
@@ -491,14 +526,15 @@ def ptxas_info(proc, pattern, name_of):
 
 def event_sim_ptxas(procs, rec):
     """Registers, stack frame and spills of each event-sim instantiation
-    (untraced, traced, traced for routes over 32 visits; R register slots
-    per thread, R = 0: shared memory), as ptxas reports them; raises unless
-    all fifteen compiled."""
+    (untraced, traced, traced for routes over 32 visits, coalescing, open
+    loop; R register slots per thread, R = 0: shared memory), as ptxas
+    reports them; raises unless all 25 compiled."""
+    modes = ("untraced", "traced", "traced, routes over 32")
     info = ptxas_info(
-        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)E",
-        lambda m: (("untraced", "traced", "traced, routes over 32")[
-            int(m.group(1))] + f" R={m.group(2)}"))
-    if len(info) != 15 or not all(len(v) == 4 for v in info.values()):
+        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([012])E",
+        lambda m: ((modes[int(m.group(1))], "coalescing", "open loop")[
+            int(m.group(3))] + f" R={m.group(2)}"))
+    if len(info) != 25 or not all(len(v) == 4 for v in info.values()):
         raise AssertionError(f"ptxas reported {info}")
     for fn, v in sorted(info.items()):
         print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
@@ -755,6 +791,360 @@ def check_event_sim(rec):
                                 es.sim_lanes_plain(*grid[:2], **grid[2])))
     rec["event_sim_max_abs_err"] = err
     rec["event_sim_slots"] = slots
+
+
+def check_coalesce(rec):
+    """The coalescing instantiation against the plain version on the card:
+    ``COALESCE_CASES`` of ``tests/test_torch_event_sim_cuda.py`` (F 1, 16,
+    64; uniform and Zipf(0.99) flows; one and two disk ranks; 1, 2, 4, 8
+    register slots and shared memory).  Deterministic service: every
+    output identical; exponential: integers identical, the rest within
+    1e-6."""
+    import torch
+    from test_torch_event_sim_cuda import (COALESCE_CASES, coalesce_pair,
+                                           hold_coalesced)
+
+    err = 0.0
+    for case in COALESCE_CASES:
+        kern, plain = coalesce_pair(case, torch.device("cuda"), CO_REQUESTS)
+        torch.cuda.synchronize()
+        err = max(err, hold_coalesced(kern, plain, exact=case[-1]))
+        print(f"coalesce {case[0]}: kernel == plain "
+              f"({'identical' if case[-1] else 'integers identical'}), "
+              f"delayed_frac {kern.delayed_frac.cpu().numpy().round(4).tolist()}",
+              flush=True)
+    rec["event_sim_coalesced_max_abs_err"] = err
+
+
+def check_open(rec):
+    """The open-loop instantiation against the plain version on the card:
+    ``OPEN_CASES`` (max_in_system 4, 40, 64, 128, 256, 300; with and
+    without bursts and coalescing; a pool that drops arrivals).
+    Deterministic service: sojourns, classes and counts identical."""
+    import torch
+    from test_torch_event_sim_cuda import OPEN_CASES, hold_open, open_pair
+
+    err = 0.0
+    for case in OPEN_CASES:
+        kern, plain = open_pair(case, torch.device("cuda"), OPEN_REQUESTS)
+        torch.cuda.synchronize()
+        err = max(err, hold_open(kern, plain, exact=case[-1]))
+        print(f"open {case[0]}: kernel == plain "
+              f"({'identical' if case[-1] else 'integers identical'}), "
+              f"dropped {kern.dropped.cpu().tolist()}, delayed_frac "
+              f"{kern.delayed_frac.cpu().numpy().round(4).tolist()}",
+              flush=True)
+    rec["event_sim_open_max_abs_err"] = err
+
+
+def table2_classify(device):
+    """``benchmarks/table2_classify.py`` through the port: the analytic
+    classification of Table 1's networks and the implemented structures'
+    hit-path ops (one replay launch each)."""
+    import numpy as np
+    from repro_torch.core import (TABLE1, build, classify_by_throughput,
+                                  classify_structural, prob_lru_network)
+    from repro_torch.core.harness import run_cache_trace, zipf_trace
+
+    trace = zipf_trace(T2_REQUESTS, T2_KEYS, 0.99, seed=0)
+
+    def hit_ops(policy, **kw):
+        hits, ops = run_cache_trace(policy, T2_CAPACITY, trace, seed=0,
+                                    key_space=T2_KEYS, device=device, **kw)
+        return int(np.asarray(ops)[np.asarray(hits)].sum())
+
+    nets = {"lru": build("lru"), "fifo": build("fifo"),
+            "prob_lru(q=0.5)": prob_lru_network(q=0.5),
+            "prob_lru(q=0.986)": prob_lru_network(q=1 - 1 / 72),
+            "clock": build("clock"), "slru": build("slru"),
+            "s3fifo": build("s3fifo")}
+    out = {}
+    for name, net in nets.items():
+        kw = ({"q": 0.5} if "0.5" in name else
+              {"q": 1 - 1 / 72} if "0.986" in name else {})
+        impl = "LRU-like" if hit_ops(name.split("(")[0], **kw) > 0 else "FIFO-like"
+        s, t = classify_structural(net), classify_by_throughput(net)
+        if t != TABLE1[name][1]:
+            raise AssertionError(f"table2: {name} classified {t}, paper "
+                                 f"{TABLE1[name][1]}")
+        out[name] = (s, t, impl)
+    if hit_ops("sieve") != 0:
+        raise AssertionError("table2: sieve does work on hits")
+    return out
+
+
+def fig_delayed_hits(device):
+    """``benchmarks/fig_delayed_hits.py`` through the port: (A) LRU's p*
+    drops under coalescing and FIFO stays at 1; (B) on a bounded disk the
+    coalescing simulation recovers throughput, more at low p_hit, with a
+    falling delayed fraction; (C) the measured sweep's sigma falls with
+    size and its coalesced bound is never below the plain one."""
+    import numpy as np
+    from repro_torch.core import build, coalesced_network, sigma_of
+    from repro_torch.core.harness import sweep_cache_sizes
+    from repro_torch.core.simulator import simulate_network
+
+    out, pstar, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    for policy in ("lru", "fifo"):
+        pstar[(policy, 0)] = build(policy, disk_us=DH_DISK_US).p_star(grid=2001)
+        for flows in DH_FLOWS:
+            pstar[(policy, flows)] = build(policy, disk_us=DH_DISK_US,
+                                           coalesce_flows=flows).p_star(grid=2001)
+    if not (pstar[("lru", 8)] < pstar[("lru", 0)] - 0.01
+            and pstar[("lru", 64)] < pstar[("lru", 0)] - 0.005
+            and all(pstar[("fifo", f)] > 0.999 for f in (0,) + DH_FLOWS)):
+        raise AssertionError(f"fig_delayed_hits A: p* {pstar}")
+    out["pstar"] = {f"{k[0]}@{k[1]}": v for k, v in pstar.items()}
+    seconds["A"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net_b = build("lru", disk_us=DH_DISK_US, disk_servers=DH_IO_DEPTH)
+    model_b = coalesced_network(net_b, flows=16)
+    p_sim = np.asarray(DH_P_SIM)
+    plain = simulate_network(net_b, p_sim, n_requests=FIG_REQUESTS,
+                             seeds=(0, 1), device=device)
+    co = simulate_network(net_b, p_sim, n_requests=FIG_REQUESTS, seeds=(0, 1),
+                          coalesce_flows=16, device=device)
+    gains = co.throughput / plain.throughput
+    if not (np.all(co.throughput >= plain.throughput - plain.ci95 - co.ci95)
+            and gains[0] > 1.5 and co.delayed_frac[0] > co.delayed_frac[-1]):
+        raise AssertionError(f"fig_delayed_hits B: plain {plain.throughput}, "
+                             f"coalesced {co.throughput}, delayed "
+                             f"{co.delayed_frac}")
+    out["sim"] = {"p": DH_P_SIM, "x_plain": plain.throughput.tolist(),
+                  "x_co": co.throughput.tolist(),
+                  "delayed": co.delayed_frac.tolist(),
+                  "sigma_model": [sigma_of(model_b, float(p)) for p in p_sim]}
+    seconds["B"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = sweep_cache_sizes("lru", DH_SWEEP_CAPS, key_space=4096,
+                              n_requests=40_000, disk_us=DH_DISK_US,
+                              device=device)
+    windows = np.maximum(1, np.round(probe["x_bound"] * DH_DISK_US).astype(int))
+    sw = sweep_cache_sizes("lru", DH_SWEEP_CAPS, key_space=4096,
+                           n_requests=40_000, disk_us=DH_DISK_US,
+                           miss_latency_requests=windows, device=device)
+    sig = np.asarray(sw["sigma"])
+    if not (sig[0] > sig[-1] >= 0.0 and np.all(
+            sw["x_bound_coalesced"] >= sw["x_bound"] - 1e-9)):
+        raise AssertionError(f"fig_delayed_hits C: sigma {sig}, bounds "
+                             f"{sw['x_bound']} {sw['x_bound_coalesced']}")
+    out["measured"] = {k: np.asarray(v).tolist() for k, v in sw.items()}
+    out["windows"] = windows.tolist()
+    seconds["C"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def fig_latency(device):
+    """``benchmarks/fig_latency.py`` through the port: (A) the analytic
+    latency inversion and FIFO's monotone response; (B) the open-loop
+    simulation against Erlang-C on the fast disk, with the simulated mean
+    and p99 rising past the knee; (C) per-class sojourns under coalescing,
+    delayed hits between true hits and true misses; (D) the SLO-capacity
+    optimum inside (0, 1)."""
+    import numpy as np
+    from repro_torch.core import build, exponential_analogue
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.latency import lambda_max, response_time, slo_forecast
+
+    seconds = {}
+    t0 = time.perf_counter()
+    grid = np.linspace(0.0, 1.0, 201)
+    lru, fifo = build("lru", disk_us=LAT_DISK_US), build("fifo", disk_us=LAT_DISK_US)
+    lam_peak = float(np.max(lambda_max(lru, grid)))
+    lam = LAT_LOAD_FRAC * lam_peak
+    f_lru = slo_forecast(lru, lam, LAT_SLO_US, p_grid=grid)
+    f_fifo = slo_forecast(fifo, lam, LAT_SLO_US, p_grid=grid)
+    i98 = int(np.argmin(np.abs(grid - 0.98)))
+    ilat = int(np.argmin(np.abs(grid - f_lru.p_star_latency)))
+    fin = np.isfinite(f_fifo.r_mean)
+    if not (abs(f_lru.p_star_throughput - lru.p_star()) < 0.01
+            and f_lru.p_star_latency < 0.999
+            and abs(f_lru.p_star_latency - f_lru.p_star_throughput) > 0.02
+            and f_lru.r_mean[i98] > 1.2 * f_lru.r_mean[ilat]
+            and f_lru.r_tail[i98] > 1.2 * f_lru.r_tail[ilat]
+            and np.all(np.diff(f_fifo.r_mean[fin]) <= 1e-9)
+            and f_fifo.p_star_latency == 1.0 and f_fifo.p_star_slo == 1.0):
+        raise AssertionError(f"fig_latency A: {f_lru} {f_fifo}")
+    out = {"analytic": {"lambda": lam,
+                        "lru_p_star_latency": f_lru.p_star_latency,
+                        "lru_p_star_throughput": f_lru.p_star_throughput}}
+    seconds["A"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lru_b = build("lru", disk_us=LAT_DISK_US_SIM)
+    lam_b = LAT_SIM_LOAD * lam_peak
+    p_sim = np.asarray(LAT_P_SIM)
+    sim = simulate_network(exponential_analogue(lru_b), p_sim,
+                           arrival_rate=lam_b, n_requests=FIG_REQUESTS,
+                           seeds=(0, 1, 2), max_in_system=256, device=device)
+    ana = response_time(lru_b, p_sim, lam_b)
+    rel = np.abs(sim.sojourn_mean - ana) / ana
+    if not (np.all(sim.drop_frac == 0.0) and np.all(rel[:-1] < 0.15)
+            and rel[-1] < 0.35
+            and sim.sojourn_mean[-1] > sim.sojourn_mean[-2]
+            and sim.sojourn_p99[-1] > sim.sojourn_p99[-2]):
+        raise AssertionError(f"fig_latency B: mean {sim.sojourn_mean}, "
+                             f"analytic {ana}, p99 {sim.sojourn_p99}, drops "
+                             f"{sim.drop_frac}")
+    out["sim"] = {"lambda": lam_b, "mean": sim.sojourn_mean.tolist(),
+                  "p99": sim.sojourn_p99.tolist(), "analytic": ana.tolist(),
+                  "throughput": sim.throughput.tolist()}
+    seconds["B"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net_c = build("lru", disk_us=LAT_DISK_US, disk_servers=LAT_CO_IO_DEPTH)
+    net_c = dataclasses.replace(net_c, stations=tuple(
+        dataclasses.replace(st, dist="det") if st.name == "disk" else st
+        for st in net_c.stations))
+    simc = simulate_network(net_c, [0.5], arrival_rate=LAT_CO_LAMBDA,
+                            n_requests=FIG_REQUESTS, seeds=(0, 1),
+                            coalesce_flows=LAT_CO_FLOWS, max_in_system=256,
+                            device=device)
+    soj = simc.class_sojourn[0]
+    if not (simc.class_frac[0, 2] > 0.05 and soj[1] < soj[2] < soj[0]):
+        raise AssertionError(f"fig_latency C: fractions {simc.class_frac}, "
+                             f"sojourns {simc.class_sojourn}")
+    out["coalesce_classes"] = {"frac": simc.class_frac[0].tolist(),
+                               "sojourn": soj.tolist()}
+    seconds["C"] = time.perf_counter() - t0
+    islo = int(np.argmin(np.abs(grid - f_lru.p_star_slo)))
+    if not (f_lru.slo_lambda[islo] > f_lru.slo_lambda[-1] + 1e-6
+            and 0.0 < f_lru.p_star_slo < 1.0):
+        raise AssertionError(f"fig_latency D: {f_lru.slo_lambda}")
+    out["slo"] = {"p_star_slo_lru": f_lru.p_star_slo,
+                  "peak_slo_lambda_lru": float(np.max(f_lru.slo_lambda))}
+    out["seconds"] = seconds
+    return out
+
+
+def figures_path(rec, device="cuda"):
+    """The delayed-hits and latency path: the qualitative assertions of
+    ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py`` and
+    ``fig_latency.py`` through the port (the machine with the card has no
+    jax), at the benchmarks' sizes; each figure's wall seconds."""
+    out, seconds = {}, {}
+    for name, fn in (("table2_classify", table2_classify),
+                     ("fig_delayed_hits", fig_delayed_hits),
+                     ("fig_latency", fig_latency)):
+        t0 = time.perf_counter()
+        out[name] = fn(device)
+        seconds[name] = time.perf_counter() - t0
+        parts = out[name].get("seconds", {}) if name != "table2_classify" else {}
+        print(f"figure {name}: assertions hold ({seconds[name]:.3f} s; "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()) + ")",
+              flush=True)
+    out["seconds"] = seconds
+    rec["figures"] = out
+
+
+def ext_timing(rec):
+    """The coalescing and open-loop instantiations timed per launch (CUDA
+    events) on one lane of the figures' networks (fig_delayed_hits B at
+    p 0.5 with 16 flows; fig_latency C at p 0.5), beside their plain
+    versions on the same inputs (held identical: deterministic service in
+    C's disk, and the draws of B's equal on the card) and the work's
+    bound: its bytes, and its operations counted as if they ran in
+    parallel, as for the event-sim row.  Also the figures' own launches
+    (fig_delayed_hits B's 6 lanes, fig_latency B's 9) at FIG_REQUESTS."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build, exponential_analogue
+    from repro_torch.kernels import event_sim as es
+    from repro_torch.latency import lambda_max
+    from test_torch_event_sim_cuda import hold_coalesced, hold_open
+
+    dev = torch.device("cuda")
+
+    def spec_bytes(spec, seeds, kw):
+        return (sum(a.numel() * a.element_size() for a in spec)
+                + sum(v.numel() * v.element_size() for v in kw.values()
+                      if isinstance(v, torch.Tensor)) + seeds.numel() * 4)
+
+    net_b = build("lru", disk_us=DH_DISK_US, disk_servers=DH_IO_DEPTH)
+    spec, seeds, kw = es.grid_lanes(net_b, np.array([0.5]), EXT_TIMING_REQUESTS,
+                                    (0,), 0.25, dev, coalesce_flows=16)
+    co_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw), reps=5)
+    kern = es.sim_lanes(spec, seeds, **kw)
+    plain, co_plain_ms = timed_plain(lambda: es.sim_lanes_plain(spec, seeds,
+                                                                **kw))
+    rec["event_sim_coalesced_max_abs_err"] = max(
+        rec["event_sim_coalesced_max_abs_err"],
+        hold_coalesced(kern, plain, exact=False))
+    mpl = kw["mpl"]
+    co_events = int(kern.events.long().sum())
+    # per event: the closed loop's work (two argmin passes, the rebase,
+    # three draws and a service draw) and the flow compare over the jobs
+    # and the flow draw
+    co_bytes = spec_bytes(spec, seeds, kw) + 4 * (6 + 2 * spec.visits.shape[1])
+    co_ops = co_events * (6 * mpl + 80)
+    cb, cby = work_bound(co_bytes, co_ops)
+    fig = es.grid_lanes(net_b, np.asarray(DH_P_SIM), FIG_REQUESTS, (0, 1),
+                        0.25, dev, coalesce_flows=16)
+    co_fig_ms = cuda_ms(lambda: es.sim_lanes(fig[0], fig[1], **fig[2]), reps=3)
+
+    net_c = build("lru", disk_us=LAT_DISK_US, disk_servers=LAT_CO_IO_DEPTH)
+    net_c = dataclasses.replace(net_c, stations=tuple(
+        dataclasses.replace(st, dist="det") if st.name == "disk" else st
+        for st in net_c.stations))
+    ospec, oseeds, okw = es.open_lanes(net_c, np.array([0.5]),
+                                       np.array([LAT_CO_LAMBDA]),
+                                       EXT_TIMING_REQUESTS, (0,), 0.25, 256,
+                                       coalesce_flows=LAT_CO_FLOWS,
+                                       device=dev)
+    open_ms = cuda_ms(lambda: es.sim_open_lanes(ospec, oseeds, **okw), reps=5)
+    okern = es.sim_open_lanes(ospec, oseeds, **okw)
+    oplain, open_plain_ms = timed_plain(
+        lambda: es.sim_open_lanes_plain(ospec, oseeds, **okw))
+    rec["event_sim_open_max_abs_err"] = max(
+        rec["event_sim_open_max_abs_err"], hold_open(okern, oplain, exact=True))
+    n_slots = okw["n_slots"]
+    open_events = int(okern.events.long().sum())
+    n_rec = okern.sojourn_us.shape[1]
+    # the records: each written once, 5 bytes
+    open_bytes = spec_bytes(ospec, oseeds, okw) + 5 * n_rec * oseeds.numel()
+    # per event: the argmin passes, the ageing of every slot, the flow
+    # compare, the free-slot ballot and the draws
+    open_ops = open_events * (7 * n_slots + 90)
+    ob, oby = work_bound(open_bytes, open_ops)
+    lat = build("lru", disk_us=LAT_DISK_US)
+    lam_b = LAT_SIM_LOAD * float(np.max(lambda_max(lat, np.linspace(0, 1, 201))))
+    ofig = es.open_lanes(exponential_analogue(build("lru", disk_us=LAT_DISK_US_SIM)),
+                         np.asarray(LAT_P_SIM), np.full(3, lam_b), FIG_REQUESTS,
+                         (0, 1, 2), 0.25, 256, device=dev)
+    open_fig_ms = cuda_ms(lambda: es.sim_open_lanes(ofig[0], ofig[1], **ofig[2]),
+                          reps=3)
+    out = {
+        "coalesced": {"ms": co_ms, "plain_ms": co_plain_ms, "events": co_events,
+                      "ns_per_event": co_ms * 1e6 / co_events,
+                      "bytes": co_bytes, "ops": co_ops, "bound_ms": cb,
+                      "fig_b_launch_ms": co_fig_ms,
+                      "requests": EXT_TIMING_REQUESTS},
+        "open": {"ms": open_ms, "plain_ms": open_plain_ms,
+                 "events": open_events, "ns_per_event": open_ms * 1e6 / open_events,
+                 "bytes": open_bytes, "ops": open_ops, "bound_ms": ob,
+                 "fig_b_launch_ms": open_fig_ms,
+                 "requests": EXT_TIMING_REQUESTS}}
+    print(f"event_sim coalesced: {co_ms:.3f} ms per 1-lane launch "
+          f"({out['coalesced']['ns_per_event']:.1f} ns per event), plain "
+          f"{co_plain_ms:.1f} ms, bound {cb:.5f} ms; fig_delayed_hits B's "
+          f"launch {co_fig_ms:.3f} ms", flush=True)
+    print(f"event_sim open: {open_ms:.3f} ms per 1-lane launch "
+          f"({out['open']['ns_per_event']:.1f} ns per event), plain "
+          f"{open_plain_ms:.1f} ms, bound {ob:.5f} ms; fig_latency B's "
+          f"launch {open_fig_ms:.3f} ms", flush=True)
+    rec["ext_timing"] = out
+    return [
+        {"name": "event_sim_coalesced", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim.cu",
+         "replaces": "src/repro/core/simulator.py:162",
+         "ms": co_ms, "plain_ms": co_plain_ms, "bound_ms": cb,
+         "bound_by": cby, "library_ms": None},
+        {"name": "event_sim_open", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim.cu",
+         "replaces": "src/repro/core/simulator.py:846",
+         "ms": open_ms, "plain_ms": open_plain_ms, "bound_ms": ob,
+         "bound_by": oby, "library_ms": None},
+    ]
 
 
 def hold_trace(what, kern, plain, visits, exact) -> float:
@@ -1123,6 +1513,14 @@ def profile_main_path(rec):
           f"{rec['main_path_profile']['busy_share']}", flush=True)
 
 
+def work_bound(nbytes, ops):
+    """(ms, what bounds it): the larger of the bytes at the memory rate and
+    the operations at the float32 rate outside the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def timed_plain(fn):
     """(result, ms) of one call of a plain version on the card."""
     import torch
@@ -1394,27 +1792,22 @@ def full_size(rec):
     route_len = spec.visits.shape[-1]
     ring_bytes = int(out.completed.long().sum()) * (5 * 4 + 2 * route_len * 4)
 
-    def bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / SCALAR_OPS_PER_S * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
     # the replay launch is a chain of dependent loads per lane: its bound
     # is the longest lane's chain, far above its bytes and operations.  It
     # is a latency; the kernel line names it "operations", as it counts
     # dependent operations (each at one load's latency)
-    rb = max(bound(replay_bytes, replay_ops)[0], chain_ms["lru"])
+    rb = max(work_bound(replay_bytes, replay_ops)[0], chain_ms["lru"])
     rby = "operations"
-    sb, sby = bound(one_bytes, one_ops)
-    tb, tby = bound(sim_bytes + 4 * seeds.numel() * spec.visits.shape[1]
-                    + ring_bytes, sim_ops)
+    sb, sby = work_bound(one_bytes, one_ops)
+    tb, tby = work_bound(sim_bytes + 4 * seeds.numel() * spec.visits.shape[1]
+                         + ring_bytes, sim_ops)
     lru = rec["lru_timing"]
-    lb, lby = bound(lru["bytes"], 2 * lru["shape"][0] + lru["shape"][1])
+    lb, lby = work_bound(lru["bytes"], 2 * lru["shape"][0] + lru["shape"][1])
     rec["timing"] = {
         "replay_ms_per_policy": per_policy, "replay_plain_ms": replay_plain_ms,
         "replay_chain_steps": chains, "replay_chain_bound_ms": chain_ms,
         "replay_bytes": replay_bytes, "replay_ops": replay_ops,
-        "replay_work_bound_ms": bound(replay_bytes, replay_ops)[0],
+        "replay_work_bound_ms": work_bound(replay_bytes, replay_ops)[0],
         "replay_shape": [n_l, n_t, grid.key_space, grid.pad],
         "sim_ms": sim_ms, "sim_events": int(out.events.long().sum()),
         "sim_bytes": sim_bytes, "sim_ops": sim_ops,
@@ -2521,6 +2914,8 @@ def main() -> int:
     phases.run("flash_vs_plain", check_flash, rec)
     phases.run("paged_vs_plain", check_paged, rec)
     phases.run("wkv_vs_plain", check_wkv, rec)
+    phases.run("coalesce_vs_plain", check_coalesce, rec)
+    phases.run("open_vs_plain", check_open, rec)
 
     kr.replay_lanes.launches = 0
     es.sim_lanes.launches = 0
@@ -2534,6 +2929,11 @@ def main() -> int:
     cu.lru_update.launches = 0
     phases.run("lru_update_path", lru_update_path, rec)
     launches["lru_batch_update"] = cu.lru_update.launches
+    es.sim_lanes.flows_launches = 0
+    es.sim_open_lanes.launches = 0
+    phases.run("figures_path", figures_path, rec)
+    launches["event_sim_coalesced"] = es.sim_lanes.flows_launches
+    launches["event_sim_open"] = es.sim_open_lanes.launches
     # the full-width model in bf16, and the same weights in float32
     cfg = get_config(ARCH)
     model = (cfg, phases.run("model_init", transformer.init_params, cfg))
@@ -2580,6 +2980,7 @@ def main() -> int:
     rec["main_path_wall_s"] = phases.seconds["main_path"]
     phases.run("main_path_profile", profile_main_path, rec)
     kernels = phases.run("full_size", full_size, rec)
+    kernels += phases.run("ext_timing", ext_timing, rec)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["max_abs_err"] = rec[f"{k['name']}_max_abs_err"]

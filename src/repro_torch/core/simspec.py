@@ -156,12 +156,26 @@ def stack_specs(specs: Sequence[SimSpec]) -> SimSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SimResult:
-    """Closed-loop summary: mean throughput and CI95 across seeds."""
+    """Closed-loop summary: mean throughput and CI95 across seeds, and
+    with coalescing the delayed-hit fraction and the per-branch rates (the
+    reference's fields, in its order)."""
 
     p_hit: np.ndarray
     throughput: np.ndarray  # requests/µs == M req/s
     ci95: np.ndarray  # 95% CI half-width across seeds
     n_requests: int
+    # fraction of measured completions that were delayed hits (coalesced
+    # onto an in-flight fetch); zeros unless coalesce_flows > 0.
+    delayed_frac: np.ndarray | None = None
+    # per-branch completion rates (requests/µs), (P, B) in the order of
+    # ``net.branches``; ``branch_delayed`` is the delayed-hit subset of the
+    # same completions.  Filled when coalesce_flows > 0, else None.
+    branch_throughput: np.ndarray | None = None
+    branch_delayed: np.ndarray | None = None
+    # tiered (MshrSpec) runs only: delayed-hit completions split by the
+    # held-slot level the job parked at, (P, max_held) fractions of
+    # measured completions.  None: the port has no tiered runs yet.
+    delayed_tier_frac: np.ndarray | None = None
     # decoded per-lane trace records ([seed][p]
     # repro_torch.obs.trace.TraceRecords); None unless the run asked for
     # tracing (simulate_network(trace=K)).

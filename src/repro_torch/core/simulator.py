@@ -1,42 +1,90 @@
-"""Event-driven simulation of the closed queueing networks — prong B
+"""Event-driven simulation of the queueing networks — prong B
 (port of ``repro.core.simulator.simulate_network``).
 
-This slice runs the **closed loop without coalescing**: exactly ``mpl``
-jobs, think stations infinite-server, queue stations c-server FCFS, a
-completed request re-entering at once with a fresh branch, optionally
-traced (``trace=K``: per-request records, :mod:`repro_torch.obs`).  The whole
-(p_hit x seed) grid is one launch of the event-sim kernel
+The **closed loop**: exactly ``mpl`` jobs, think stations infinite-server,
+queue stations c-server FCFS, a completed request re-entering at once
+with a fresh branch, optionally traced (``trace=K``: per-request records,
+:mod:`repro_torch.obs`).  With ``coalesce_flows > 0`` misses coalesce on
+an MSHR-style outstanding-miss table (delayed hits): a job arriving at a
+disk station whose flow already has a fetch in flight parks, holds no
+server, and completes when the fill lands.
+
+The **open loop** (``arrival_rate`` set): Poisson arrivals (or ON-OFF
+bursts, ``burst``) into a pool of ``max_in_system`` job slots; every
+completion records its sojourn and class, and the result is an
+:class:`OpenSimResult` of response-time statistics.
+
+The whole (p_hit x seed) grid is one launch of the event-sim kernel
 (:mod:`repro_torch.kernels.event_sim`) on the card, or its plain version
 on the CPU.  Its counter-based RNG is the one of the reference's
-``backend="pallas"`` engine, so the two agree statistically with the
-reference's threefry engine and exactly with its pallas engine on
-deterministic service.
+``backend="pallas"`` engine, so the closed loop without coalescing agrees
+statistically with the reference's threefry engine and exactly with its
+pallas engine on deterministic service.  The reference runs coalescing
+and the open loop only on its threefry engine; the port runs them on its
+counter engine, so they agree with the reference statistically.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import warnings
+
+import numpy as np
+
 from repro_torch.core.queueing import ClosedNetwork
 from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
-from repro_torch.kernels.event_sim import simulate_grid
+from repro_torch.kernels.event_sim import open_grid, simulate_grid
+from repro_torch.obs.trace import CLS_DELAYED, CLS_HIT, CLS_MISS
 
-__all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "compile_network",
+__all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "OpenSimResult",
+           "CLS_MISS", "CLS_HIT", "CLS_DELAYED", "compile_network",
            "stack_specs", "simulate_network"]
 
-# Options of the reference that this slice of the port does not carry yet,
-# each with the ROADMAP item that ports it.
-# Each is refused when it differs from the reference's default (second).
+# Options of the reference that the port does not carry yet, each with
+# the ROADMAP item that ports it.  Each is refused when it differs from
+# the reference's default (second).
 _LATER = {
-    "coalesce_flows": ("ROADMAP queue 1, item 6.2 (MSHR coalescing)", 0),
-    "coalesce_theta": ("ROADMAP queue 1, item 6.2 (Zipf-weighted hot-key "
-                       "flows)", 0.0),
-    "arrival_rate": ("ROADMAP queue 1, item 6.3 (open loop)", None),
-    "max_in_system": ("ROADMAP queue 1, item 6.3 (open loop job slots)", 128),
-    "burst": ("ROADMAP queue 1, item 6.3 (open loop, ON-OFF bursts)", None),
     "tiers": ("ROADMAP queue 1, item 6.4 (tiered MSHR tables)", None),
     "sketch_cap": ("ROADMAP queue 1, item 8 (streaming sketches)", 0),
     "window_us": ("ROADMAP queue 1, item 8 (streaming sketch windows)", 0.0),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class OpenSimResult:
+    """Open-loop (arrival-driven) simulation result — the latency prong.
+
+    All sojourn statistics are computed over post-warmup completions;
+    percentiles pool the per-request records of every seed, while
+    ``sojourn_ci95`` is the seed-to-seed CI of the mean.  ``class_*``
+    columns are indexed [true miss, true hit, delayed hit] (the
+    :data:`CLS_MISS`/:data:`CLS_HIT`/:data:`CLS_DELAYED` order, matching
+    the prong-C classifier); ``class_sojourn`` is NaN for an empty class.
+    The reference's fields, in its order.
+    """
+
+    p_hit: np.ndarray
+    arrival_rate: np.ndarray  # (P,) offered rate, requests/µs
+    throughput: np.ndarray  # measured completion rate (== arrival_rate
+    ci95: np.ndarray        # when stable and drop-free)
+    sojourn_mean: np.ndarray  # (P,) µs
+    sojourn_ci95: np.ndarray
+    sojourn_p50: np.ndarray
+    sojourn_p99: np.ndarray
+    class_frac: np.ndarray  # (P, 3)
+    class_sojourn: np.ndarray  # (P, 3) mean µs per class
+    delayed_frac: np.ndarray
+    drop_frac: np.ndarray  # arrivals refused for want of a job slot
+    # lanes that exhausted the event budget before completing n_requests
+    # (deep overload): their statistics cover fewer completions than asked.
+    truncated: np.ndarray
+    n_requests: int
+    # trace records and streaming estimators: None until the port traces
+    # the open loop (ROADMAP queue 1, item 8).
+    traces: list | None = None
+    sketches: list | None = None
 
 
 def simulate_network(
@@ -56,28 +104,44 @@ def simulate_network(
     sketch_cap: int = 0,
     window_us: float = 0.0,
     device: str = "cuda",
-) -> SimResult:
-    """Simulate ``net`` over a grid of hit ratios (closed loop).
+):
+    """Simulate ``net`` over a grid of hit ratios.
 
     The full (p_hit x seed) grid runs as ONE launch: the per-p_hit specs
     are tiled across seeds so every (p, seed) cell is an independent lane
-    (lane seed ``seed*1000 + p_index``), each lane stops after
-    ``n_requests`` completions (or ``n_requests * (Lr + 2) * 3`` events),
-    and throughput is measured after the first ``warmup_frac`` of them.
-    Returns the mean throughput (requests/µs) and its CI95 half-width
-    across seeds.  ``trace=K`` keeps the last K per-request trace records
-    of every lane (the traced kernel) and decodes them onto the result's
-    ``traces``, ``[seed][p]``; the statistics are the untraced run's bit
-    for bit.
+    (lane seed ``seed*1000 + p_index``), and statistics are measured after
+    the first ``warmup_frac`` of the ``n_requests`` completions.
+
+    Closed loop (``arrival_rate=None``): each lane stops after
+    ``n_requests`` completions (or ``n_requests * (Lr + 2) * 3`` events);
+    returns a :class:`SimResult` with the mean throughput (requests/µs)
+    and its CI95 half-width across seeds.  ``trace=K`` keeps the last K
+    per-request trace records of every lane (the traced kernel) and
+    decodes them onto the result's ``traces``, ``[seed][p]``; the
+    statistics are the untraced run's bit for bit.
+
+    ``coalesce_flows > 0`` turns on miss coalescing: a job arriving at a
+    disk station samples one of ``coalesce_flows`` hot keys of its disk
+    group (Zipf(``coalesce_theta``)-weighted when it is > 0); if a fetch
+    for that key is in flight it parks and completes, as a delayed hit,
+    when the fill lands.  The result then carries ``delayed_frac``,
+    ``branch_throughput`` and ``branch_delayed``.  0 runs the closed loop
+    without any coalescing code, bit-identical to the port without it.
+
+    ``arrival_rate`` (a scalar, or one rate per ``p_hits`` entry, in
+    requests/µs) switches to the **open loop**: arrivals into a pool of
+    ``max_in_system`` slots, returning an :class:`OpenSimResult`.
+    ``burst=(duty, mean_on_us)`` makes the arrivals an ON-OFF process of
+    the same mean rate: exponential ON periods of mean ``mean_on_us`` µs
+    at ``arrival_rate / duty``, separated by arrival-free OFF periods.
 
     The keywords are the reference's.  ``backend`` names the engine: the
     port has one, the reference's counter-RNG ``"pallas"`` engine, so that
     is its default and ``"jax"`` (the reference's threefry engine) raises
-    :class:`ValueError`.  ``coalesce_flows``, ``coalesce_theta``,
-    ``arrival_rate``, ``max_in_system``, ``burst``, ``tiers``,
-    ``sketch_cap`` and ``window_us`` belong to later slices of the port:
-    away from their defaults they raise :class:`NotImplementedError`
-    naming their ROADMAP item.
+    :class:`ValueError`.  ``tiers``, ``sketch_cap`` and ``window_us``, and
+    ``trace`` together with coalescing or the open loop, belong to later
+    slices of the port: they raise :class:`NotImplementedError` naming
+    their ROADMAP item.
     """
     if backend not in ("jax", "pallas"):
         raise ValueError(f"unknown backend {backend!r} (want 'jax' or "
@@ -86,15 +150,114 @@ def simulate_network(
         raise ValueError("backend='jax' is the reference's threefry engine, "
                          "which the port does not have: its one engine is "
                          "the counter-RNG engine of backend='pallas'")
-    given = {"coalesce_flows": coalesce_flows,
-             "coalesce_theta": coalesce_theta, "arrival_rate": arrival_rate,
-             "max_in_system": max_in_system, "burst": burst, "tiers": tiers,
-             "sketch_cap": sketch_cap, "window_us": window_us}
+    given = {"tiers": tiers, "sketch_cap": sketch_cap, "window_us": window_us}
     for name, value in given.items():
         item, default = _LATER[name]
         if value is default or (default is not None and value == default):
             continue
         raise NotImplementedError(
             f"simulate_network({name}=...) is not ported yet: {item}")
-    return simulate_grid(net, p_hits, n_requests=n_requests, seeds=seeds,
-                         warmup_frac=warmup_frac, trace=trace, device=device)
+    if trace and (coalesce_flows or arrival_rate is not None):
+        raise NotImplementedError(
+            "simulate_network(trace=...) with coalesce_flows or arrival_rate "
+            "is not ported yet: ROADMAP queue 1, item 8 (tracing in those "
+            "modes comes with the streaming sketches)")
+    if arrival_rate is None:
+        if burst is not None:
+            raise ValueError("burst arrivals require arrival_rate "
+                             "(open-loop mode)")
+        return simulate_grid(net, p_hits, n_requests=n_requests, seeds=seeds,
+                             warmup_frac=warmup_frac, trace=trace,
+                             coalesce_flows=coalesce_flows,
+                             coalesce_theta=coalesce_theta, device=device)
+    return _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
+                          warmup_frac, max_in_system, burst, coalesce_flows,
+                          coalesce_theta, device)
+
+
+def _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
+                   warmup_frac, max_in_system, burst, coalesce_flows,
+                   coalesce_theta, device) -> OpenSimResult:
+    """The open-loop grid and the reference's reduction of its records."""
+    p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
+    n_p, n_s = len(p_hits), len(seeds)
+    lam = np.broadcast_to(np.asarray(arrival_rate, dtype=np.float64),
+                          (n_p,)).copy()
+    if np.any(lam <= 0.0):
+        raise ValueError("arrival_rate must be > 0")
+    if burst is not None:
+        duty, mean_on_us = float(burst[0]), float(burst[1])
+        if not 0.0 < duty <= 1.0 or mean_on_us <= 0.0:
+            raise ValueError(f"burst=(duty, mean_on_us) needs 0<duty<=1 and "
+                             f"mean_on_us>0, got {burst}")
+    out = open_grid(net, p_hits, lam, n_requests, seeds, warmup_frac,
+                    max_in_system, burst=burst,
+                    coalesce_flows=int(coalesce_flows),
+                    coalesce_theta=float(coalesce_theta), device=device)
+    return open_result(out, p_hits, lam, n_requests, n_s,
+                       int(n_requests * warmup_frac))
+
+
+def open_result(out, p_hits, lam, n_requests: int, n_s: int,
+                warmup: int) -> OpenSimResult:
+    """The reference's reduction of the open-loop lanes ``out`` (an
+    :class:`~repro_torch.kernels.event_sim.OpenLaneOutputs` of ``n_s *
+    P`` lanes, lane ``s * P + p``) into an :class:`OpenSimResult`, on the
+    host in numpy: percentiles over the pooled post-warmup records of
+    every seed, the per-seed CI of the mean, class fractions and means,
+    drops, and a ``RuntimeWarning`` for lanes that spent their event
+    budget before ``n_requests`` completions."""
+    n_p = len(p_hits)
+    xs = out.x.cpu().numpy().reshape(n_s, n_p)
+    comp = out.completed.cpu().numpy().reshape(n_s, n_p)
+    dl = out.delayed_frac.cpu().numpy().reshape(n_s, n_p)
+    drop = out.dropped.cpu().numpy().reshape(n_s, n_p)
+    soj = out.sojourn_us.cpu().numpy().reshape(n_s, n_p, -1)
+    cls = out.cls.cpu().numpy().reshape(n_s, n_p, -1)
+
+    mean = np.empty(n_p)
+    m_ci = np.empty(n_p)
+    p50 = np.empty(n_p)
+    p99 = np.empty(n_p)
+    cfrac = np.zeros((n_p, 3))
+    csoj = np.full((n_p, 3), np.nan)
+    for i in range(n_p):
+        pooled = []
+        per_seed_mean = []
+        for s in range(n_s):
+            rec = soj[s, i, warmup:comp[s, i]]
+            pooled.append(rec)
+            per_seed_mean.append(rec.mean() if rec.size else np.nan)
+        rec = np.concatenate(pooled)
+        all_cls = np.concatenate(
+            [cls[s, i, warmup:comp[s, i]] for s in range(n_s)])
+        mean[i] = rec.mean() if rec.size else np.nan
+        p50[i] = np.percentile(rec, 50) if rec.size else np.nan
+        p99[i] = np.percentile(rec, 99) if rec.size else np.nan
+        m_ci[i] = (1.96 * np.nanstd(per_seed_mean, ddof=1) / math.sqrt(n_s)
+                   if n_s > 1 else 0.0)
+        for c in range(3):
+            sel = all_cls == c
+            if rec.size:
+                cfrac[i, c] = sel.mean()
+            if sel.any():
+                csoj[i, c] = rec[sel].mean()
+
+    ci = (1.96 * xs.std(axis=0, ddof=1) / math.sqrt(n_s) if n_s > 1
+          else np.zeros(n_p))
+    total_arrivals = comp.sum(axis=0) + drop.sum(axis=0)
+    truncated = (comp < n_requests).any(axis=0)
+    if truncated.any():
+        warnings.warn(
+            "open-loop simulation exhausted its event budget before "
+            f"completing n_requests at p_hit={p_hits[truncated]} "
+            "(offered rate far past the stability boundary?); statistics "
+            "cover fewer completions than requested", RuntimeWarning,
+            stacklevel=4)
+    return OpenSimResult(
+        p_hit=p_hits, arrival_rate=lam, throughput=xs.mean(axis=0), ci95=ci,
+        sojourn_mean=mean, sojourn_ci95=m_ci, sojourn_p50=p50,
+        sojourn_p99=p99, class_frac=cfrac, class_sojourn=csoj,
+        delayed_frac=dl.mean(axis=0),
+        drop_frac=drop.sum(axis=0) / np.maximum(total_arrivals, 1),
+        truncated=truncated, n_requests=n_requests)

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "event_sim_traced_launch": ([_P] * 22 + [_I] * 8 + [_P], _I),
     "event_sim_shared_bytes": ([_I] * 5, _I),
     "event_sim_slots": ([_I], _I),
+    "event_sim_ext_launch": ([_P, _P], _I),
+    "event_sim_ext_shared_bytes": ([_P], _I),
     "lru_update_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "lru_update_blocks": ([_I], _I),
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),

@@ -56,6 +56,35 @@
 // draws no random numbers, so all instantiations simulate the same
 // events; the untraced one compiles no trace code.
 //
+// Coalescing and the open loop (kMode kFlows and kOpen): the reference
+// runs them only on its threefry engine (src/repro/core/simulator.py
+// _simulate with n_flows, _simulate_open), which has no Pallas kernel;
+// these instantiations are the port's counterpart on this kernel's
+// engine, event for event those of sim_lanes_plain(n_flows=...) and
+// sim_open_lanes_plain.  They keep the design above and add:
+//   * a second keyed stream (base2 = mix(seed + 2 GOLDEN)) whose counter
+//     is a pure function of the event and the job: event e owns
+//     (e + 1)(2n + 4) + {2i, 2i + 1: job i's wake branch and service;
+//     2n: a miss's flow; 2n + 1: the next interarrival; 2n + 2, 2n + 3: a
+//     toggle's interarrival and phase}.  So the owner of a woken job draws
+//     for it with no shared table, and the three draws of the first
+//     stream keep their counters;
+//   * a parked job has station PARKED and no enqueue sequence: it is
+//     neither in service (the argmin and the busy count skip it) nor a
+//     waiter, and holds no server.  A fill wakes the jobs whose flow is
+//     the filled one: each owner scans its own slots, one reduction
+//     counts them; per-branch counts go to shared memory by atomics;
+//   * the leader table (n_disks * F entries) sits in shared memory.  All
+//     threads read it (a broadcast) before thread 0 writes it, once per
+//     event, and a __syncwarp() orders the writes before the next read;
+//     the read of an entry the same event clears is answered by logic;
+//   * the open loop's slots are the job slots: the lowest free one is a
+//     ballot per register slot and __ffs; each owner ages its own live
+//     slots by the event's time; sojourns and classes go to device memory
+//     at the completion index, the woken jobs' in job order (a ballot
+//     prefix).  Arrivals win ties against departures and toggles, toggles
+//     against departures, as in the reference.
+//
 // Where bit-exactness with the JAX reference could break:
 //   * argmin ties: jnp.argmin returns the FIRST index.  Each thread keeps
 //     its lowest index among equal remaining times, and the second
@@ -92,6 +121,14 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t GOLDEN = 0x9E3779B9u;
 constexpr int CLS_MISS = 0;
 constexpr int CLS_HIT = 1;
+constexpr int CLS_DELAYED = 2;
+constexpr int PARKED = -2;               // station of a job parked on a fetch
+constexpr uint32_t INF_REL = 0x7fffffffu;  // INF_NS: a time that never comes
+// kernel modes: the closed loop, the closed loop with coalescing, the
+// open loop (coalescing and bursts as runtime switches)
+constexpr int kClosed = 0;
+constexpr int kFlows = 1;
+constexpr int kOpen = 2;
 
 __device__ __forceinline__ uint32_t mix(uint32_t x) {
   x ^= x >> 16;
@@ -102,8 +139,8 @@ __device__ __forceinline__ uint32_t mix(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float u01(uint32_t base, int ctr) {
-  const uint32_t z = mix(base + static_cast<uint32_t>(ctr) * GOLDEN);
+__device__ __forceinline__ float u01(uint32_t base, uint32_t ctr) {
+  const uint32_t z = mix(base + ctr * GOLDEN);
   const float u = static_cast<float>(z >> 8) * static_cast<float>(1.0 / (1 << 24));
   return fminf(fmaxf(u, static_cast<float>(1e-7)), static_cast<float>(1.0 - 1e-7));
 }
@@ -138,6 +175,32 @@ __device__ __forceinline__ int service_ns(float u, const Law& w) {
     unit = w.lo * powf(1.0f - u * w.ratio, w.neg_inv) / w.raw;
   }
   return static_cast<int>(fmaxf(rintf(unit * w.mean), 1.0f));
+}
+
+// An exponential time in ns (>= 1) of mean `mean` (the reference's exp_ns).
+__device__ __forceinline__ int exp_ns(float u, float mean) {
+  return static_cast<int>(fmaxf(rintf(-logf(u) * mean), 1.0f));
+}
+
+// The flow a miss fetches: floor(u F) for uniform flows (cdf null), else
+// searchsorted-left over the CDF; at most F - 1.
+__device__ __forceinline__ int flow_of(float u, int n_flows, const float* cdf) {
+  int f;
+  if (cdf == nullptr) {
+    f = static_cast<int>(u * static_cast<float>(n_flows));
+  } else {
+    int lo = 0, hi = n_flows;  // the first f with cdf[f] >= u
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cdf[mid] < u) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    f = lo;
+  }
+  return min(f, n_flows - 1);
 }
 
 // searchsorted-left over the cumulative branch law (may return n_b).
@@ -180,6 +243,22 @@ struct Rings {
   int cap;
 };
 
+// The coalescing and open-loop instantiations' extra inputs and outputs.
+struct Ext {
+  const int* disk_rank;   // (lanes, K) backing-store rank, -1: not a disk
+  const float* flow_cum;  // (F) Zipf flow CDF; null: uniform flows
+  const int* bmiss;       // (lanes, B) open loop: 1 if the route has a disk
+  const float* ia_mean;   // (lanes) open loop: mean interarrival, ns
+  float* delayed_frac;    // (lanes)
+  int* branch_done;       // (lanes, B) closed: measured completions
+  int* branch_delayed;    // (lanes, B) closed: measured delayed hits
+  int* dropped;           // (lanes) open: arrivals that found no slot
+  float* soj;             // (lanes, rec_len) open: sojourn, us
+  signed char* cls;       // (lanes, rec_len) open: class
+  int n_flows, n_lead, burst, rec_len;
+  float on_mean, off_mean;  // open with burst: ON and OFF phase means, ns
+};
+
 // Register slots per thread for mpl jobs; 0: job state in shared memory.
 __host__ __device__ constexpr int reg_slots(int mpl) {
   return mpl <= 32 ? 1 : mpl <= 64 ? 2 : mpl <= 128 ? 4 : mpl <= 256 ? 8 : 0;
@@ -193,12 +272,19 @@ constexpr int kBatch = 32;
 // visits, (B) branch law; traced, (B) miss classes, the (mpl, Lr) enter
 // and leave stamps and a word per thread for stores that go nowhere; with
 // R = 0, six (mpl) job arrays.
+// With coalescing or the open loop, also: (K) disk ranks, the leader
+// table, the flow CDF and (kFlows) the per-branch counts and their warmup
+// snapshots; the open loop keeps (B) miss classes; R = 0 job slots hold
+// two more arrays (flow, age).
 struct Layout {
-  int q, law, draw, vis, cum, miss, enter, leave, trash, jobs, bytes;
+  int q, law, draw, vis, cum, miss, enter, leave, trash, rank, lead, fcum,
+      bcnt, jobs, bytes;
 };
 
 __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
-                                         bool trace, bool smem_jobs) {
+                                         bool trace, bool smem_jobs,
+                                         int mode = kClosed, int n_lead = 0,
+                                         int n_cdf = 0) {
   Layout s;
   int o = 0;
   s.q = o;
@@ -212,15 +298,23 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
   s.cum = o;
   o += 4 * n_b;
   s.miss = o;
-  o += trace ? 4 * n_b : 0;
+  o += trace || mode == kOpen ? 4 * n_b : 0;
   s.enter = o;
   o += trace ? 4 * mpl * n_l : 0;
   s.leave = o;
   o += trace ? 4 * mpl * n_l : 0;
   s.trash = o;
   o += trace ? 4 * 32 : 0;
+  s.rank = o;
+  o += mode != kClosed ? 4 * n_k : 0;
+  s.lead = o;
+  o += mode != kClosed ? 4 * n_lead : 0;
+  s.fcum = o;
+  o += mode != kClosed ? 4 * n_cdf : 0;
+  s.bcnt = o;
+  o += mode == kFlows ? 16 * n_b : 0;
   s.jobs = o;
-  o += smem_jobs ? 24 * mpl : 0;
+  o += smem_jobs ? (mode == kClosed ? 24 : 32) * mpl : 0;
   s.bytes = o;
   return s;
 }
@@ -229,12 +323,18 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
 // time (mod 2**32), station, next station on the route (-1: the request
 // completes there), branch, position, enqueue sequence (BIG_SEQ in
 // service, NO_JOB for an unused slot).
+// With coalescing, also the flow the job fetches or parks on (-1: none);
+// in the open loop, the slot's time in system (us).
 template <int R>
 struct Jobs {
   uint32_t ready_[R];
-  int st_[R], nx_[R], br_[R], pos_[R], enq_[R];
+  int st_[R], nx_[R], br_[R], pos_[R], enq_[R], fl_[R];
+  float age_[R];
   __device__ __forceinline__ void bind(unsigned char*, int, int) {}
   __device__ __forceinline__ int slots() const { return R; }
+  __device__ __forceinline__ int max_slots() const { return R; }
+  __device__ __forceinline__ int& fl(int r) { return fl_[r]; }
+  __device__ __forceinline__ float& age(int r) { return age_[r]; }
   __device__ __forceinline__ uint32_t& ready(int r) { return ready_[r]; }
   __device__ __forceinline__ int& st(int r) { return st_[r]; }
   __device__ __forceinline__ int& nx(int r) { return nx_[r]; }
@@ -255,8 +355,11 @@ struct Jobs {
 template <>
 struct Jobs<0> {
   uint32_t* ready_;
-  int *st_, *nx_, *br_, *pos_, *enq_;
-  int n_;
+  int *st_, *nx_, *br_, *pos_, *enq_, *fl_;
+  float* age_;
+  int n_, max_;
+  // fl_ and age_ lie past the closed loop's six arrays: only the modes
+  // that allocate them (layout) touch them
   __device__ void bind(unsigned char* p, int mpl, int me) {
     int* a = reinterpret_cast<int*>(p) + me;
     ready_ = reinterpret_cast<uint32_t*>(a);
@@ -265,9 +368,15 @@ struct Jobs<0> {
     br_ = a + 3 * mpl;
     pos_ = a + 4 * mpl;
     enq_ = a + 5 * mpl;
+    fl_ = a + 6 * mpl;
+    age_ = reinterpret_cast<float*>(a + 7 * mpl);
     n_ = me < mpl ? (mpl - 1 - me) / 32 + 1 : 0;
+    max_ = (mpl + 31) / 32;
   }
   __device__ __forceinline__ int slots() const { return n_; }
+  __device__ __forceinline__ int max_slots() const { return max_; }
+  __device__ __forceinline__ int& fl(int r) { return fl_[32 * r]; }
+  __device__ __forceinline__ float& age(int r) { return age_[32 * r]; }
   __device__ __forceinline__ uint32_t& ready(int r) { return ready_[32 * r]; }
   __device__ __forceinline__ int& st(int r) { return st_[32 * r]; }
   __device__ __forceinline__ int& nx(int r) { return nx_[32 * r]; }
@@ -280,13 +389,18 @@ struct Jobs<0> {
   }
 };
 
-template <int kTrace, int R>
-__global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings) {
+template <int kTrace, int R, int kMode>
+__global__ void __launch_bounds__(32)
+    sim_kernel(const Args a, const Rings rings, const Ext ex) {
+  constexpr bool kExt = kMode != kClosed;  // coalescing state present
+  constexpr bool kOp = kMode == kOpen;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane_id = blockIdx.x;
   const int me = threadIdx.x;
   const int n_k = a.n_k, n_b = a.n_b, n_l = a.n_l, mpl = a.mpl;
-  const Layout lay = layout(n_k, n_b, n_l, mpl, kTrace > 0, R == 0);
+  const bool zipf = kExt && ex.flow_cum != nullptr;
+  const Layout lay = layout(n_k, n_b, n_l, mpl, kTrace > 0, R == 0, kMode,
+                            ex.n_lead, zipf ? ex.n_flows : 0);
   int2* q = reinterpret_cast<int2*>(smem + lay.q);
   Law* law = reinterpret_cast<Law*>(smem + lay.law);
   int* draw = reinterpret_cast<int*>(smem + lay.draw);
@@ -296,6 +410,10 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
   float* enter_s = reinterpret_cast<float*>(smem + lay.enter);
   float* leave_s = reinterpret_cast<float*>(smem + lay.leave);
   float* trash = reinterpret_cast<float*>(smem + lay.trash);
+  int* rank = reinterpret_cast<int*>(smem + lay.rank);
+  int* lead = reinterpret_cast<int*>(smem + lay.lead);
+  float* fcum = reinterpret_cast<float*>(smem + lay.fcum);
+  int* bcnt = reinterpret_cast<int*>(smem + lay.bcnt);  // done, delayed, warm x2
 
   // stage the lane's spec
   {
@@ -308,9 +426,20 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     for (int b = me; b < n_b; b += 32) {
       cum[b] = a.bcum[lane_id * n_b + b];
       if constexpr (kTrace > 0) miss[b] = rings.bmiss[lane_id * n_b + b];
+      if constexpr (kOp) miss[b] = ex.bmiss[lane_id * n_b + b];
     }
     if constexpr (kTrace > 0) {
       for (int i = me; i < 2 * mpl * n_l; i += 32) enter_s[i] = 0.0f;
+    }
+    if constexpr (kExt) {
+      for (int k = me; k < n_k; k += 32) rank[k] = ex.n_flows > 0 ? ex.disk_rank[ok + k] : -1;
+      for (int i = me; i < ex.n_lead; i += 32) lead[i] = -1;
+      if (zipf) {
+        for (int f = me; f < ex.n_flows; f += 32) fcum[f] = ex.flow_cum[f];
+      }
+      if constexpr (kMode == kFlows) {
+        for (int i = me; i < 4 * n_b; i += 32) bcnt[i] = 0;
+      }
     }
   }
   __syncwarp();
@@ -322,14 +451,19 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
 
   const uint32_t base = mix(static_cast<uint32_t>(a.seeds[lane_id]) + GOLDEN);
   const int max_events = a.max_events[lane_id];
+  // the second stream and its per-event block of counters
+  const uint32_t base2 = mix(static_cast<uint32_t>(a.seeds[lane_id]) + 2u * GOLDEN);
+  const uint32_t blk = 2u * static_cast<uint32_t>(mpl) + 4u;
+  const float* flow_cdf = zipf ? fcum : nullptr;
 
-  // init: every job starts a request at its (think) first station
+  // init: every job starts a request at its (think) first station; the
+  // open loop starts with every slot free
   Jobs<R> jobs;
   jobs.bind(smem + lay.jobs, mpl, me);
 #pragma unroll
   for (int r = 0; r < jobs.slots(); ++r) {
     const int i = me + 32 * r;
-    if (i < mpl) {
+    if (!kOp && i < mpl) {
       const int b = count_below(cum, n_b, u01(base, i));
       const int st = visit(b, 0);
       jobs.ready(r) = static_cast<uint32_t>(service_ns(u01(base, mpl + i), law[st]));
@@ -346,11 +480,26 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
       jobs.pos(r) = 0;
       jobs.enq(r) = NO_JOB;
     }
+    if constexpr (kExt) {
+      jobs.fl(r) = -1;
+      jobs.age(r) = 0.0f;
+    }
   }
 
   uint32_t clock = 0;
   int seq_ctr = 0, completed = 0, warm_completed = -1, events = 0;
   float elapsed_us = 0.0f, warm_elapsed_us = 0.0f;
+  int delayed = 0, warm_delayed = 0;  // kExt
+  // kOp: the next arrival (absolute; none while OFF), the burst phase and
+  // its end, the arrivals dropped
+  const float ia_mean = kOp ? ex.ia_mean[lane_id] : 0.0f;
+  bool arr_on = true, ph_on = true;
+  uint32_t arr_at = 0, ph_at = 0;
+  int dropped = 0;
+  if constexpr (kOp) {
+    arr_at = static_cast<uint32_t>(exp_ns(u01(base2, 2u * mpl + 1u), ia_mean));
+    if (ex.burst) ph_at = static_cast<uint32_t>(exp_ns(u01(base2, 2u * mpl + 3u), ex.on_mean));
+  }
   // this thread's event of the batch: its branch draw, the branch's first
   // station and the station after it
   int my_branch = 0, my_first = 0, my_first_nx = 0;
@@ -385,6 +534,16 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
       }
     }
   };
+  const size_t rec0 = static_cast<size_t>(lane_id) * (kOp ? ex.rec_len : 0);
+  // kOp: a completed request's sojourn and class at completion index idx
+  auto record = [&](int idx, float soj, int c) {
+    if constexpr (kOp) {
+      if (idx < ex.rec_len) {
+        ex.soj[rec0 + idx] = soj;
+        ex.cls[rec0 + idx] = static_cast<signed char>(c);
+      }
+    }
+  };
   while (completed < a.n_requests && events < max_events) {
     store_trace();
     if (slot == kBatch) {
@@ -409,6 +568,7 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     const int first = __shfl_sync(FULL, my_first, slot);
     const int first_nx = __shfl_sync(FULL, my_first_nx, slot);
     const int* d = draw + slot * 2 * n_k;
+    const uint32_t c0 = static_cast<uint32_t>(events + 1) * blk;  // kExt
 
     // t = the least remaining time, j = the first job with it
     uint32_t lv = NEVER;
@@ -423,18 +583,83 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     }
     const uint32_t t = __reduce_min_sync(FULL, lv);
     const int j = __reduce_min_sync(FULL, lv == t ? li : INT_MAX);
-    clock += t;
-    elapsed_us = __fmaf_rn(static_cast<float>(static_cast<int>(t)),
-                           static_cast<float>(1e-3), elapsed_us);
+    if constexpr (!kOp) {
+      clock += t;
+      elapsed_us = __fmaf_rn(static_cast<float>(static_cast<int>(t)),
+                             static_cast<float>(1e-3), elapsed_us);
+    } else {
+      // the next event: an arrival, a burst toggle or j's departure
+      const uint32_t t_dep = t == NEVER ? INF_REL : t;
+      const uint32_t rel_arr = arr_on ? arr_at - clock : INF_REL;
+      const uint32_t rel_ph = ex.burst ? ph_at - clock : INF_REL;
+      const bool is_arr = rel_arr <= min(t_dep, rel_ph);
+      const bool is_tog = ex.burst && !is_arr && rel_ph <= t_dep;
+      const uint32_t tt = min(min(rel_arr, t_dep), rel_ph);
+      clock += tt;
+      const float dt = static_cast<float>(static_cast<int>(tt)) * static_cast<float>(1e-3);
+      elapsed_us = elapsed_us + dt;
+#pragma unroll
+      for (int r = 0; r < jobs.slots(); ++r) {
+        if (jobs.st(r) != NO_JOB) jobs.age(r) += dt;
+      }
+      if (is_arr) {
+        // the lowest free slot takes the request, or it is dropped
+        int free_slot = -1;
+#pragma unroll
+        for (int r = 0; r < jobs.max_slots(); ++r) {
+          const bool fr = r < jobs.slots() && me + 32 * r < mpl && jobs.st(r) == NO_JOB;
+          const unsigned m = __ballot_sync(FULL, fr);
+          if (m != 0u) {
+            free_slot = 32 * r + __ffs(m) - 1;
+            break;
+          }
+        }
+        if (free_slot >= 0) {
+          const uint32_t ready0 = clock + static_cast<uint32_t>(d[n_k + first]);
+          jobs.at(me == (free_slot & 31) ? free_slot >> 5 : -1, [&](int r) {
+            jobs.ready(r) = ready0;
+            jobs.st(r) = first;
+            jobs.nx(r) = first_nx;
+            jobs.br(r) = new_branch;
+            jobs.pos(r) = 0;
+            jobs.enq(r) = BIG_SEQ;
+            jobs.fl(r) = -1;
+            jobs.age(r) = 0.0f;
+          });
+        } else {
+          dropped += 1;
+        }
+        arr_at = clock + static_cast<uint32_t>(exp_ns(u01(base2, c0 + 2u * mpl + 1u), ia_mean));
+      } else if (is_tog) {
+        // ON -> OFF: arrivals pause; OFF -> ON: a fresh arrival clock
+        ph_on = !ph_on;
+        arr_on = ph_on;
+        if (ph_on) {
+          arr_at = clock + static_cast<uint32_t>(exp_ns(u01(base2, c0 + 2u * mpl + 2u), ia_mean));
+        }
+        ph_at = clock + static_cast<uint32_t>(exp_ns(u01(base2, c0 + 2u * mpl + 3u),
+                                                     ph_on ? ex.on_mean : ex.off_mean));
+      }
+      if (is_arr || is_tog) {
+        events += 1;
+        ++slot;
+        continue;
+      }
+    }
 
     // job j's place, from its owner
     const int owner = j & 31;
-    int o_st = 0, o_nx = 0, o_br = 0, o_pos = 0;  // meaningful in the owner
+    int o_st = 0, o_nx = 0, o_br = 0, o_pos = 0, o_fl = -1;  // meaningful in the owner
+    float o_age = 0.0f;
     jobs.at(j >> 5, [&](int r) {
       o_st = jobs.st(r);
       o_nx = jobs.nx(r);
       o_br = jobs.br(r);
       o_pos = jobs.pos(r);
+      if constexpr (kExt) {
+        o_fl = jobs.fl(r);
+        o_age = jobs.age(r);
+      }
     });
     const int k_cur = __shfl_sync(FULL, o_st, owner);
     const int route_next = __shfl_sync(FULL, o_nx, owner);
@@ -448,6 +673,14 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
       enter_v = enter_s[j * n_l + min(me, n_l - 1)];
       leave_v = leave_s[j * n_l + min(me, n_l - 1)];
     }
+    // kExt: j's flow; a fill when j ends service at a disk with one
+    int f_cur = -1;
+    bool fill = false;
+    if constexpr (kExt) {
+      bj = __shfl_sync(FULL, o_br, owner);
+      f_cur = __shfl_sync(FULL, o_fl, owner);
+      fill = f_cur >= 0 && rank[k_cur] >= 0;
+    }
     // the station after j's next one, unless j completes (owner's view)
     const int nx_cont = after(o_br, o_pos + 1);
 
@@ -457,21 +690,89 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     // j's next station, and the servers busy there once j has left: the
     // other jobs in service at it, plus the successor if it starts there
     const bool done = route_next < 0;
-    const int k_next = done ? first : route_next;
+    const int k_next = done ? (kOp ? 0 : first) : route_next;
     const int2 qn = q[k_next];
     const int svc_w = d[k_cur], svc_j = d[n_k + k_next];
-    int lbusy = 0;
+    // kExt: arriving at a disk, j samples a flow and parks behind its
+    // leader or leads it (the entry a fill clears this event reads free)
+    bool at_disk = false, parks = false;
+    int f_new = -1;
+    if constexpr (kExt) {
+      if (ex.n_flows > 0 && !(kOp && done)) {
+        const int rk = rank[k_next];
+        at_disk = rk >= 0;
+        if (at_disk) {
+          f_new = rk * ex.n_flows + flow_of(u01(base2, c0 + 2u * mpl), ex.n_flows, flow_cdf);
+          parks = lead[f_new] >= 0 && !(fill && f_new == f_cur);
+        }
+      }
+    }
+    int lbusy = 0, lwoken = 0;
 #pragma unroll
     for (int r = 0; r < jobs.slots(); ++r) {
       const int e = jobs.enq(r), st = jobs.st(r);
       if (e != BIG_SEQ && st == k_cur && e < lseq) lseq = e;
       lbusy += (e == BIG_SEQ && st == k_next && me + 32 * r != j) ? 1 : 0;
+      if constexpr (kExt) lwoken += (fill && jobs.fl(r) == f_cur && me + 32 * r != j) ? 1 : 0;
     }
     const int seq = __reduce_min_sync(FULL, lseq);
     const bool handover = seq < BIG_SEQ;
     const int busy_next =
         __reduce_add_sync(FULL, lbusy) + (handover && k_next == k_cur ? 1 : 0);
-    const bool starts_now = !qn.x || busy_next < qn.y;
+    bool starts_now = !qn.x || busy_next < qn.y;
+    bool waits = !starts_now;
+    if constexpr (kExt) {
+      starts_now = starts_now && !parks && !(kOp && done);
+      waits = waits && !parks && !(kOp && done);
+    }
+
+    // kExt: the fill wakes every job parked on j's flow.  They complete
+    // (as delayed hits) before j: in the closed loop each starts a fresh
+    // request, counted under the branch it parked on; in the open loop
+    // each leaves, recorded in job order.
+    if constexpr (kExt) {
+      if (fill) {
+        const int n_woken = __reduce_add_sync(FULL, lwoken);
+        if (n_woken > 0) {
+          int before = completed;  // the next woken job's record index
+          const unsigned lower = (1u << me) - 1u;
+#pragma unroll
+          for (int r = 0; r < jobs.max_slots(); ++r) {
+            const int i = me + 32 * r;
+            const bool w = r < jobs.slots() && jobs.fl(r) == f_cur && i != j;
+            if constexpr (kOp) {
+              const unsigned m = __ballot_sync(FULL, w);
+              if (w) {
+                record(before + __popc(m & lower), jobs.age(r), CLS_DELAYED);
+                jobs.ready(r) = NEVER;
+                jobs.st(r) = NO_JOB;
+                jobs.enq(r) = NO_JOB;
+                jobs.fl(r) = -1;
+              }
+              before += __popc(m);
+            } else if (w) {
+              const int b = jobs.br(r);
+              if (b < n_b) {
+                atomicAdd(&bcnt[b], 1);
+                atomicAdd(&bcnt[n_b + b], 1);
+              }
+              const uint32_t ci = c0 + 2u * static_cast<uint32_t>(i);
+              const int wb = count_below(cum, n_b, u01(base2, ci));
+              const int wst = visit(wb, 0);
+              jobs.ready(r) = clock + static_cast<uint32_t>(service_ns(u01(base2, ci + 1u), law[wst]));
+              jobs.st(r) = wst;
+              jobs.nx(r) = after(wb, 0);
+              jobs.br(r) = wb;
+              jobs.pos(r) = 0;
+              jobs.enq(r) = BIG_SEQ;
+              jobs.fl(r) = -1;
+            }
+          }
+          completed += n_woken;
+          delayed += n_woken;
+        }
+      }
+    }
 
     // the owners' updates, predicated: a branch here costs more than
     // it skips.  The successor starts service, j moves on.
@@ -487,15 +788,33 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     }
     {  // slot -1 outside j's owner
       const uint32_t ready_j = clock + static_cast<uint32_t>(svc_j);
-      const int enq_j = starts_now ? BIG_SEQ : seq_ctr;
+      const int enq_j = starts_now ? BIG_SEQ : waits ? seq_ctr : NO_JOB;
+      const bool leaves = kOp && done;
       jobs.at(me == owner ? j >> 5 : -1, [&](int r) {
-        jobs.ready(r) = ready_j;
+        jobs.ready(r) = leaves ? NEVER : ready_j;
         jobs.enq(r) = enq_j;
-        jobs.st(r) = k_next;
+        jobs.st(r) = leaves ? NO_JOB : parks ? PARKED : k_next;
         jobs.nx(r) = done ? first_nx : nx_cont;
         jobs.br(r) = done ? new_branch : o_br;
         jobs.pos(r) = done ? 0 : o_pos + 1;
+        if constexpr (kExt) jobs.fl(r) = at_disk ? f_new : -1;
       });
+    }
+    if constexpr (kExt) {
+      // the leader table: the fill frees j's entry, a leading miss takes
+      // its own; thread 0 writes, in that order, after every read above
+      if (me == 0) {
+        if (fill) lead[f_cur] = -1;
+        if (at_disk && !parks) lead[f_new] = j;
+        if constexpr (kMode == kFlows) {
+          if (done && bj < n_b) atomicAdd(&bcnt[bj], 1);
+        }
+      }
+      __syncwarp();
+    }
+    if constexpr (kOp) {
+      // the leaving request's sojourn is its owner's age of the slot
+      if (done && me == owner) record(completed, o_age, miss[min(bj, n_b - 1)] ? CLS_MISS : CLS_HIT);
     }
 
     if constexpr (kTrace > 0) {
@@ -531,16 +850,29 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     }
 
     completed += done ? 1 : 0;
-    seq_ctr += starts_now ? 0 : 1;
+    seq_ctr += waits ? 1 : 0;
     // warmup bookkeeping
     if (completed >= a.warmup && warm_completed < 0) {
       warm_completed = completed;
       warm_elapsed_us = elapsed_us;
+      if constexpr (kExt) warm_delayed = delayed;
+      if constexpr (kMode == kFlows) {
+        __syncwarp();  // the counts' atomics are done
+        for (int i = me; i < 2 * n_b; i += 32) bcnt[2 * n_b + i] = bcnt[i];
+        __syncwarp();
+      }
     }
     events += 1;
     ++slot;
   }
   store_trace();
+  if constexpr (kMode == kFlows) {
+    __syncwarp();
+    for (int b = me; b < n_b; b += 32) {
+      ex.branch_done[lane_id * n_b + b] = bcnt[b] - bcnt[2 * n_b + b];
+      ex.branch_delayed[lane_id * n_b + b] = bcnt[n_b + b] - bcnt[3 * n_b + b];
+    }
+  }
   if (me == 0) {
     const float t_meas = fmaxf(elapsed_us - warm_elapsed_us, static_cast<float>(1e-6));
     a.x[lane_id] = static_cast<float>(completed - warm_completed) / t_meas;
@@ -548,18 +880,26 @@ __global__ void __launch_bounds__(32) sim_kernel(const Args a, const Rings rings
     a.events[lane_id] = events;
     a.tmeas[lane_id] = t_meas;
     if constexpr (kTrace > 0) rings.n_count[lane_id] = completed;  // one record each
+    if constexpr (kExt) {
+      ex.delayed_frac[lane_id] = static_cast<float>(delayed - warm_delayed) /
+                                 static_cast<float>(max(completed - warm_completed, 1));
+    }
+    if constexpr (kOp) ex.dropped[lane_id] = dropped;
   }
 }
 
-template <int kTrace, int R>
-int launch_slots(const Args& a, const Rings& rings, int lanes, void* stream) {
-  const int bytes = layout(a.n_k, a.n_b, a.n_l, a.mpl, kTrace > 0, R == 0).bytes;
+template <int kTrace, int R, int kMode = kClosed>
+int launch_slots(const Args& a, const Rings& rings, int lanes, void* stream,
+                 const Ext& ex = Ext{}) {
+  const int n_cdf = ex.flow_cum != nullptr ? ex.n_flows : 0;
+  const int bytes = layout(a.n_k, a.n_b, a.n_l, a.mpl, kTrace > 0, R == 0, kMode,
+                           ex.n_lead, n_cdf).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      sim_kernel<kTrace, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      sim_kernel<kTrace, R, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   if (lanes == 0) return 0;
-  sim_kernel<kTrace, R><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
-      a, rings);
+  sim_kernel<kTrace, R, kMode><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
+      a, rings, ex);
   return (int)cudaGetLastError();
 }
 
@@ -574,7 +914,61 @@ int launch(const Args& a, const Rings& rings, int lanes, void* stream) {
   }
 }
 
+template <int kMode>
+int launch_ext(const Args& a, const Ext& ex, int lanes, void* stream) {
+  switch (reg_slots(a.mpl)) {
+    case 1: return launch_slots<0, 1, kMode>(a, Rings{}, lanes, stream, ex);
+    case 2: return launch_slots<0, 2, kMode>(a, Rings{}, lanes, stream, ex);
+    case 4: return launch_slots<0, 4, kMode>(a, Rings{}, lanes, stream, ex);
+    case 8: return launch_slots<0, 8, kMode>(a, Rings{}, lanes, stream, ex);
+    default: return launch_slots<0, 0, kMode>(a, Rings{}, lanes, stream, ex);
+  }
+}
+
 }  // namespace
+
+// The coalescing and open-loop launches' arguments, as one C struct
+// (ctypes: repro_torch.kernels.event_sim._ExtArgs).
+struct ExtArgs {
+  const int* isq;
+  const float* svc;
+  const int* did;
+  const float* dpar;
+  const float* bcum;
+  const int* visits;
+  const int* servers;
+  const int* seeds;
+  const int* max_events;
+  const int* disk_rank;
+  const float* flow_cum;
+  const int* bmiss;
+  const float* ia_mean;
+  float* x;
+  int* completed;
+  int* events;
+  float* tmeas;
+  float* delayed_frac;
+  int* branch_done;
+  int* branch_delayed;
+  int* dropped;
+  float* soj;
+  signed char* cls;
+  int lanes, n_k, n_b, n_l, mpl, n_requests, warmup, n_flows, n_lead, open,
+      burst, rec_len;
+  float on_mean, off_mean;
+};
+
+static Args args_of(const ExtArgs& p) {
+  return Args{p.isq, p.svc, p.did, p.dpar, p.bcum, p.visits, p.servers,
+              p.seeds, p.max_events, p.x, p.completed, p.events, p.tmeas,
+              p.n_k, p.n_b, p.n_l, p.mpl, p.n_requests, p.warmup};
+}
+
+static Ext ext_of(const ExtArgs& p) {
+  return Ext{p.disk_rank, p.flow_cum, p.bmiss, p.ia_mean, p.delayed_frac,
+             p.branch_done, p.branch_delayed, p.dropped, p.soj, p.cls,
+             p.n_flows, p.n_lead, p.burst, p.rec_len, p.on_mean, p.off_mean};
+}
 
 extern "C" int event_sim_shared_bytes(int n_k, int n_b, int n_l, int mpl,
                                       int trace) {
@@ -584,6 +978,21 @@ extern "C" int event_sim_shared_bytes(int n_k, int n_b, int n_l, int mpl,
 // Register slots per thread of the instantiation that runs mpl jobs (0:
 // job state in shared memory).
 extern "C" int event_sim_slots(int mpl) { return reg_slots(mpl); }
+
+// Shared memory of one block of the coalescing or open-loop launch.
+extern "C" int event_sim_ext_shared_bytes(const ExtArgs* p) {
+  return layout(p->n_k, p->n_b, p->n_l, p->mpl, false, reg_slots(p->mpl) == 0,
+                p->open ? kOpen : kFlows, p->n_lead,
+                p->flow_cum != nullptr ? p->n_flows : 0)
+      .bytes;
+}
+
+// The coalescing (open == 0) or open-loop launch, one warp per lane on
+// `stream`; returns the cudaError_t.
+extern "C" int event_sim_ext_launch(const ExtArgs* p, void* stream) {
+  return p->open ? launch_ext<kOpen>(args_of(*p), ext_of(*p), p->lanes, stream)
+                 : launch_ext<kFlows>(args_of(*p), ext_of(*p), p->lanes, stream);
+}
 
 // Launch one warp per lane on `stream`; returns the cudaError_t.
 extern "C" int event_sim_launch(const int* isq, const float* svc, const int* did,

@@ -29,10 +29,25 @@ request's visits, and one record per completed request at ring row
 ``req % K``.  Tracing draws no random numbers, so the simulated system is
 the untraced one bit for bit; with ``trace_cap=0`` no trace code runs
 (the CUDA kernel's untraced instantiation compiles none).
+
+Two further modes, which the reference runs only on its threefry engine
+(``repro.core.simulator._simulate`` with ``n_flows``, and
+``_simulate_open``), run here on the counter engine, each an
+instantiation of the same kernel with a plain version beside it:
+**coalescing** (``n_flows > 0`` in :func:`sim_lanes`; plain
+:func:`sim_lanes_plain`), an MSHR leader table per lane on which misses
+for an in-flight flow park and complete as delayed hits at the fill, and
+the **open loop** (:func:`sim_open_lanes`; plain
+:func:`sim_open_lanes_plain`), Poisson or ON-OFF arrivals into a pool of
+job slots with per-request sojourn and class records.  Their extra draws
+come from a second keyed stream (:func:`lane_base2`), so the closed
+loop's draws keep their counters and ``n_flows = 0`` runs the closed
+kernel bit for bit as before.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -40,10 +55,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.queueing import zipf_flow_weights
 from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
 from repro_torch.kernels import _build
-from repro_torch.obs.trace import (CLS_HIT, CLS_MISS, TraceRings,
+from repro_torch.obs.trace import (CLS_DELAYED, CLS_HIT, CLS_MISS, TraceRings,
                                    decode_trace_grid, init_rings)
 
 _M32 = 0xFFFFFFFF
@@ -83,6 +99,7 @@ def u01(base: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
     ``base`` and ``ctr`` broadcast; the result is bit-identical to the
     reference ``u01`` closure of ``_sim_lane``.
     """
+    ctr = torch.as_tensor(ctr, device=base.device)
     z = _mix((base + (ctr.long() & _M32) * _GOLDEN) & _M32)
     u = (z >> 8).to(torch.float32) * _f32(_INV24, z)
     return torch.clamp(u, min=_f32(_U_LO, z), max=_f32(_U_HI, z))
@@ -121,15 +138,11 @@ class _LaneSpec(NamedTuple):
     servers: torch.Tensor      # (L, K) i32
 
 
-def _service_table(u: torch.Tensor, spec: _LaneSpec) -> torch.Tensor:
-    """Service draws (ns, >= 1) from uniforms ``u`` (L, C) at every
-    station: (L, C, K) int64.  The reference formulas in float32, ``round``
-    half to even."""
-    u = u.unsqueeze(-1)
-    mean = spec.svc_ns[:, None, :]
-    dist = spec.dist_id[:, None, :]
-    alpha, lo, hi, raw_mean = (spec.dist_params[:, None, :, i]
-                               for i in range(4))
+def _service_law(u: torch.Tensor, mean, dist, alpha, lo, hi,
+                 raw_mean) -> torch.Tensor:
+    """Service draws (ns, int64 >= 1) from uniforms ``u`` under the laws
+    given elementwise (broadcast with ``u``): the reference formulas in
+    float32, ``round`` half to even."""
     s_exp = -torch.log(u)
     ratio = 1.0 - torch.pow(lo / hi, alpha)
     # -1/alpha as a float32 division (a python scalar divided by a tensor
@@ -143,18 +156,83 @@ def _service_table(u: torch.Tensor, spec: _LaneSpec) -> torch.Tensor:
     return torch.clamp(torch.round(unit * mean), min=1.0).to(torch.int64)
 
 
+def _service_table(u: torch.Tensor, spec: _LaneSpec) -> torch.Tensor:
+    """Service draws (ns, >= 1) from uniforms ``u`` (L, C) at every
+    station: (L, C, K) int64."""
+    return _service_law(u.unsqueeze(-1), spec.svc_ns[:, None, :],
+                        spec.dist_id[:, None, :],
+                        *(spec.dist_params[:, None, :, i] for i in range(4)))
+
+
+def _service_at(u: torch.Tensor, spec: _LaneSpec,
+                st: torch.Tensor) -> torch.Tensor:
+    """Service draws from uniforms ``u`` (L, C) at the stations ``st`` (L,
+    C): :func:`_service_table`'s values at ``st``."""
+    lane = torch.arange(u.shape[0], device=u.device)[:, None]
+    return _service_law(u, spec.svc_ns[lane, st], spec.dist_id[lane, st],
+                        *(spec.dist_params[lane, st, i] for i in range(4)))
+
+
 class LaneOutputs(NamedTuple):
     x: torch.Tensor           # (L,) f32 throughput, requests/µs
     completed: torch.Tensor   # (L,) i32
     events: torch.Tensor      # (L,) i32
     t_measured: torch.Tensor  # (L,) f32 µs
     rings: Optional[TraceRings] = None  # filled when trace_cap > 0
+    # filled when n_flows > 0: the measured delayed-hit fraction (L,) f32,
+    # and the measured completions and delayed hits per branch (L, B) i32
+    delayed_frac: Optional[torch.Tensor] = None
+    branch_done: Optional[torch.Tensor] = None
+    branch_delayed: Optional[torch.Tensor] = None
 
 
+def lane_base2(seeds: torch.Tensor) -> torch.Tensor:
+    """Per-lane base of the second stream, ``_mix(uint32(seed) + 2 *
+    GOLDEN)`` as int64: the draws of coalescing and of the open loop.
+
+    Event ``e`` owns the counters ``(e + 1) * (2 * n + 4) + {0 .. 2n + 3}``
+    of it (``n`` jobs or slots): ``2i`` and ``2i + 1`` the fresh branch and
+    service of job ``i`` woken by a fill, ``2n`` the flow of a miss,
+    ``2n + 1`` the next interarrival after an arrival, ``2n + 2`` and
+    ``2n + 3`` the interarrival and the phase length drawn by a burst
+    toggle.  The open loop's first interarrival and phase use the block of
+    "event -1" (counters ``2n + 1`` and ``2n + 3``).  So a draw's counter
+    is a pure function of the event and the job, and the three draws of
+    the first stream keep their counters.
+    """
+    return _mix((seeds.long() + 2 * _GOLDEN) & _M32)
+
+
+def flow_cdf(n_flows: int, theta: float) -> Optional[np.ndarray]:
+    """The float32 CDF a miss samples its flow from, or None for uniform
+    flows (``theta == 0``): the cumulative sum of
+    :func:`~repro_torch.core.queueing.zipf_flow_weights`, as the
+    reference's ``_sample_flow``."""
+    if theta == 0.0:
+        return None
+    return np.cumsum(zipf_flow_weights(n_flows, theta)).astype(np.float32)
+
+
+def flow_index(u: torch.Tensor, n_flows: int,
+               cdf: Optional[torch.Tensor]) -> torch.Tensor:
+    """The flow a miss fetches, from its uniform ``u``: ``floor(u * F)``
+    in float32 for uniform flows, else searchsorted-left over ``cdf``;
+    clamped to ``F - 1`` (a float32 CDF may end below the largest
+    uniform)."""
+    if cdf is None:
+        f = (u * n_flows).long()
+    else:
+        f = (cdf < u.unsqueeze(-1)).sum(dim=-1)
+    return f.clamp(max=n_flows - 1)
+
+
+@torch.inference_mode()
 def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                     warmup: int, mpl: int, max_events: torch.Tensor,
                     trace_cap: int = 0,
-                    bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
+                    bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
+                    flow_theta: float = 0.0, n_disks: int = 1,
+                    disk_rank: Optional[torch.Tensor] = None) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
     inputs' device (``is_queue`` may be bool or int32, as for the kernel).
 
@@ -167,6 +245,20 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     leave rows) at row ``req % trace_cap``; then the job's next visit is
     stamped entered.  Lanes that write nothing this event write the scrap
     row ``trace_cap``.
+
+    With ``n_flows = F > 0`` a miss coalesces (the reference ``_simulate``
+    with ``n_flows``): ``disk_rank`` is the (L, K) backing-store rank of
+    each station, and each lane holds a leader table of ``n_disks * F``
+    entries.  When job ``j`` ends service at a disk with a flow, every job
+    parked on that flow wakes: it counts as a completion and as a delayed
+    hit under the branch it parked on, and starts a fresh request (branch
+    and service from the second stream, :func:`lane_base2`); the leader
+    entry and the flows are cleared.  Then come the FIFO release and the
+    advance.  Arriving at a disk station, ``j`` samples flow ``rank * F +
+    f`` (:func:`flow_index`, Zipf(``flow_theta``) when it is > 0) and
+    either parks on its in-flight fetch (no server, no queue place) or
+    leads it.  The warmup snapshot also takes the delayed count and the
+    per-branch counts.  ``n_flows = 0`` runs no coalescing code.
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
@@ -222,6 +314,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                               device=dev)
         leave_s = torch.zeros_like(enter_s)
         miss = bmiss.bool()
+    if n_flows:
+        co = _Coalescer(seeds, mpl, n_flows, flow_theta, n_disks, disk_rank,
+                        n_b)
 
     e = 0
     while True:
@@ -233,6 +328,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             svc1 = _service_table(u01(base, ctr), spec)
             svc2 = _service_table(u01(base, ctr + 1), spec)
             new_branches = pick_branch(u01(base, ctr + 2))
+            if n_flows:
+                co.draw_flows(e)
         c = e % _CHUNK
         e += 1
         active = (completed < n_requests) & (events < max_events)
@@ -244,6 +341,20 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         elapsed = torch.where(active, fma_f32(t.to(torch.float32), ns_to_us,
                                               elapsed), elapsed)
         k_cur = station[lane, j]
+
+        if n_flows:
+            # j's fetch landed: the jobs parked on it complete as delayed
+            # hits and start fresh requests
+            woken, fill, f_cur = co.fill(active, j, k_cur)
+            if bool(woken.any()):
+                co.count(woken, branch)
+                wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
+                ready = torch.where(woken, wsvc, ready)
+                station = torch.where(woken, wst, station)
+                branch = torch.where(woken, wb, branch)
+                pos = torch.where(woken, 0, pos)
+                completed = completed + woken.sum(dim=1)
+            co.clear(woken, fill, f_cur, j)
 
         # hand the server job j held (if any) to its FIFO successor
         waiting = (station == k_cur[:, None]) & (ready == inf)
@@ -270,13 +381,20 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                          completed, active, active & done, trace_cap)
         completed = torch.where(active, completed + done.long(), completed)
 
-        # place j at k_next
+        # place j at k_next: it starts, waits, or (coalescing) parks
         is_q = is_queue[lane, k_next]
-        starts_now = ~is_q | (busy[lane, k_next] < servers[lane, k_next])
+        has_slot = busy[lane, k_next] < servers[lane, k_next]
+        starts_now = ~is_q | has_slot
+        waits = ~starts_now
+        if n_flows:
+            co.count_done(active & done, b_j)
+            parks = co.place(active, j, k_next, c)
+            starts_now = starts_now & ~parks
+            waits = waits & ~parks
         put(ready, j, torch.where(starts_now, svc2[lane, c, k_next], inf),
             active)
-        put(enq, j, torch.where(starts_now, big, seq_ctr), active)
-        seq_ctr = torch.where(active & ~starts_now, seq_ctr + 1, seq_ctr)
+        put(enq, j, torch.where(waits, seq_ctr, big), active)
+        seq_ctr = torch.where(active & waits, seq_ctr + 1, seq_ctr)
         put(busy, k_next, busy[lane, k_next] + 1, active & is_q & starts_now)
         put(station, j, k_next, active)
         put(branch, j, torch.where(done, new_branch, b_j), active)
@@ -286,12 +404,378 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         warm_now = active & (completed >= warmup) & (warm_completed < 0)
         warm_completed = torch.where(warm_now, completed, warm_completed)
         warm_elapsed = torch.where(warm_now, elapsed, warm_elapsed)
+        if n_flows:
+            co.snapshot(warm_now)
         events = torch.where(active, events + 1, events)
 
     t_meas = torch.clamp(elapsed - warm_elapsed, min=_f32(_T_MIN, elapsed))
     x = (completed - warm_completed).to(torch.float32) / t_meas
-    return LaneOutputs(x, completed.to(torch.int32), events.to(torch.int32),
-                       t_meas, rings)
+    out = LaneOutputs(x, completed.to(torch.int32), events.to(torch.int32),
+                      t_meas, rings)
+    if n_flows:
+        out = out._replace(**co.results(completed - warm_completed))
+    return out
+
+
+class _Coalescer:
+    """The MSHR state of :func:`sim_lanes_plain` with ``n_flows > 0`` (and
+    of :func:`sim_open_lanes_plain`), every lane batched: each job's flow
+    (-1: none), the leader table, the delayed and per-branch counts and
+    their warmup snapshots."""
+
+    def __init__(self, seeds: torch.Tensor, n_jobs: int, n_flows: int,
+                 flow_theta: float, n_disks: int, disk_rank: torch.Tensor,
+                 n_b: int):
+        dev = seeds.device
+        n_l = seeds.shape[0]
+        self.lane = torch.arange(n_l, device=dev)
+        self.base2 = lane_base2(seeds)[:, None]
+        self.n, self.n_flows, self.n_b = n_jobs, n_flows, n_b
+        cdf = flow_cdf(n_flows, flow_theta)
+        self.cdf = None if cdf is None else torch.from_numpy(cdf).to(dev)
+        self.rank = disk_rank.long()
+        self.flow = torch.full((n_l, n_jobs), -1, dtype=torch.int64,
+                               device=dev)
+        self.leader = torch.full((n_l, max(n_disks, 1) * n_flows), -1,
+                                 dtype=torch.int64, device=dev)
+        self.delayed = torch.zeros(n_l, dtype=torch.int64, device=dev)
+        self.done_b = torch.zeros((n_l, n_b), dtype=torch.int64, device=dev)
+        self.delayed_b = torch.zeros_like(self.done_b)
+        self.warm = [torch.zeros_like(self.delayed), self.done_b.clone(),
+                     self.delayed_b.clone()]
+
+    def block(self, e) -> int:
+        """First counter of event ``e``'s block of the second stream."""
+        return (e + 1) * (2 * self.n + 4)
+
+    def draw_flows(self, e0: int) -> None:
+        """The flow uniforms of events ``e0 .. e0 + _CHUNK - 1``."""
+        ev = e0 + torch.arange(_CHUNK, device=self.flow.device)[None, :]
+        self.flows_u = u01(self.base2, self.block(ev) + 2 * self.n)
+
+    def fill(self, active, j, k_cur):
+        """The jobs woken by ``j``'s fill, the lanes that fill and their
+        flow."""
+        lane = self.lane
+        f_cur = self.flow[lane, j]
+        fill = active & (self.rank[lane, k_cur] >= 0) & (f_cur >= 0)
+        woken = (self.flow == f_cur[:, None]) & fill[:, None]
+        woken[lane, j] = False
+        return woken, fill, f_cur
+
+    def count(self, woken, branch) -> None:
+        """The woken jobs complete as delayed hits, counted under the
+        branch they parked on (a branch index past the table is dropped,
+        as JAX drops an out-of-bounds scatter)."""
+        n_w = woken.sum(dim=1)
+        self.delayed += n_w
+        keep = (woken & (branch < self.n_b)).long()
+        b = branch.clamp(max=self.n_b - 1)
+        self.done_b.scatter_add_(1, b, keep)
+        self.delayed_b.scatter_add_(1, b, keep)
+
+    def wake_draws(self, e: int, pick_branch, visit, spec):
+        """Every job's fresh branch, first station and service for event
+        ``e`` (used where it wakes)."""
+        i = torch.arange(self.n, device=self.flow.device)[None, :]
+        c0 = self.block(e)
+        wb = pick_branch(u01(self.base2, c0 + 2 * i))
+        wst = visit(wb, torch.zeros_like(wb))
+        wsvc = _service_at(u01(self.base2, c0 + 2 * i + 1), spec, wst)
+        return wb, wst, wsvc
+
+    def clear(self, woken, fill, f_cur, j) -> None:
+        """Free the filled flow's leader entry and the flows of its jobs."""
+        lane = self.lane
+        f = f_cur.clamp(min=0)
+        self.leader[lane, f] = torch.where(fill, -1, self.leader[lane, f])
+        self.flow[woken] = -1
+        self.flow[lane, j] = torch.where(fill, -1, self.flow[lane, j])
+
+    def count_done(self, done, b_j) -> None:
+        keep = done & (b_j < self.n_b)
+        self.done_b[self.lane, b_j.clamp(max=self.n_b - 1)] += keep.long()
+
+    def place(self, active, j, k_next, c: int, at: Optional[torch.Tensor] = None):
+        """Job ``j`` arrives at ``k_next`` (lanes ``at``, default every
+        lane): at a disk it samples a flow and parks behind that flow's
+        leader or leads it.  Returns the lanes where ``j`` parks."""
+        lane = self.lane
+        rank = self.rank[lane, k_next]
+        at_disk = active & (rank >= 0)
+        if at is not None:
+            at_disk = at_disk & at
+        f_new = (rank.clamp(min=0) * self.n_flows
+                 + flow_index(self.flows_u[:, c], self.n_flows, self.cdf))
+        parks = at_disk & (self.leader[lane, f_new] >= 0)
+        lead = at_disk & ~parks
+        self.leader[lane, f_new] = torch.where(lead, j, self.leader[lane, f_new])
+        self.flow[lane, j] = torch.where(at_disk, f_new, self.flow[lane, j])
+        return parks
+
+    def snapshot(self, warm_now) -> None:
+        for w, v in zip(self.warm, (self.delayed, self.done_b,
+                                    self.delayed_b)):
+            m = warm_now.view(-1, *[1] * (v.dim() - 1))
+            w.copy_(torch.where(m, v, w))
+
+    def results(self, n_measured: torch.Tensor) -> dict:
+        frac = ((self.delayed - self.warm[0]).to(torch.float32)
+                / n_measured.clamp(min=1).to(torch.float32))
+        return dict(delayed_frac=frac,
+                    branch_done=(self.done_b - self.warm[1]).to(torch.int32),
+                    branch_delayed=(self.delayed_b
+                                    - self.warm[2]).to(torch.int32))
+
+
+class OpenLaneOutputs(NamedTuple):
+    x: torch.Tensor             # (L,) f32 completion rate, requests/µs
+    completed: torch.Tensor     # (L,) i32
+    events: torch.Tensor        # (L,) i32
+    t_measured: torch.Tensor    # (L,) f32 µs
+    delayed_frac: torch.Tensor  # (L,) f32
+    dropped: torch.Tensor       # (L,) i32 arrivals that found no free slot
+    sojourn_us: torch.Tensor    # (L, n_requests + N) f32, by completion
+    cls: torch.Tensor           # (L, n_requests + N) i8 CLS_MISS/HIT/DELAYED
+
+
+def exp_ns(u: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
+    """An exponential time in ns (int64, >= 1) of float32 ``mean`` from
+    uniforms ``u``: ``round(-log(u) * mean)`` in float32, as the
+    reference's ``exp_ns``."""
+    return torch.clamp(torch.round(-torch.log(u) * mean), min=1.0).long()
+
+
+@torch.inference_mode()
+def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
+                         n_requests: int, warmup: int, n_slots: int,
+                         max_events: torch.Tensor, ia_mean: torch.Tensor,
+                         bmiss: torch.Tensor, burst=None, n_flows: int = 0,
+                         flow_theta: float = 0.0, n_disks: int = 1,
+                         disk_rank: Optional[torch.Tensor] = None
+                         ) -> OpenLaneOutputs:
+    """The open-loop kernel's plain PyTorch version, every lane batched
+    (the reference ``_simulate_open`` on the counter streams).
+
+    Requests arrive with exponential interarrival times of mean
+    ``ia_mean`` ((L,) float32 ns) into a pool of ``n_slots`` job slots;
+    an arrival takes the lowest free slot (else it is counted as
+    dropped), walks its branch's route and *leaves* when it completes,
+    writing its sojourn (time in system, summed per event as float32
+    increments) and class (:data:`CLS_MISS`, :data:`CLS_HIT`, or
+    :data:`CLS_DELAYED` for a job parked on an in-flight fetch, which
+    completes at the fill) at its completion index in a record buffer of
+    ``n_requests + n_slots`` rows.  ``bmiss`` is the (L, B) per-branch
+    miss class.  ``burst = (on_mean, off_mean)`` (float32 ns) makes the
+    arrivals an ON-OFF process: the phase toggle is a third event type,
+    arrivals pause while OFF and restart with a fresh interarrival when ON
+    (``ia_mean`` is then the ON rate's mean).  Arrivals win ties against
+    departures and toggles, toggles against departures, and the lowest
+    index wins among equal ready times.  ``n_flows > 0`` coalesces misses
+    as :func:`sim_lanes_plain` does.
+
+    Draws: an arrival takes its branch and first service from the first
+    stream's branch and placement draws (counters ``2n + 3e + {2, 1}``),
+    a departure its release and placement draws (``+ {0, 1}``); the
+    interarrival and toggle draws are the second stream's
+    (:func:`lane_base2`).
+    """
+    dev = seeds.device
+    n_l, n = seeds.shape[0], n_slots
+    n_b, route_len = spec.visits.shape[1], spec.visits.shape[2]
+    lane = torch.arange(n_l, device=dev)
+    base, base2 = lane_base(seeds)[:, None], lane_base2(seeds)
+    visits = spec.visits.long()
+    cum = spec.branch_cum[:, None, :]
+    inf, big = int(INF_NS), int(BIG_SEQ)
+    n_rec = n_requests + n
+
+    def pick_branch(u: torch.Tensor) -> torch.Tensor:
+        return (cum < u.unsqueeze(-1)).sum(dim=-1)
+
+    def visit(b: torch.Tensor, p) -> torch.Tensor:
+        return visits[lane, b.clamp(max=n_b - 1), p]
+
+    def put(a: torch.Tensor, i: torch.Tensor, v, mask: torch.Tensor) -> None:
+        a[lane, i] = torch.where(mask, v, a[lane, i])
+
+    def block(e: int) -> int:  # first counter of event e's second-stream block
+        return (e + 1) * (2 * n + 4)
+
+    ready = torch.full((n_l, n), inf, dtype=torch.int64, device=dev)
+    station = torch.full_like(ready, -1)
+    branch = torch.zeros_like(ready)
+    pos = torch.zeros_like(ready)
+    enq = torch.full_like(ready, big)
+    age = torch.zeros((n_l, n), dtype=torch.float32, device=dev)
+    busy = torch.zeros(spec.is_queue.shape, dtype=torch.int64, device=dev)
+    zeros = torch.zeros(n_l, dtype=torch.int64, device=dev)
+    seq_ctr, completed, events = zeros.clone(), zeros.clone(), zeros.clone()
+    dropped = zeros.clone()
+    warm_completed = zeros - 1
+    elapsed = torch.zeros(n_l, dtype=torch.float32, device=dev)
+    warm_elapsed = elapsed.clone()
+    soj = torch.zeros((n_l, n_rec + 1), dtype=torch.float32, device=dev)
+    cls = torch.zeros((n_l, n_rec + 1), dtype=torch.int8, device=dev)
+    ns_to_us = _f32(_NS_TO_US, elapsed)
+    is_queue = spec.is_queue.bool()
+    servers = spec.servers.long()
+    miss = bmiss.bool()
+    max_events = max_events.long()
+    ia_mean = ia_mean.to(torch.float32)
+    next_arr = exp_ns(u01(base2, 2 * n + 1), ia_mean)
+    if burst is not None:
+        on_mean, off_mean = (torch.tensor(np.float32(v), device=dev)
+                             for v in burst)
+        phase_on = torch.ones(n_l, dtype=torch.bool, device=dev)
+        phase_to = exp_ns(u01(base2, 2 * n + 3), on_mean).expand(n_l).clone()
+    if n_flows:
+        co = _Coalescer(seeds, n, n_flows, flow_theta, n_disks, disk_rank,
+                        n_b)
+    slot_idx = torch.arange(n, device=dev)[None, :]
+
+    def record(at: torch.Tensor, value, c) -> None:
+        # at: (L,) or (L, n) record index, n_rec = the scrap column
+        col = at.clamp(max=n_rec)
+        soj.scatter_(1, col.view(n_l, -1), value.view(n_l, -1))
+        cls.scatter_(1, col.view(n_l, -1), c.to(torch.int8).view(n_l, -1))
+
+    e = 0
+    while True:
+        if e % _CHUNK == 0:
+            active = (completed < n_requests) & (events < max_events)
+            if not bool(active.any()):
+                break
+            ev = e + torch.arange(_CHUNK, device=dev)[None, :]
+            ctr = 2 * n + 3 * ev
+            svc1 = _service_table(u01(base, ctr), spec)
+            svc2 = _service_table(u01(base, ctr + 1), spec)
+            new_branches = pick_branch(u01(base, ctr + 2))
+            u_ia = u01(base2[:, None], block(ev) + 2 * n + 1)
+            if burst is not None:
+                u_toga = u01(base2[:, None], block(ev) + 2 * n + 2)
+                u_togp = u01(base2[:, None], block(ev) + 2 * n + 3)
+            if n_flows:
+                co.draw_flows(e)
+        c = e % _CHUNK
+        e += 1
+        active = (completed < n_requests) & (events < max_events)
+
+        j = ready.argmin(dim=1)
+        t_dep = ready[lane, j]
+        if burst is not None:
+            is_arr = next_arr <= torch.minimum(t_dep, phase_to)
+            is_tog = ~is_arr & (phase_to <= t_dep)
+            t = torch.minimum(torch.minimum(next_arr, t_dep), phase_to)
+        else:
+            is_arr = next_arr <= t_dep
+            is_tog = torch.zeros_like(is_arr)
+            t = torch.minimum(next_arr, t_dep)
+        arr, tog = active & is_arr, active & is_tog
+        dep = active & ~is_arr & ~is_tog
+        ready = torch.where(active[:, None] & (ready < inf),
+                            ready - t[:, None], ready)
+        next_arr = torch.where(active & (next_arr < inf), next_arr - t,
+                               next_arr)
+        if burst is not None:
+            phase_to = torch.where(active, phase_to - t, phase_to)
+        dt = t.to(torch.float32) * ns_to_us
+        elapsed = torch.where(active, elapsed + dt, elapsed)
+        age = torch.where(active[:, None] & (station >= 0),
+                          age + dt[:, None], age)
+
+        # an arrival takes the lowest free slot, or is dropped
+        free = station < 0
+        admit = arr & free.any(dim=1)
+        slot = free.long().argmax(dim=1)
+        b0 = new_branches[:, c]
+        st0 = visit(b0, 0)
+        put(ready, slot, svc2[lane, c, st0], admit)
+        put(station, slot, st0, admit)
+        put(branch, slot, b0, admit)
+        put(pos, slot, 0, admit)
+        put(age, slot, 0.0, admit)
+        dropped = dropped + (arr & ~admit).long()
+        next_arr = torch.where(arr, exp_ns(u_ia[:, c], ia_mean), next_arr)
+
+        if burst is not None:
+            # ON -> OFF: arrivals pause; OFF -> ON: a fresh arrival clock
+            going_on = ~phase_on
+            phase_on = torch.where(tog, going_on, phase_on)
+            next_arr = torch.where(
+                tog, torch.where(going_on, exp_ns(u_toga[:, c], ia_mean), inf),
+                next_arr)
+            phase_to = torch.where(
+                tog, exp_ns(u_togp[:, c], torch.where(going_on, on_mean,
+                                                      off_mean)), phase_to)
+
+        # a departure: job j ends its visit
+        k_cur = station[lane, j].clamp(min=0)
+        if n_flows:
+            # parked delayed hits complete at the fill, in slot order
+            woken, fill, f_cur = co.fill(dep, j, k_cur)
+            if bool(woken.any()):
+                widx = completed[:, None] + woken.long().cumsum(dim=1) - 1
+                record(torch.where(woken, widx, n_rec), age,
+                       torch.full_like(widx, CLS_DELAYED))
+                completed = completed + woken.sum(dim=1)
+                co.delayed += woken.sum(dim=1)
+                ready = torch.where(woken, inf, ready)
+                station = torch.where(woken, -1, station)
+            co.clear(woken, fill, f_cur, j)
+
+        waiting = (station == k_cur[:, None]) & (ready == inf)
+        waiting[lane, j] = False
+        seqs = torch.where(waiting, enq, big)
+        w = seqs.argmin(dim=1)
+        has_waiter = seqs[lane, w] < big
+        release = dep & is_queue[lane, k_cur]
+        put(ready, w, svc1[lane, c, k_cur], release & has_waiter)
+        put(enq, w, big, release & has_waiter)
+        put(busy, k_cur, busy[lane, k_cur] - 1, release & ~has_waiter)
+
+        nxt = pos[lane, j] + 1
+        b_j = branch[lane, j]
+        route_next = torch.where(nxt < route_len,
+                                 visit(b_j, nxt % route_len), -1)
+        done = dep & (route_next < 0)
+        record(torch.where(done, completed, n_rec), age[lane, j],
+               torch.where(miss[lane, b_j.clamp(max=n_b - 1)], CLS_MISS,
+                           CLS_HIT))
+        completed = completed + done.long()
+
+        k_next = route_next.clamp(min=0)
+        is_q = is_queue[lane, k_next] & ~done
+        has_slot = busy[lane, k_next] < servers[lane, k_next]
+        starts_now = (~is_q | has_slot) & ~done
+        waits = is_q & ~has_slot
+        if n_flows:
+            parks = co.place(dep, j, k_next, c, at=~done)
+            starts_now = starts_now & ~parks
+            waits = waits & ~parks
+        put(ready, j, torch.where(starts_now, svc2[lane, c, k_next], inf), dep)
+        put(enq, j, torch.where(waits, seq_ctr, big), dep)
+        seq_ctr = torch.where(dep & waits, seq_ctr + 1, seq_ctr)
+        put(busy, k_next, busy[lane, k_next] + 1, dep & is_q & starts_now)
+        put(station, j, torch.where(done, -1, route_next), dep)
+        put(pos, j, torch.where(done, 0, nxt), dep)
+
+        warm_now = dep & (completed >= warmup) & (warm_completed < 0)
+        warm_completed = torch.where(warm_now, completed, warm_completed)
+        warm_elapsed = torch.where(warm_now, elapsed, warm_elapsed)
+        if n_flows:
+            co.snapshot(warm_now)
+        events = torch.where(active, events + 1, events)
+
+    t_meas = torch.clamp(elapsed - warm_elapsed, min=_f32(_T_MIN, elapsed))
+    n_meas = completed - warm_completed
+    x = n_meas.to(torch.float32) / t_meas
+    frac = (co.results(n_meas)["delayed_frac"] if n_flows
+            else torch.zeros(n_l, dtype=torch.float32, device=dev))
+    return OpenLaneOutputs(x, completed.to(torch.int32),
+                           events.to(torch.int32), t_meas, frac,
+                           dropped.to(torch.int32), soj[:, :n_rec],
+                           cls[:, :n_rec])
 
 
 def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
@@ -320,22 +804,23 @@ def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
                                              enter_s[lane, j, pos_next])
 
 
-def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
-              warmup: int, mpl: int, max_events: torch.Tensor,
-              trace_cap: int = 0,
-              bmiss: Optional[torch.Tensor] = None) -> LaneOutputs:
-    """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.
+class _ExtArgs(ctypes.Structure):
+    """``ExtArgs`` of ``csrc/event_sim.cu``: the coalescing and open-loop
+    launches' inputs and outputs (device pointers, then sizes)."""
 
-    ``spec`` holds the per-lane network arrays (see :class:`_LaneSpec`;
-    ``is_queue`` may be bool or int32), ``seeds`` the (L,) int32 lane
-    seeds and ``max_events`` the (L,) int32 per-lane event budgets, all on
-    one device.  ``trace_cap > 0`` runs the traced kernel
-    and needs ``bmiss``, the (L, B) bool or int32 per-branch miss-class
-    table; the result then carries the filled rings.  Untraced and traced
-    launches are counted apart (``sim_lanes.launches``,
-    ``sim_lanes.traced_launches``).
-    """
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "isq", "svc", "did", "dpar", "bcum", "visits", "servers", "seeds",
+        "max_events", "disk_rank", "flow_cum", "bmiss", "ia_mean", "x",
+        "completed", "events", "tmeas", "delayed_frac", "branch_done",
+        "branch_delayed", "dropped", "soj", "cls")]
+        + [(n, ctypes.c_int) for n in (
+            "lanes", "n_k", "n_b", "n_l", "mpl", "n_requests", "warmup",
+            "n_flows", "n_lead", "open", "burst", "rec_len")]
+        + [("on_mean", ctypes.c_float), ("off_mean", ctypes.c_float)])
+
+
+def _check_inputs(spec: _LaneSpec, seeds: torch.Tensor, extra: dict) -> None:
+    """Shapes, dtypes and devices of a launch's per-lane inputs."""
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
     n_b, n_r = spec.visits.shape[1], spec.visits.shape[2]
@@ -346,17 +831,13 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             "branch_cum": ((n_l, n_b), (torch.float32,)),
             "visits": ((n_l, n_b, n_r), (torch.int32,)),
             "servers": ((n_l, n_k), (torch.int32,)),
-            "max_events": ((n_l,), (torch.int32,))}
-    arrays = dict(spec._asdict(), max_events=max_events)
-    if trace_cap < 0:
-        raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
-    if trace_cap:
-        if bmiss is None:
-            raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
-        want["bmiss"] = ((n_l, n_b), (torch.bool, torch.int32))
-        arrays["bmiss"] = bmiss
-    for name, (shape, dtypes) in want.items():
-        a = arrays[name]
+            "max_events": ((n_l,), (torch.int32,)),
+            "bmiss": ((n_l, n_b), (torch.bool, torch.int32)),
+            "disk_rank": ((n_l, n_k), (torch.int32,)),
+            "ia_mean": ((n_l,), (torch.float32,))}
+    arrays = dict(spec._asdict(), **extra)
+    for name, a in arrays.items():
+        shape, dtypes = want[name]
         if a.device != seeds.device:
             raise ValueError(f"{name} on {a.device}, seeds on {seeds.device}")
         if tuple(a.shape) != shape or a.dtype not in dtypes:
@@ -364,20 +845,68 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                              f"{a.dtype} {tuple(a.shape)}")
     if seeds.dtype != torch.int32 or seeds.dim() != 1:
         raise ValueError("seeds must be (L,) int32")
+    if seeds.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no event-sim kernel for device {seeds.device}")
+
+
+def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
+              warmup: int, mpl: int, max_events: torch.Tensor,
+              trace_cap: int = 0,
+              bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
+              flow_theta: float = 0.0, n_disks: int = 1,
+              disk_rank: Optional[torch.Tensor] = None) -> LaneOutputs:
+    """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.
+
+    ``spec`` holds the per-lane network arrays (see :class:`_LaneSpec`;
+    ``is_queue`` may be bool or int32), ``seeds`` the (L,) int32 lane
+    seeds and ``max_events`` the (L,) int32 per-lane event budgets, all on
+    one device.  ``trace_cap > 0`` runs the traced kernel
+    and needs ``bmiss``, the (L, B) bool or int32 per-branch miss-class
+    table; the result then carries the filled rings.  ``n_flows > 0``
+    runs the coalescing kernel (see :func:`sim_lanes_plain`) and needs
+    ``disk_rank``, the (L, K) int32 disk rank of each station; the result
+    then carries the delayed fraction and the per-branch counts.  Untraced,
+    traced and coalescing launches are counted apart
+    (``sim_lanes.launches``, ``.traced_launches``, ``.flows_launches``).
+    """
+    if trace_cap < 0:
+        raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
+    if n_flows < 0:
+        raise ValueError(f"n_flows must be >= 0, got {n_flows}")
+    extra = dict(max_events=max_events)
+    if trace_cap:
+        if n_flows:
+            raise NotImplementedError(
+                "tracing with coalescing is not ported yet: ROADMAP queue 1, "
+                "item 8 (it comes with the streaming sketches)")
+        if bmiss is None:
+            raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
+        extra["bmiss"] = bmiss
+    if n_flows:
+        if disk_rank is None:
+            raise ValueError("n_flows > 0 needs the (L, K) disk_rank table")
+        extra["disk_rank"] = disk_rank
+    _check_inputs(spec, seeds, extra)
+    flows = dict(n_flows=n_flows, flow_theta=flow_theta, n_disks=n_disks,
+                 disk_rank=disk_rank)
     if seeds.device.type == "cpu":
         return sim_lanes_plain(spec, seeds, n_requests=n_requests,
                                warmup=warmup, mpl=mpl, max_events=max_events,
-                               trace_cap=trace_cap, bmiss=bmiss)
-    if seeds.device.type != "cuda":
-        raise ValueError(f"no event-sim kernel for device {seeds.device}")
+                               trace_cap=trace_cap, bmiss=bmiss, **flows)
+    if n_flows:
+        out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
+                          n_jobs=mpl, max_events=max_events, **flows)
+        sim_lanes.flows_launches += 1
+        return out
+    n_l = seeds.shape[0]
+    n_k = spec.is_queue.shape[1]
+    n_b, n_r = spec.visits.shape[1], spec.visits.shape[2]
     lib = _build.load_library()
     nbytes = lib.event_sim_shared_bytes(n_k, n_b, n_r, mpl,
                                         int(trace_cap > 0))
-    if nbytes > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"event-sim lane state needs {nbytes} bytes of "
-                         f"shared memory (mpl={mpl}, K={n_k}, B={n_b}, "
-                         f"L={n_r}, traced={trace_cap > 0}); a block may use "
-                         f"at most {_build.MAX_SHARED_BYTES}")
+    _check_shared(nbytes, f"mpl={mpl}, K={n_k}, B={n_b}, L={n_r}, "
+                  f"traced={trace_cap > 0}")
     ins = [a.contiguous() for a in spec._replace(
         is_queue=spec.is_queue.to(torch.int32))] + [
             seeds.contiguous(), max_events.contiguous()]
@@ -410,6 +939,130 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
 
 sim_lanes.launches = 0  # untraced kernel launches (CUDA path only)
 sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
+sim_lanes.flows_launches = 0  # coalescing kernel launches (CUDA path only)
+
+
+def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
+                   warmup: int, n_slots: int, max_events: torch.Tensor,
+                   ia_mean: torch.Tensor, bmiss: torch.Tensor, burst=None,
+                   n_flows: int = 0, flow_theta: float = 0.0,
+                   n_disks: int = 1,
+                   disk_rank: Optional[torch.Tensor] = None
+                   ) -> OpenLaneOutputs:
+    """Simulate ``(L,)`` open-loop lanes (see :func:`sim_open_lanes_plain`
+    for the arguments): the CUDA kernel's open-loop instantiation for
+    CUDA tensors, the plain version for CPU tensors.  ``ia_mean`` is the
+    (L,) float32 mean interarrival in ns, ``bmiss`` the (L, B) per-branch
+    miss class, ``burst`` None or the float32 ON and OFF phase means in
+    ns.  Launches are counted in ``sim_open_lanes.launches``.
+    """
+    if n_slots < 1:
+        raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+    if n_flows < 0:
+        raise ValueError(f"n_flows must be >= 0, got {n_flows}")
+    extra = dict(max_events=max_events, ia_mean=ia_mean, bmiss=bmiss)
+    if n_flows:
+        if disk_rank is None:
+            raise ValueError("n_flows > 0 needs the (L, K) disk_rank table")
+        extra["disk_rank"] = disk_rank
+    _check_inputs(spec, seeds, extra)
+    kw = dict(n_requests=n_requests, warmup=warmup, max_events=max_events,
+              n_flows=n_flows, flow_theta=flow_theta, n_disks=n_disks,
+              disk_rank=disk_rank)
+    if seeds.device.type == "cpu":
+        return sim_open_lanes_plain(spec, seeds, n_slots=n_slots,
+                                    ia_mean=ia_mean, bmiss=bmiss, burst=burst,
+                                    **kw)
+    out = _launch_ext(spec, seeds, n_jobs=n_slots, open_loop=(ia_mean, bmiss,
+                                                              burst), **kw)
+    sim_open_lanes.launches += 1
+    return out
+
+
+sim_open_lanes.launches = 0  # open-loop kernel launches (CUDA path only)
+
+
+def _check_shared(nbytes: int, what: str) -> None:
+    if nbytes > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"event-sim lane state needs {nbytes} bytes of "
+                         f"shared memory ({what}); a block may use at most "
+                         f"{_build.MAX_SHARED_BYTES}")
+
+
+def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
+                warmup: int, n_jobs: int, max_events: torch.Tensor,
+                n_flows: int, flow_theta: float, n_disks: int,
+                disk_rank: Optional[torch.Tensor], open_loop=None):
+    """One launch of the coalescing (``open_loop`` None) or open-loop
+    (``open_loop = (ia_mean, bmiss, burst)``) instantiation."""
+    dev = seeds.device
+    n_l = seeds.shape[0]
+    n_k = spec.is_queue.shape[1]
+    n_b, n_r = spec.visits.shape[1], spec.visits.shape[2]
+    keep = []  # the tensors the launch reads or writes, alive until it ends
+
+    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+        if t is None:
+            return None
+        t = t.contiguous()
+        keep.append(t)
+        return t.data_ptr()
+
+    def empty(dtype, *shape) -> torch.Tensor:
+        t = torch.empty((n_l, *shape), dtype=dtype, device=dev)
+        keep.append(t)
+        return t
+
+    cdf = flow_cdf(n_flows, flow_theta) if n_flows else None
+    a = _ExtArgs()
+    for name, t in zip(("isq", "svc", "did", "dpar", "bcum", "visits",
+                        "servers"), spec._replace(
+                            is_queue=spec.is_queue.to(torch.int32))):
+        setattr(a, name, ptr(t))
+    a.seeds, a.max_events = ptr(seeds), ptr(max_events)
+    if n_flows:
+        a.disk_rank = ptr(disk_rank)
+        a.flow_cum = ptr(None if cdf is None else torch.from_numpy(cdf).to(dev))
+    outs = dict(x=empty(torch.float32), completed=empty(torch.int32),
+                events=empty(torch.int32), tmeas=empty(torch.float32),
+                delayed_frac=empty(torch.float32))
+    n_rec = n_requests + n_jobs
+    if open_loop is None:
+        outs.update(branch_done=empty(torch.int32, n_b),
+                    branch_delayed=empty(torch.int32, n_b))
+    else:
+        ia_mean, bmiss, burst = open_loop
+        a.ia_mean, a.bmiss = ptr(ia_mean), ptr(bmiss.to(torch.int32))
+        outs.update(dropped=empty(torch.int32),
+                    soj=torch.zeros((n_l, n_rec), dtype=torch.float32,
+                                    device=dev),
+                    cls=torch.zeros((n_l, n_rec), dtype=torch.int8,
+                                    device=dev))
+        keep += [outs["soj"], outs["cls"]]
+        a.open, a.rec_len = 1, n_rec
+        if burst is not None:
+            a.burst = 1
+            a.on_mean, a.off_mean = (float(np.float32(v)) for v in burst)
+    for name, t in outs.items():
+        setattr(a, name, t.data_ptr())
+    a.lanes, a.n_k, a.n_b, a.n_l, a.mpl = n_l, n_k, n_b, n_r, n_jobs
+    a.n_requests, a.warmup = n_requests, warmup
+    a.n_flows, a.n_lead = n_flows, max(n_disks, 1) * n_flows
+    lib = _build.load_library()
+    _check_shared(lib.event_sim_ext_shared_bytes(ctypes.byref(a)),
+                  f"n={n_jobs}, K={n_k}, B={n_b}, L={n_r}, "
+                  f"flows={a.n_lead}, open={a.open}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.event_sim_ext_launch(ctypes.byref(a), stream)
+    _build.check(err, "event-sim kernel launch")
+    if open_loop is None:
+        return LaneOutputs(outs["x"], outs["completed"], outs["events"],
+                           outs["tmeas"], None, outs["delayed_frac"],
+                           outs["branch_done"], outs["branch_delayed"])
+    return OpenLaneOutputs(outs["x"], outs["completed"], outs["events"],
+                           outs["tmeas"], outs["delayed_frac"],
+                           outs["dropped"], outs["soj"], outs["cls"])
 
 
 def branch_miss(spec: SimSpec) -> np.ndarray:
@@ -423,15 +1076,20 @@ def branch_miss(spec: SimSpec) -> np.ndarray:
 
 
 def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
-               warmup_frac: float, device: torch.device, trace: int = 0):
+               warmup_frac: float, device: torch.device, trace: int = 0,
+               coalesce_flows: int = 0, coalesce_theta: float = 0.0,
+               budget_visits: int = 2):
     """The (seed x p_hit) lane grid of a network, lane = s * P + p.
 
     Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`: the
     per-p_hit specs tiled across seeds, lane seeds ``seed*1000 + p_index``
     (int32 arithmetic, as the reference) and the warmup / per-lane event
-    budget ``max_events = n_requests * (Lr + 2) * 3``; with ``trace > 0`` also
-    ``trace_cap`` and the (L, B) ``bmiss`` table (:func:`branch_miss` of
-    the first p_hit's network, the same for every lane).
+    budget ``max_events = n_requests * (Lr + budget_visits) * 3``; with
+    ``trace > 0`` also ``trace_cap`` and the (L, B) ``bmiss`` table
+    (:func:`branch_miss` of the first p_hit's network, the same for every
+    lane); with ``coalesce_flows > 0`` the coalescing arguments, with
+    ``n_disks`` taken from the first network's disk ranks, as the
+    reference does.
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
     n_p = len(specs)
@@ -439,23 +1097,39 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
         [np.full(n_p, s, np.int32) * np.int32(1000)
          + np.arange(n_p, dtype=np.int32) for s in seeds])
     lane_spec, seed_t, kwargs = pad_lanes(specs * len(seeds), seed_v.tolist(),
-                                          n_requests, warmup_frac)
+                                          n_requests, warmup_frac,
+                                          budget_visits)
     if trace:
-        bmiss = np.broadcast_to(branch_miss(specs[0]),
-                                (len(seed_v), lane_spec.visits.shape[1]))
-        kwargs.update(trace_cap=int(trace),
-                      bmiss=torch.from_numpy(bmiss.astype(np.int32)).to(device))
+        kwargs.update(trace_cap=int(trace), bmiss=_bmiss(specs[0],
+                                                         len(seed_v), device))
+    if coalesce_flows:
+        disk_rank = torch.stack([s.disk_rank for s in specs] * len(seeds))
+        kwargs.update(n_flows=int(coalesce_flows),
+                      flow_theta=float(coalesce_theta),
+                      n_disks=_n_disks(specs[0]),
+                      disk_rank=disk_rank.to(torch.int32))
     return lane_spec, seed_t, kwargs
 
 
-def _budget(n_requests: int, spec: SimSpec) -> int:
+def _n_disks(spec: SimSpec) -> int:
+    """Disk groups of a network: ``max(disk_rank) + 1``, at least 1."""
+    return max(1, int(spec.disk_rank.max()) + 1)
+
+
+def _bmiss(spec: SimSpec, n_lanes: int, device) -> torch.Tensor:
+    bmiss = np.broadcast_to(branch_miss(spec), (n_lanes, spec.visits.shape[0]))
+    return torch.from_numpy(bmiss.astype(np.int32)).to(device)
+
+
+def _budget(n_requests: int, spec: SimSpec, visits: int = 2) -> int:
     """The reference's event budget of one network: ``n_requests * (Lr +
-    2) * 3`` events, ``Lr`` its own route length."""
-    return int(n_requests * (spec.visits.shape[-1] + 2) * 3)
+    visits) * 3`` events, ``Lr`` its own route length (``visits`` 2 in the
+    closed loop, 3 in the open loop, whose arrivals are events too)."""
+    return int(n_requests * (spec.visits.shape[-1] + visits) * 3)
 
 
 def pad_lanes(specs: Sequence[SimSpec], seeds: Sequence[int],
-              n_requests: int, warmup_frac: float):
+              n_requests: int, warmup_frac: float, budget_visits: int = 2):
     """One lane per compiled spec, networks of different shapes padded into
     one grid (:func:`~repro_torch.core.simspec.stack_specs`).
 
@@ -469,8 +1143,8 @@ def pad_lanes(specs: Sequence[SimSpec], seeds: Sequence[int],
         raise ValueError(f"{len(specs)} specs but {len(seeds)} seeds")
     spec = stack_specs(specs)
     dev = spec.visits.device
-    budgets = torch.tensor([_budget(n_requests, s) for s in specs],
-                           dtype=torch.int32, device=dev)
+    budgets = torch.tensor([_budget(n_requests, s, budget_visits)
+                            for s in specs], dtype=torch.int32, device=dev)
     kwargs = dict(n_requests=n_requests, warmup=int(n_requests * warmup_frac),
                   mpl=spec.mpl, max_events=budgets)
     seed_v = torch.tensor(list(seeds), dtype=torch.int32, device=dev)
@@ -497,6 +1171,7 @@ def simulate_cells(cells, n_requests: int, warmup_frac: float = 0.25,
 def simulate_grid(net, p_hits, n_requests: int = 40_000,
                   seeds: Sequence[int] = (0, 1, 2),
                   warmup_frac: float = 0.25, trace: int = 0,
+                  coalesce_flows: int = 0, coalesce_theta: float = 0.0,
                   device: str = "cuda") -> SimResult:
     """Closed-loop (p_hit x seed) grid on the counter-RNG event engine.
 
@@ -507,21 +1182,89 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
     last K per-request records of every lane and decodes them onto the
     result's ``traces`` (``[seed][p]``
     :class:`~repro_torch.obs.trace.TraceRecords`).
+
+    ``coalesce_flows = F > 0`` coalesces misses over F flows per disk
+    group (Zipf(``coalesce_theta``)-weighted when it is > 0) and fills
+    ``delayed_frac``, ``branch_throughput`` and ``branch_delayed`` (per
+    branch of ``net``, completions per µs of the measured window) as the
+    reference's ``simulate_network`` does.  With ``F = 0`` no coalescing
+    code runs, ``delayed_frac`` is zero and the branch columns are None.
     """
     dev = resolve_device(device)
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
-    n_s = len(seeds)
+    n_s, n_p = len(seeds), len(p_hits)
     trace = int(trace)
     spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
-                                      warmup_frac, dev, trace=trace)
+                                      warmup_frac, dev, trace=trace,
+                                      coalesce_flows=int(coalesce_flows),
+                                      coalesce_theta=float(coalesce_theta))
     out = sim_lanes(spec, seed_v, **kwargs)
     traces = None
     if trace:
-        traces = decode_trace_grid(out.rings, spec.visits[0], n_s,
-                                   len(p_hits))
-    xs = out.x.cpu().numpy().reshape(n_s, len(p_hits))
+        traces = decode_trace_grid(out.rings, spec.visits[0], n_s, n_p)
+    xs = out.x.cpu().numpy().reshape(n_s, n_p)
     mean = xs.mean(axis=0)
     ci = (1.96 * xs.std(axis=0, ddof=1) / math.sqrt(n_s) if n_s > 1
           else np.zeros_like(mean))
+    extra = dict(delayed_frac=np.zeros(n_p, dtype=np.float32))
+    if coalesce_flows:
+        n_b = len(net.branches)
+        t_meas = out.t_measured.cpu().numpy().reshape(n_s, n_p, 1)
+        per_branch = [a.cpu().numpy()[:, :n_b].reshape(n_s, n_p, n_b)
+                      / t_meas for a in (out.branch_done, out.branch_delayed)]
+        extra = dict(
+            delayed_frac=out.delayed_frac.cpu().numpy().reshape(
+                n_s, n_p).mean(axis=0),
+            branch_throughput=per_branch[0].mean(axis=0),
+            branch_delayed=per_branch[1].mean(axis=0))
     return SimResult(p_hit=p_hits, throughput=mean, ci95=ci,
-                     n_requests=n_requests, traces=traces)
+                     n_requests=n_requests, traces=traces, **extra)
+
+
+def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
+               seeds: Sequence[int], warmup_frac: float, max_in_system: int,
+               burst=None, coalesce_flows: int = 0,
+               coalesce_theta: float = 0.0, device: str = "cuda"):
+    """The open-loop (seed x p_hit) lane grid (lane = s * P + p, lane seeds
+    as :func:`grid_lanes`) at the (P,) arrival ``rates`` (requests/µs).
+
+    Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_open_lanes`:
+    mean interarrival ``float32(1e3 / rate)`` ns, times ``duty`` while ON
+    under ``burst = (duty, mean_on_us)``, whose ON and OFF phases have
+    means ``mean_on_us * 1e3`` and ``mean_on_us * 1e3 * (1 - duty) /
+    duty`` ns (float32, as the reference's); the event budget
+    ``n_requests * (Lr + 3) * 3``, as the reference's.
+    """
+    dev = resolve_device(device)
+    spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
+                                      warmup_frac, dev,
+                                      coalesce_flows=coalesce_flows,
+                                      coalesce_theta=coalesce_theta,
+                                      budget_visits=3)
+    first = compile_network(net, float(p_hits[0]), device=dev)
+    mean_ns = np.tile((1e3 / np.asarray(rates, np.float64)).astype(np.float32),
+                      len(seeds))
+    phases = None
+    if burst is not None:
+        duty, mean_on_us = float(burst[0]), float(burst[1])
+        mean_ns = mean_ns * np.float32(duty)
+        on_ns = mean_on_us * 1e3
+        phases = (np.float32(on_ns), np.float32(on_ns * (1.0 - duty) / duty))
+    kwargs.pop("mpl")
+    kwargs.update(n_slots=int(max_in_system),
+                  ia_mean=torch.from_numpy(mean_ns).to(dev),
+                  bmiss=_bmiss(first, len(seed_v), dev), burst=phases)
+    return spec, seed_v, kwargs
+
+
+def open_grid(net, p_hits, rates: np.ndarray, n_requests: int,
+              seeds: Sequence[int], warmup_frac: float, max_in_system: int,
+              burst=None, coalesce_flows: int = 0,
+              coalesce_theta: float = 0.0,
+              device: str = "cuda") -> OpenLaneOutputs:
+    """The open-loop grid of :func:`open_lanes` in ONE launch (the plain
+    version on the CPU); returns the lanes' raw outputs."""
+    spec, seed_v, kwargs = open_lanes(net, p_hits, rates, n_requests, seeds,
+                                      warmup_frac, max_in_system, burst,
+                                      coalesce_flows, coalesce_theta, device)
+    return sim_open_lanes(spec, seed_v, **kwargs)

@@ -31,9 +31,8 @@ reproduces it.
 Not ported yet, and raising ``NotImplementedError``: mamba2 and its
 hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
 ``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11),
-the cluster forecast ``n_shards > 1`` (item 9), the hierarchy forecast
-``tiers > 0`` (item 10) and ``forecast_slo`` (item 16, with the latency
-package).
+the cluster forecast ``n_shards > 1`` (item 9) and the hierarchy forecast
+``tiers > 0`` (item 10).
 """
 
 from __future__ import annotations
@@ -383,9 +382,31 @@ class Engine:
                      arrival_rate: float, slo_us: float,
                      percentile: float = 0.99, p_grid=None,
                      profile=None, **net_kwargs):
-        raise NotImplementedError(
-            "forecast_slo needs the latency package, not ported yet "
-            "(ROADMAP queue 1 item 16)")
+        """Open-loop SLO forecast for this engine's prefix controller.
+
+        Builds the same measured-profile network as
+        :meth:`forecast_network` (all of whose kwargs pass through), then
+        evaluates it under Poisson arrivals at ``arrival_rate`` requests/µs
+        via :func:`repro_torch.latency.slo_forecast`: mean and
+        ``percentile`` tail response across the hit-ratio grid, the
+        stability boundary lambda_max(p), and the three operating points —
+        throughput-optimal p* (the closed-loop knee), latency-optimal p* at
+        the offered rate, and SLO-capacity-optimal p* (argmax of the
+        largest arrival rate whose tail still meets ``slo_us``).
+
+        ``profile`` restricts the sweep to a measured achievable hit-ratio
+        range and annotates each grid point with the prefix-cache capacity
+        achieving it.  The reference defaults it to the engine's
+        :meth:`observed_profile` when the admission sketch is on; the port
+        has no sketch yet (``ServeConfig.sketch_cap > 0`` raises), so it
+        stays None unless given.
+        """
+        from repro_torch.latency import slo_forecast
+
+        net = self.forecast_network(step_us, prefill_us, **net_kwargs)
+        return slo_forecast(net, arrival_rate, slo_us,
+                            percentile=percentile, p_grid=p_grid,
+                            profile=profile)
 
     def forecast_network(self, step_us: float, prefill_us: float,
                          replicas: int = 1, batched_update: bool = False,

@@ -129,14 +129,17 @@ def test_lru_network_statistics_match():
 
 def test_options_outside_the_slice_raise():
     net = tpm.lru_network()
-    for kw in ({"coalesce_flows": 4}, {"arrival_rate": 0.1},
-               {"burst": (0.5, 10.0)}, {"tiers": object()},
-               {"sketch_cap": 16}):
+    for kw in ({"tiers": object()}, {"sketch_cap": 16},
+               {"coalesce_flows": 4, "trace": 8},
+               {"arrival_rate": 0.1, "trace": 8}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulate_network(net, [0.5], device="cpu", **kw)
     # tracing is ported; the sketches that may ride along are not
     with pytest.raises(NotImplementedError, match="sketch_cap.*ROADMAP"):
         simulate_network(net, [0.5], device="cpu", sketch_cap=16, trace=8)
+    # bursts belong to the open loop, as in the reference
+    with pytest.raises(ValueError, match="arrival_rate"):
+        simulate_network(net, [0.5], device="cpu", burst=(0.5, 10.0))
 
 
 def test_reference_keywords_accepted():
@@ -153,8 +156,8 @@ def test_reference_keywords_accepted():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"coalesce_theta": 0.5}, "item 6.2"),
-    ({"max_in_system": 64}, "item 6.3"),
+    ({"tiers": object()}, "item 6.4"),
+    ({"coalesce_flows": 4, "trace": 8}, "item 8"),
     ({"window_us": 5.0}, "item 8"),
 ])
 def test_unported_reference_keywords_raise(kw, item):

@@ -12,7 +12,16 @@ launched alone.  Kernel and
 plain version draw the same uniforms through the same float32 formulas:
 ``completed`` and ``events`` identical, throughput and stamps within
 1e-6 (torch's and CUDA's log/pow may differ in the last ulp).
+
+The coalescing and open-loop instantiations are held the same way
+(``COALESCE_CASES``, ``OPEN_CASES``, which ``chip_smoke.py`` runs too):
+flows F 1, 16 and 64, uniform and Zipf(0.99), one and two disk ranks,
+job slots in registers and in shared memory, with and without bursts.
+On deterministic service every output is identical, the per-branch
+counts, sojourns and classes included.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -109,3 +118,140 @@ def test_padded_grid_on_card(cuda_device):
         alone = tes.sim_lanes(one, one_seed, **one_kw)
         for f in ("x", "completed", "events", "t_measured"):
             assert torch.equal(getattr(kern, f)[i:i + 1], getattr(alone, f)), f
+
+
+def det_network(net):
+    """The network with every station's service made deterministic."""
+    return dataclasses.replace(net, stations=tuple(
+        dataclasses.replace(s, dist="det", dist_params=())
+        for s in net.stations))
+
+
+def two_disk_network(mpl: int = 16) -> ClosedNetwork:
+    """Two backing stores ("s0:disk" a think station, "s1:disk" a 2-server
+    queue), so two flow groups: a miss coalesces only within its own."""
+    stations = (Station("lookup", THINK, 0.5),
+                Station("s0:disk", THINK, 40.0, dist="exp"),
+                Station("s1:disk", QUEUE, 30.0, dist="det", servers=2),
+                Station("head", QUEUE, 0.6))
+    branches = (Branch("hit", lambda p: p, ("lookup", "head")),
+                Branch("miss0", lambda p: (1.0 - p) / 2,
+                       ("lookup", "s0:disk", "head")),
+                Branch("miss1", lambda p: (1.0 - p) / 2,
+                       ("lookup", "s1:disk", "head")))
+    return ClosedNetwork("two disks", stations, branches, mpl)
+
+
+def _lru(mpl, det, disk_servers=2):
+    net = tpm.lru_network(disk_us=20.0, mpl=mpl, disk_servers=disk_servers)
+    return det_network(net) if det else net
+
+
+def _two(mpl, det):
+    return det_network(two_disk_network(mpl)) if det else two_disk_network(mpl)
+
+
+# (id, network, F, theta, deterministic service): mpl 24, 48, 72, 144 and
+# 300 run 1, 2, 4, 8 register slots per thread and shared memory
+COALESCE_CASES = [
+    ("lru-mpl24-F1", lambda: _lru(24, True), 1, 0.0, True),
+    ("lru-mpl48-F16", lambda: _lru(48, True), 16, 0.0, True),
+    ("lru-mpl72-F64-zipf", lambda: _lru(72, True), 64, 0.99, True),
+    ("lru-mpl144-F16-zipf", lambda: _lru(144, True), 16, 0.99, True),
+    ("lru-mpl300-F16", lambda: _lru(300, True), 16, 0.0, True),
+    ("2disk-mpl72-F1", lambda: _two(72, True), 1, 0.0, True),
+    ("2disk-mpl72-F64-zipf", lambda: _two(72, True), 64, 0.99, True),
+    ("lru-exp-mpl72-F16", lambda: _lru(72, False, 8), 16, 0.0, False),
+    ("2disk-exp-mpl24-F16-zipf", lambda: _two(24, False), 16, 0.99, False),
+]
+# (id, network, max_in_system, F, burst, deterministic service) at arrival
+# rates 0.1 and 0.6 per us; the interarrival times are exponential in
+# every case, and 4 slots are too few (arrivals are dropped)
+OPEN_CASES = [
+    ("lru-N128", lambda: _lru(1, True, 8), 128, 0, None, True),
+    ("lru-N128-F16", lambda: _lru(1, True, 8), 128, 16, None, True),
+    ("lru-N256-F16-burst", lambda: _lru(1, True, 8), 256, 16, (0.6, 200.0),
+     True),
+    ("lru-N300-burst", lambda: _lru(1, True, 8), 300, 0, (0.6, 200.0), True),
+    ("lru-N300-F16", lambda: _lru(1, True, 8), 300, 16, None, True),
+    ("lru-N40-F1-burst", lambda: _lru(1, True, 8), 40, 1, (0.5, 100.0), True),
+    ("lru-N4-F4-drops", lambda: _lru(1, True, 8), 4, 4, None, True),
+    ("2disk-N64-F16-burst", lambda: _two(1, True), 64, 16, (0.6, 200.0), True),
+    ("lru-exp-N256-F16", lambda: _lru(1, False, 8), 256, 16, None, False),
+]
+OPEN_RATES = np.array([0.1, 0.6])
+
+
+def coalesce_pair(case, device, n_requests=400):
+    """Kernel and plain outputs of a ``COALESCE_CASES`` case: two p_hits x
+    two seeds."""
+    _, net, flows, theta, _ = case
+    spec, seeds, kw = tes.grid_lanes(net(), np.array([0.3, 0.7]), n_requests,
+                                     (0, 1), 0.25, device,
+                                     coalesce_flows=flows,
+                                     coalesce_theta=theta)
+    return (tes.sim_lanes(spec, seeds, **kw),
+            tes.sim_lanes_plain(spec, seeds, **kw))
+
+
+def hold_coalesced(kern, plain, exact) -> float:
+    """Integer outputs identical; throughput, measured time and delayed
+    fraction identical on deterministic service, else within RTOL.
+    Returns max |dx|."""
+    for f in ("completed", "events", "branch_done", "branch_delayed"):
+        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f).cpu()), f
+    for f in ("x", "t_measured", "delayed_frac"):
+        a, b = getattr(kern, f).cpu(), getattr(plain, f).cpu()
+        if exact:
+            assert torch.equal(a, b), f
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                       err_msg=f)
+    return float((kern.x.cpu() - plain.x.cpu()).abs().max())
+
+
+def open_pair(case, device, n_requests=250):
+    """Kernel and plain outputs of an ``OPEN_CASES`` case: two p_hits x
+    two seeds."""
+    _, net, n_slots, flows, burst, _ = case
+    spec, seeds, kw = tes.open_lanes(net(), np.array([0.5, 0.8]), OPEN_RATES,
+                                     n_requests, (0, 1), 0.25, n_slots,
+                                     burst=burst, coalesce_flows=flows,
+                                     device=device)
+    return (tes.sim_open_lanes(spec, seeds, **kw),
+            tes.sim_open_lanes_plain(spec, seeds, **kw))
+
+
+def hold_open(kern, plain, exact) -> float:
+    """Counts, drops and classes identical; sojourns, throughput and
+    measured time identical on deterministic service, else within RTOL.
+    Returns max |d sojourn| (µs)."""
+    for f in ("completed", "events", "dropped", "cls"):
+        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f).cpu()), f
+    for f in ("x", "t_measured", "delayed_frac", "sojourn_us"):
+        a, b = getattr(kern, f).cpu(), getattr(plain, f).cpu()
+        if exact:
+            assert torch.equal(a, b), f
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                       err_msg=f)
+    return float((kern.sojourn_us.cpu() - plain.sojourn_us.cpu()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COALESCE_CASES, ids=[c[0] for c in COALESCE_CASES])
+def test_coalescing_kernel_matches_plain(cuda_device, case):
+    before = tes.sim_lanes.flows_launches
+    kern, plain = coalesce_pair(case, cuda_device)
+    assert tes.sim_lanes.flows_launches == before + 1
+    hold_coalesced(kern, plain, exact=case[-1])
+    assert float(kern.delayed_frac.max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OPEN_CASES, ids=[c[0] for c in OPEN_CASES])
+def test_open_kernel_matches_plain(cuda_device, case):
+    before = tes.sim_open_lanes.launches
+    kern, plain = open_pair(case, cuda_device)
+    assert tes.sim_open_lanes.launches == before + 1
+    hold_open(kern, plain, exact=case[-1])

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("kernels.replay", "kernels.event_sim", "kernels.cache_update",
                  "kernels.ops", "obs.trace", "obs.metrics", "obs.export",
                  "kernels.flash_attention", "kernels.paged_attention",
-                 "kernels.linear_scan", "models.rwkv",
+                 "kernels.linear_scan", "models.rwkv", "core.classify",
+                 "latency", "latency.analytic", "latency.forecast",
                  "models.config", "models.layers", "models.attention",
                  "models.transformer", "configs.registry", "configs.rwkv6_7b",
                  "configs.internlm2_1_8b", "cache.py_ref", "serving.kv_pages",
@@ -78,6 +79,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     net = policy_models.lru_network()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_network(net, [0.5], n_requests=10, seeds=(0,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_network(net, [0.5], n_requests=10, seeds=(0,),
+                         coalesce_flows=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_network(net, [0.5], n_requests=10, seeds=(0,),
+                         arrival_rate=0.1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer.forward(params, [[1, 2, 3]], cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

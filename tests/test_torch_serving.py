@@ -5,10 +5,12 @@ pure host code and must equal the reference's exactly.  The port's
 ``Engine`` on reduced internlm2, with the reference's weights converted,
 must serve the same tokens and end with the same ``stats()`` as the JAX
 ``Engine`` on the same request stream (both in float32).  The one-pod
-``forecast_network`` must be the reference's network.  Modes not ported
-yet raise, naming their ROADMAP item.
+``forecast_network`` must be the reference's network, and
+``forecast_slo`` its SLO forecast.  Modes not ported yet raise, naming
+their ROADMAP item.
 """
 
+import dataclasses
 import inspect
 
 import jax
@@ -251,6 +253,33 @@ def test_forecast_network_equals_the_reference(models, kw):
     assert a == b
 
 
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(coalesce_flows=8, percentile=0.9),
+])
+def test_forecast_slo_equals_the_reference(models, kw):
+    """The SLO forecast over the measured controller network: every field
+    of the port's LatencyForecast equals the reference's to rtol 1e-12."""
+    reqs = zipf_request_stream(10, n_prefixes=4, prefix_len=16,
+                               vocab=models[1].vocab, seed=4, new_tokens=4)
+    jeng, teng, _, _ = _serve_both(models, reqs, max_seqs=2,
+                                   max_new_tokens=4, disk_servers=4)
+    grid = np.linspace(0.0, 1.0, 41)
+    args = dict(step_us=6000.0, prefill_us=40.0, arrival_rate=0.002,
+                slo_us=5e4, p_grid=grid, **kw)
+    want = jeng.forecast_slo(**args)
+    got = teng.forecast_slo(**args)
+    assert type(got).__name__ == type(want).__name__
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if b is None or isinstance(b, str):
+            assert a == b, f.name
+        else:
+            np.testing.assert_allclose(np.asarray(a, float),
+                                       np.asarray(b, float), rtol=1e-12,
+                                       err_msg=f.name)
+
+
 def test_forecast_slo_takes_the_reference_parameters():
     ref = inspect.signature(JEngine.forecast_slo).parameters
     port = inspect.signature(Engine.forecast_slo).parameters
@@ -275,7 +304,5 @@ def test_unported_modes_raise(models):
         eng.forecast_network(6000.0, 40.0, n_shards=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.forecast_network(6000.0, 40.0, tiers=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        eng.forecast_slo(6000.0, 40.0, arrival_rate=0.01, slo_us=5e4)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.observed_profile()
