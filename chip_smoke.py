@@ -9,8 +9,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's 25 instantiations (closed,
-   traced, traced for long routes, coalescing, open loop), of
+   spills of each of the event-sim kernel's 30 instantiations (closed,
+   traced, traced for long routes, coalescing, open loop, counting), of
    the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
    widths) and of the split-TF32 flash kernel's ten (float32 at d_head
@@ -71,6 +71,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    uniform and Zipf(0.99), one and two disk ranks, every register-slot
    count and shared memory; pools of 4 to 300 slots, with and without
    bursts), every output identical on deterministic service;
+6e. ``cluster_vs_plain``: the counting instantiation (the closed loop
+   with per-branch completion counts) against its plain version and the
+   closed kernel (``COUNT_CASES``: every register-slot count and shared
+   memory; its events the closed kernel's), and lanes of the sharded
+   cluster's composed networks (``CLUSTER_CASES``: 4 shards at mpl 48, 8
+   shards at the default mpl 576) through the counting and coalescing
+   instantiations, per-branch counts included: integers identical, the
+   rest within 1e-6;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -88,9 +96,20 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    (the analytic p* shift, the simulated recovery on a bounded disk, the
    measured sweep's sigma and coalesced bound) and ``fig_latency.py`` (the
    analytic inversion, the open loop against Erlang-C, per-class
-   sojourns under coalescing, the SLO optimum) through the port at the
-   benchmarks' sizes, each figure's wall time printed; the coalescing and
-   open-loop kernels' launches are counted here;
+   sojourns under coalescing, the SLO optimum) and ``fig_cluster.py``
+   (routing imbalance, the cluster p* below the single node's, the
+   simulated 8-shard cluster against the key-routing oracle, routed and
+   rebalanced stability boundaries, bursts) through the port at the
+   benchmarks' sizes, each figure's and section's wall time printed; the
+   coalescing and open-loop kernels' launches are counted here; the
+   delayed-hits sweep classifies every size in one pass, held bit for bit
+   to each size classified alone;
+8c. the cluster path (``cluster_differential``): ``tests/test_cluster.py``'s
+   simulations through the port, the 12-case matrix (LRU, FIFO, CLOCK x
+   Zipf 0 and 1 x 1 and 4 shards) and the 16-shard cases, each the kernel
+   against the port's key-routing oracle within that file's bands, the
+   analytic bound over an uncoalesced run, shard-local coalescing and the
+   open-loop mixture; the counting kernel's launches are counted here;
 9. the batched-LRU path: 64 Zipf batches of 4096 ids through
    ``ops.lru_batch_update`` on a 2**22-slot recency table, held against
    each slot's last access (launch count > 0);
@@ -153,10 +172,13 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    WKV6); the chunked kernel must be the faster at the prefill shape;
 12. the coalescing and open-loop instantiations timed on one lane of the
    figures' networks beside their plain versions (``ext_timing``), and
-   the figures' own launches.
+   the figures' own launches; the counting instantiation on one lane of
+   fig_cluster C's 8-shard network, beside the closed and coalescing
+   kernels on the same lane (ns per event at 8 shards).
 
 The line before the last two is the JSON ``kernels`` record; then the
-card's name and power limit; the last line is the JSON result.  Details
+card's name and power limit; the last line is the JSON result.  The
+phases' total seconds are printed before them.  Details
 go to ``chiprun_out/chip_smoke.json``.  Any failure raises: the script
 exits non-zero and prints no result.
 """
@@ -165,6 +187,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -248,6 +271,7 @@ T2_REQUESTS, T2_KEYS, T2_CAPACITY = 20_000, 2048, 256
 DH_FLOWS, DH_DISK_US, DH_IO_DEPTH = (8, 64), 100.0, 8
 DH_P_SIM = (0.5, 0.8, 0.95)
 DH_SWEEP_CAPS = (96, 384, 1024, 2048)
+DH_REQUESTS = 40_000  # the measured sweep's requests
 LAT_DISK_US, LAT_DISK_US_SIM = 100.0, 5.0
 LAT_LOAD_FRAC, LAT_SIM_LOAD, LAT_SLO_US = 0.85, 0.838, 250.0
 LAT_P_SIM = (0.70, 0.90, 0.98)
@@ -255,6 +279,31 @@ LAT_CO_IO_DEPTH, LAT_CO_LAMBDA, LAT_CO_FLOWS = 8, 0.12, 16
 # the coalescing and open-loop rows: one lane of the figures' networks,
 # short enough to time the plain version too
 EXT_TIMING_REQUESTS = 1_500
+# cluster_vs_plain: requests per lane of COUNT_CASES / CLUSTER_CASES of
+# tests/test_torch_event_sim_cuda.py (at least; a cluster lane runs enough
+# for two measured completions per job)
+CLUSTER_PLAIN_REQUESTS = 300
+# benchmarks/fig_cluster.py's sizes: key spaces of the analytic sections
+# and of the simulated ones, the headline skew and shard count, the
+# simulated global p_hits and the SLO
+CL_KEYS, CL_SIM_KEYS, CL_THETA, CL_SHARDS = 4096, 1024, 1.0, 8
+CL_SIM_P = (0.45, 0.6, 0.75)
+CL_PSTAR_GRID, CL_SLO_US = 4001, 250.0
+# tests/test_cluster.py's differential: the global operating point, the
+# simulated and the oracle's requests (4 and 1 shards; 16 shards)
+CL_P_OP = 0.6
+CL_DIFF_REQUESTS = {1: (9_000, 7_000), 4: (9_000, 7_000), 16: (12_000, 9_000)}
+# the oracle's seeds there: the reference's test runs seed 3 alone, whose
+# throughput at 7k requests is the highest of seeds 3-18 on 4 shards
+# (LRU, theta 1: 1.2635 against their mean 1.1653, sd 0.0634, by
+# tools/cluster_long_run.py); the mean of four seeds, as fig_cluster C
+# takes the mean of two
+CL_ORACLE_SEEDS = (3, 4, 5, 6)
+# the long-run check of that case (LRU, theta 1, 4 shards, mpl 48, 8
+# flows): the kernel on seeds 0..15 and the oracle on seeds 3..18, each at
+# 40k requests, whose mean throughputs must lie within CL_LONG_SE
+# standard errors of their difference, the errors from this run's spread
+CL_LONG_REQUESTS, CL_LONG_SEEDS, CL_LONG_SE = 40_000, 16, 4.0
 # the main path's throughputs (requests/us) as the event-sim kernel of
 # commit ca3464b (one lane per network, state in shared memory) computed
 # them on an NVIDIA H100 80GB HBM3 at 700.00 W: same arithmetic, so the
@@ -527,14 +576,14 @@ def ptxas_info(proc, pattern, name_of):
 def event_sim_ptxas(procs, rec):
     """Registers, stack frame and spills of each event-sim instantiation
     (untraced, traced, traced for routes over 32 visits, coalescing, open
-    loop; R register slots per thread, R = 0: shared memory), as ptxas
-    reports them; raises unless all 25 compiled."""
+    loop, counting; R register slots per thread, R = 0: shared memory), as
+    ptxas reports them; raises unless all 30 compiled."""
     modes = ("untraced", "traced", "traced, routes over 32")
     info = ptxas_info(
-        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([012])E",
-        lambda m: ((modes[int(m.group(1))], "coalescing", "open loop")[
-            int(m.group(3))] + f" R={m.group(2)}"))
-    if len(info) != 25 or not all(len(v) == 4 for v in info.values()):
+        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([0123])E",
+        lambda m: ((modes[int(m.group(1))], "coalescing", "open loop",
+                    "counting")[int(m.group(3))] + f" R={m.group(2)}"))
+    if len(info) != 30 or not all(len(v) == 4 for v in info.values()):
         raise AssertionError(f"ptxas reported {info}")
     for fn, v in sorted(info.items()):
         print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
@@ -837,6 +886,55 @@ def check_open(rec):
     rec["event_sim_open_max_abs_err"] = err
 
 
+def check_cluster(rec):
+    """``cluster_vs_plain``: the counting instantiation against its plain
+    version and the closed kernel (``COUNT_CASES`` of
+    ``tests/test_torch_event_sim_cuda.py``: every register-slot count and
+    shared memory; identical on deterministic service), then lanes of the
+    sharded cluster's networks through the counting and the coalescing
+    instantiations against their plain versions (``CLUSTER_CASES``: 4
+    shards at mpl 48, 8 at mpl 96 as fig_cluster C runs them, 16 at mpl
+    192 as the differential does, and 8 at the default mpl 576, whose jobs
+    live in shared memory): integers (completions, events, per-branch counts)
+    identical, the rest within 1e-6; and a traced cluster lane with
+    counts (one traced and one counting launch) against its plain
+    version, records included."""
+    import torch
+    from test_torch_event_sim_cuda import (CLUSTER_CASES, COUNT_CASES,
+                                           cluster_pair, count_pair,
+                                           hold_coalesced, hold_counted,
+                                           hold_traced_count,
+                                           traced_count_pair)
+
+    dev = torch.device("cuda")
+    err = {"count": 0.0, "coalesced": 0.0}
+    for case in COUNT_CASES:
+        kern, plain, closed = count_pair(case, dev, CO_REQUESTS)
+        torch.cuda.synchronize()
+        err["count"] = max(err["count"],
+                           hold_counted(kern, plain, closed, exact=case[-1]))
+        print(f"count {case[0]}: kernel == plain "
+              f"({'identical' if case[-1] else 'integers identical'}), "
+              f"events == the closed kernel's", flush=True)
+    for case in CLUSTER_CASES:
+        kern, plain = cluster_pair(case, dev, CLUSTER_PLAIN_REQUESTS)
+        torch.cuda.synchronize()
+        which = "coalesced" if case[-1] else "count"
+        err[which] = max(err[which], hold_coalesced(kern, plain, exact=False))
+        print(f"cluster {case[0]}: kernel == plain (integers identical, "
+              f"branch counts {kern.branch_done.sum(dim=1).tolist()}), "
+              f"delayed_frac {kern.delayed_frac.cpu().numpy().round(4).tolist()}",
+              flush=True)
+    kern, plain = traced_count_pair(dev, CLUSTER_PLAIN_REQUESTS)
+    torch.cuda.synchronize()
+    err["count"] = max(err["count"], hold_traced_count(kern, plain))
+    print("cluster 4shard-mpl48-count traced: records == the traced plain "
+          "version's, counts == the counting plain version's", flush=True)
+    rec["event_sim_count_max_abs_err"] = err["count"]
+    rec["event_sim_coalesced_max_abs_err"] = max(
+        rec["event_sim_coalesced_max_abs_err"], err["coalesced"])
+
+
 def table2_classify(device):
     """``benchmarks/table2_classify.py`` through the port: the analytic
     classification of Table 1's networks and the implemented structures'
@@ -918,12 +1016,16 @@ def fig_delayed_hits(device):
     seconds["B"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     probe = sweep_cache_sizes("lru", DH_SWEEP_CAPS, key_space=4096,
-                              n_requests=40_000, disk_us=DH_DISK_US,
+                              n_requests=DH_REQUESTS, disk_us=DH_DISK_US,
                               device=device)
     windows = np.maximum(1, np.round(probe["x_bound"] * DH_DISK_US).astype(int))
     sw = sweep_cache_sizes("lru", DH_SWEEP_CAPS, key_space=4096,
-                           n_requests=40_000, disk_us=DH_DISK_US,
+                           n_requests=DH_REQUESTS, disk_us=DH_DISK_US,
                            miss_latency_requests=windows, device=device)
+    seconds["C"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hold_classify_lanes(sw, windows, device)
+    seconds["C_held_per_size"] = time.perf_counter() - t0
     sig = np.asarray(sw["sigma"])
     if not (sig[0] > sig[-1] >= 0.0 and np.all(
             sw["x_bound_coalesced"] >= sw["x_bound"] - 1e-9)):
@@ -931,9 +1033,41 @@ def fig_delayed_hits(device):
                              f"{sw['x_bound']} {sw['x_bound_coalesced']}")
     out["measured"] = {k: np.asarray(v).tolist() for k, v in sw.items()}
     out["windows"] = windows.tolist()
-    seconds["C"] = time.perf_counter() - t0
     out["seconds"] = seconds
     return out
+
+
+def hold_classify_lanes(sw, windows, device):
+    """fig_delayed_hits C's one-pass classification at the sweep's full
+    40 000 requests: every size a row of ONE ``classify_inflight`` pass
+    with its own window, as ``sweep_cache_sizes`` runs it, bit for bit each
+    size classified alone (on the host), and the sweep's own
+    ``p_true_hit`` and ``p_delayed`` those of the per-size classes."""
+    import numpy as np
+    from repro_torch.cache.replay import classify_inflight
+    from repro_torch.core.harness import _class_fracs, coin_stream, zipf_trace
+    from repro_torch.kernels.replay import replay_grid_fused
+
+    trace = zipf_trace(DH_REQUESTS, 4096, 0.99, 0)
+    res = replay_grid_fused("lru", trace, coin_stream(DH_REQUESTS, 0),
+                            DH_SWEEP_CAPS, key_space=4096, device=device)
+    per_row = np.stack([np.full(DH_REQUESTS, int(w)) for w in windows])
+    lanes = classify_inflight(trace, res.hits[:, 0], per_row,
+                              key_space=4096, device=device)
+    hits = res.hits[:, 0].cpu()
+    for i, w in enumerate(windows):
+        alone = classify_inflight(trace, hits[i], int(w), key_space=4096,
+                                  device="cpu")
+        fr = _class_fracs(alone)
+        if not (np.array_equal(lanes[i], alone)
+                and sw["p_true_hit"][i] == float(fr[1])
+                and sw["p_delayed"][i] == float(fr[2])):
+            raise AssertionError(f"one-pass classification != per-size: "
+                                 f"size {DH_SWEEP_CAPS[i]}, window {w}")
+    print(f"fig_delayed_hits C: one-pass classification == per-size "
+          f"classify_inflight on {DH_REQUESTS} requests x "
+          f"{len(DH_SWEEP_CAPS)} sizes, and the sweep's class fractions",
+          flush=True)
 
 
 def fig_latency(device):
@@ -1017,15 +1151,149 @@ def fig_latency(device):
     return out
 
 
+def fig_cluster(device):
+    """``benchmarks/fig_cluster.py`` through the port, at its sizes: (A) the
+    ring's and two-choice imbalance across skew; (B) the headline: the
+    cluster LRU p* below the single-node forecast on a measured 8-shard
+    profile, FIFO monotone, the hot shard above the cluster average; (C)
+    the simulated 8-shard cluster with shard-local MSHR flows (one launch
+    of the coalescing kernel) against the key-routing oracle (8k requests,
+    seeds 3 and 4), 10% on X and 0.06 on the delayed fraction, the hot
+    shard coalescing less; (D) hash-routed against rebalanced lambda_max
+    and an interior SLO optimum; (E) ON-OFF arrivals raising the p99 at
+    the same mean rate (the open-loop kernel, 512 slots)."""
+    import numpy as np
+    from repro_torch.cluster import (HashRing, cluster_network,
+                                     ideal_shard_profile, imbalance,
+                                     measured_shard_profile, shard_weights,
+                                     simulate_cluster, simulate_cluster_py,
+                                     two_choice_assignment, zipf_key_probs)
+    from repro_torch.core import build, exponential_analogue
+    from repro_torch.core.harness import zipf_trace
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.latency import slo_forecast
+
+    out, seconds = {"imbalance": {}}, {}
+    t0 = time.perf_counter()
+    ring = HashRing(CL_SHARDS, vnodes=64, seed=1)
+    for theta in (0.0, 0.8, 1.0):
+        probs = zipf_key_probs(CL_KEYS, theta, seed=0)
+        ib_ring = imbalance(shard_weights(ring.assignment(CL_KEYS), probs,
+                                          CL_SHARDS))
+        ib_tc = imbalance(shard_weights(
+            two_choice_assignment(probs, CL_SHARDS, seed=1), probs, CL_SHARDS))
+        if not ib_tc <= ib_ring + 1e-9:
+            raise AssertionError(f"fig_cluster A: theta {theta}: two-choice "
+                                 f"{ib_tc} > ring {ib_ring}")
+        out["imbalance"][f"theta={theta:g}"] = {"ring": ib_ring,
+                                                "two_choice": ib_tc}
+    if not out["imbalance"]["theta=1"]["ring"] > 1.2:
+        raise AssertionError(f"fig_cluster A: {out['imbalance']}")
+    seconds["A"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    trace = zipf_trace(40_000, CL_KEYS, CL_THETA, seed=0)
+    assign = ring.assignment(CL_KEYS)
+    profile = measured_shard_profile(trace, assign)
+    single_lru = build("lru", disk_us=100.0)
+    cm_lru = cluster_network("lru", CL_SHARDS, profile=profile, disk_us=100.0)
+    cm_fifo = cluster_network("fifo", CL_SHARDS, profile=profile,
+                              disk_us=100.0)
+    p_single = single_lru.p_star(grid=CL_PSTAR_GRID)
+    p_cluster = cm_lru.p_star(grid=CL_PSTAR_GRID)
+    p_hi = profile.p_range()[1] - 0.01
+    x_fifo = cm_fifo.throughput_upper(np.linspace(0.02, p_hi, 60))
+    pk = profile.shard_p(p_cluster)
+    hot = int(np.argmax(profile.weights))
+    if not (p_cluster < p_single - 0.01 and np.all(np.diff(x_fifo) >= -1e-9)
+            and pk[hot] > p_cluster):
+        raise AssertionError(f"fig_cluster B: p* cluster {p_cluster}, single "
+                             f"{p_single}, hot shard's p {pk[hot]}")
+    out["pstar"] = {"single_lru": p_single, "cluster_lru": p_cluster,
+                    "imbalance": profile.imbalance(),
+                    "hot_shard_local_p": float(pk[hot])}
+    seconds["B"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    probs_s = zipf_key_probs(CL_SIM_KEYS, CL_THETA, seed=0)
+    assign_s = HashRing(CL_SHARDS, vnodes=64, seed=1).assignment(CL_SIM_KEYS)
+    prof_s = ideal_shard_profile(assign_s, probs_s)
+    cm_s = cluster_network("lru", CL_SHARDS, profile=prof_s, disk_us=100.0,
+                           mpl=12 * CL_SHARDS)
+    sim_p = np.asarray(CL_SIM_P)
+    jx = simulate_cluster(cm_s, sim_p, n_requests=FIG_REQUESTS, seeds=(0, 1),
+                          coalesce_flows=8, device=device)
+    seconds["C_sim"] = time.perf_counter() - t0
+    py = []
+    for p in sim_p:
+        runs = [simulate_cluster_py(cm_s, probs_s, assign_s, float(p),
+                                    n_requests=FIG_REQUESTS // 2, seed=s,
+                                    coalesce_flows=8) for s in (3, 4)]
+        py.append({k: float(np.mean([r[k] for r in runs]))
+                   for k in ("x", "delayed_frac")})
+    rel = np.array([abs(jx.throughput[i] - py[i]["x"]) / py[i]["x"]
+                    for i in range(len(sim_p))])
+    d_gap = np.array([abs(jx.delayed_frac[i] - py[i]["delayed_frac"])
+                      for i in range(len(sim_p))])
+    pk_s = prof_s.shard_p(float(sim_p[1]))
+    hot_s, cold_s = int(np.argmax(pk_s)), int(np.argmin(pk_s))
+    if not (np.all(rel < 0.1) and np.all(d_gap < 0.06)
+            and jx.shard_delayed_frac[1, hot_s] < jx.shard_delayed_frac[1, cold_s]):
+        raise AssertionError(f"fig_cluster C: X {jx.throughput} vs oracle "
+                             f"{[r['x'] for r in py]} (rel {rel}), delayed "
+                             f"gaps {d_gap}, shard delayed "
+                             f"{jx.shard_delayed_frac[1]}")
+    out["sim"] = {"p": list(CL_SIM_P), "x_sim": jx.throughput.tolist(),
+                  "x_oracle": [r["x"] for r in py], "rel_err": rel.tolist(),
+                  "delayed_sim": jx.delayed_frac.tolist(),
+                  "delayed_oracle": [r["delayed_frac"] for r in py]}
+    seconds["C"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["boundary"] = []
+    for p in (0.5, float(p_cluster), 0.9):
+        routed = float(cm_lru.lambda_max(p))
+        ideal = float(cm_lru.ideal_lambda_max(p))
+        if not routed < ideal:
+            raise AssertionError(f"fig_cluster D: p {p}: routed {routed} >= "
+                                 f"ideal {ideal}")
+        out["boundary"].append({"p": p, "routed": routed, "ideal": ideal})
+    lam = 0.6 * float(cm_lru.lambda_max(p_cluster))
+    f = slo_forecast(cm_lru.network, lam, CL_SLO_US,
+                     p_grid=np.linspace(0.05, p_hi, 40))
+    if not f.p_star_slo < 0.999:
+        raise AssertionError(f"fig_cluster D: p*_slo {f.p_star_slo}")
+    out["slo"] = {"lambda": lam, "p_star_slo": f.p_star_slo}
+    seconds["D"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    net_e = exponential_analogue(cm_s.network)
+    lam_e = 0.55 * float(cm_s.lambda_max(0.6, tail_mode="nominal"))
+    kw = dict(arrival_rate=lam_e, n_requests=FIG_REQUESTS, seeds=(0, 1),
+              max_in_system=512, device=device)
+    po = simulate_network(net_e, [0.6], **kw)
+    bu = simulate_network(net_e, [0.6], burst=(0.55, 2_000.0), **kw)
+    if not bu.sojourn_p99[0] > po.sojourn_p99[0]:
+        raise AssertionError(f"fig_cluster E: p99 burst {bu.sojourn_p99} <= "
+                             f"poisson {po.sojourn_p99}")
+    out["burst"] = {"lambda": lam_e, "poisson_p99": float(po.sojourn_p99[0]),
+                    "burst_p99": float(bu.sojourn_p99[0])}
+    seconds["E"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
 def figures_path(rec, device="cuda"):
-    """The delayed-hits and latency path: the qualitative assertions of
-    ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py`` and
-    ``fig_latency.py`` through the port (the machine with the card has no
-    jax), at the benchmarks' sizes; each figure's wall seconds."""
+    """The delayed-hits, latency and cluster path: the qualitative
+    assertions of ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py``,
+    ``fig_latency.py`` and ``fig_cluster.py`` through the port (the machine
+    with the card has no jax), at the benchmarks' sizes; each figure's wall
+    seconds."""
     out, seconds = {}, {}
     for name, fn in (("table2_classify", table2_classify),
                      ("fig_delayed_hits", fig_delayed_hits),
-                     ("fig_latency", fig_latency)):
+                     ("fig_latency", fig_latency),
+                     ("fig_cluster", fig_cluster)):
         t0 = time.perf_counter()
         out[name] = fn(device)
         seconds[name] = time.perf_counter() - t0
@@ -1037,6 +1305,152 @@ def figures_path(rec, device="cuda"):
     rec["figures"] = out
 
 
+def cluster_differential(rec, device="cuda"):
+    """``tests/test_cluster.py``'s simulations through the port on the
+    card: the 12-case matrix (LRU, FIFO, CLOCK x Zipf theta 0 and 1 x 1
+    and 4 shards; 9k simulated requests on seeds 0 and 1, mpl 12 per
+    shard, 8 flows per shard) and the six 16-shard cases (12k; the
+    oracle 9k), each the kernel against the port's key-routing oracle
+    (equal to the reference's: ``tests/test_torch_cluster.py``), averaged
+    over ``CL_ORACLE_SEEDS``, within that file's bands (seed 3's own gap
+    in X is recorded beside it); one of those cases again at 40k requests
+    over 16 seeds a side, held within 4 standard errors
+    (:func:`cluster_long_run`); the analytic bound over an uncoalesced run (the
+    counting kernel), shard-local coalescing, and the open-loop cluster
+    against the Erlang-C mixture at low load."""
+    import numpy as np
+    from repro_torch.cluster import (HashRing, cluster_network,
+                                     ideal_shard_profile, simulate_cluster,
+                                     simulate_cluster_py, zipf_key_probs)
+    from repro_torch.core import exponential_analogue
+    from repro_torch.core.simulator import simulate_network
+
+    def skewed(n_shards, theta=1.0):
+        probs = zipf_key_probs(1024, theta, seed=0)
+        assign = HashRing(n_shards, vnodes=64, seed=1).assignment(1024)
+        return probs, assign, ideal_shard_profile(assign, probs)
+
+    cases = [(pol, th, n) for n in (1, 4) for pol in ("lru", "fifo", "clock")
+             for th in (0.0, 1.0)]
+    cases += [(pol, th, 16) for pol in ("lru", "fifo", "clock")
+              for th in (0.0, 1.0)]
+    out = {}
+    for pol, theta, n in cases:
+        n_sim, n_py = CL_DIFF_REQUESTS[n]
+        probs, assign, prof = skewed(n, theta)
+        cm = cluster_network(pol, n, profile=prof, disk_us=100.0, mpl=12 * n)
+        jx = simulate_cluster(cm, [CL_P_OP], n_requests=n_sim, seeds=(0, 1),
+                              coalesce_flows=8, device=device)
+        runs = [simulate_cluster_py(cm, probs, assign, CL_P_OP,
+                                    n_requests=n_py, seed=seed,
+                                    coalesce_flows=8)
+                for seed in CL_ORACLE_SEEDS]
+        py = {k: np.nanmean([r[k] for r in runs], axis=0)
+              for k in ("x", "shard_hit_ratio", "shard_share",
+                        "shard_delayed_frac", "delayed_frac")}
+        w = cm.profile.weights
+        got = {"rel_x": abs(py["x"] - jx.throughput[0]) / py["x"],
+               "hit_gap": float(np.nansum(w * np.abs(
+                   jx.shard_hit_ratio[0] - py["shard_hit_ratio"]))),
+               "share_gap": float(np.abs(py["shard_share"] - w).max()),
+               "del_gap": float(np.nansum(w * np.abs(
+                   jx.shard_delayed_frac[0] - py["shard_delayed_frac"]))),
+               "delayed_gap": abs(float(jx.delayed_frac[0])
+                                  - py["delayed_frac"]),
+               "shard_sum_rel": abs(jx.shard_throughput[0].sum()
+                                    - jx.throughput[0]) / jx.throughput[0]}
+        limits = {"rel_x": 0.12, "hit_gap": 0.06, "share_gap": 0.08,
+                  "del_gap": 0.06, "delayed_gap": 0.06, "shard_sum_rel": 0.02}
+        bad = {k: v for k, v in got.items() if not v < limits[k]}
+        what = f"{pol} theta={theta:g} {n} shards"
+        if bad:
+            raise AssertionError(f"cluster differential {what}: {bad} "
+                                 f"(limits {limits})")
+        out[what] = {k: float(v) for k, v in got.items()}
+        out[what]["rel_x_seed3"] = float(abs(runs[0]["x"] - jx.throughput[0])
+                                         / runs[0]["x"])
+        print(f"cluster {what}: X {float(jx.throughput[0]):.4f} vs oracle "
+              f"{float(py['x']):.4f} (rel {got['rel_x']:.3f}; seed 3 alone "
+              f"{out[what]['rel_x_seed3']:.3f}), hit gap "
+              f"{got['hit_gap']:.4f}, delayed gap {got['del_gap']:.4f}",
+              flush=True)
+
+    out["long_run"] = cluster_long_run(device)
+    _, _, prof = skewed(4)
+    cm = cluster_network("lru", 4, profile=prof, disk_us=100.0, mpl=96)
+    jx = simulate_cluster(cm, [0.5, 0.8], n_requests=10_000, seeds=(0, 1),
+                          device=device)
+    ub = cm.throughput_upper(jx.p_hit)
+    if not (np.all(jx.throughput <= ub * 1.03)
+            and np.all(jx.delayed_frac == 0.0)):
+        raise AssertionError(f"cluster bound: {jx.throughput} vs {ub}")
+    out["bound"] = {"x": jx.throughput.tolist(), "upper": ub.tolist()}
+    cm = cluster_network("lru", 4, profile=prof, disk_us=100.0, mpl=48)
+    jx = simulate_cluster(cm, [0.6], n_requests=12_000, seeds=(0, 1, 2),
+                          coalesce_flows=8, device=device)
+    pk = prof.shard_p(0.6)
+    hot, cold = int(np.argmax(pk)), int(np.argmin(pk))
+    if not (jx.shard_delayed_frac[0, hot] < jx.shard_delayed_frac[0, cold]
+            and jx.delayed_frac[0] > 0.05):
+        raise AssertionError(f"cluster shard-local coalescing: "
+                             f"{jx.shard_delayed_frac[0]}")
+    out["shard_local_delayed"] = jx.shard_delayed_frac[0].tolist()
+    cm = cluster_network("lru", 4, profile=prof, disk_us=100.0)
+    lam = 0.35 * float(cm.lambda_max(0.7, tail_mode="nominal"))
+    op = simulate_network(exponential_analogue(cm.network), [0.7],
+                          arrival_rate=lam, n_requests=15_000, seeds=(0, 1),
+                          max_in_system=256, device=device)
+    want = float(cm.response_time(0.7, lam))
+    rel = abs(op.sojourn_mean[0] - want) / want
+    if not (np.all(op.drop_frac == 0.0) and rel < 0.1):
+        raise AssertionError(f"cluster open loop: {op.sojourn_mean} vs {want}")
+    out["open_mixture_rel"] = float(rel)
+    rec["cluster_differential"] = out
+
+
+def cluster_long_run(device="cuda", n_requests=CL_LONG_REQUESTS,
+                     n_seeds=CL_LONG_SEEDS, n_se=CL_LONG_SE) -> dict:
+    """The differential's LRU, theta 1, 4-shard case at ``n_requests``:
+    ``simulate_cluster`` (the kernel on the card, its plain version on the
+    CPU) over seeds 0 .. n_seeds - 1 against the key-routing oracle over
+    seeds 3 .. n_seeds + 2; the two means must lie within ``n_se``
+    standard errors of their difference (each side's error from its own
+    seeds' spread).  Returns both sides' numbers."""
+    import numpy as np
+    from repro_torch.cluster import (HashRing, cluster_network,
+                                     ideal_shard_profile, simulate_cluster,
+                                     simulate_cluster_py, zipf_key_probs)
+
+    probs = zipf_key_probs(1024, 1.0, seed=0)
+    assign = HashRing(4, vnodes=64, seed=1).assignment(1024)
+    cm = cluster_network("lru", 4, profile=ideal_shard_profile(assign, probs),
+                         disk_us=100.0, mpl=48)
+    jx = simulate_cluster(cm, [CL_P_OP], n_requests=n_requests,
+                          seeds=tuple(range(n_seeds)), coalesce_flows=8,
+                          device=device)
+    xs = np.array([simulate_cluster_py(cm, probs, assign, CL_P_OP,
+                                       n_requests=n_requests, seed=seed,
+                                       coalesce_flows=8)["x"]
+                   for seed in range(3, 3 + n_seeds)], dtype=np.float64)
+    se_sim = float(jx.ci95[0]) / 1.96
+    se_py = float(xs.std(ddof=1)) / math.sqrt(n_seeds)
+    got = {"x_sim": float(jx.throughput[0]), "se_sim": se_sim,
+           "x_oracle": float(xs.mean()), "se_oracle": se_py,
+           "sd_oracle": float(xs.std(ddof=1)),
+           "gap": abs(float(jx.throughput[0]) - float(xs.mean())),
+           "band": n_se * math.hypot(se_sim, se_py),
+           "n_requests": n_requests, "n_seeds": n_seeds}
+    got["rel_x"] = got["gap"] / got["x_oracle"]
+    print(f"cluster lru theta=1 4 shards, {n_requests} requests x "
+          f"{n_seeds} seeds: X {got['x_sim']:.5f} (se {se_sim:.5f}) vs "
+          f"oracle {got['x_oracle']:.5f} (se {se_py:.5f}): gap "
+          f"{got['gap']:.5f}, band {got['band']:.5f} ({n_se:g} se)",
+          flush=True)
+    if not got["gap"] < got["band"]:
+        raise AssertionError(f"cluster long run: {got}")
+    return got
+
+
 def ext_timing(rec):
     """The coalescing and open-loop instantiations timed per launch (CUDA
     events) on one lane of the figures' networks (fig_delayed_hits B at
@@ -1045,13 +1459,16 @@ def ext_timing(rec):
     C's disk, and the draws of B's equal on the card) and the work's
     bound: its bytes, and its operations counted as if they ran in
     parallel, as for the event-sim row.  Also the figures' own launches
-    (fig_delayed_hits B's 6 lanes, fig_latency B's 9) at FIG_REQUESTS."""
+    (fig_delayed_hits B's 6 lanes, fig_latency B's 9) at FIG_REQUESTS, and
+    the counting instantiation on one lane of fig_cluster C's 8-shard
+    network (beside its plain version and bound, the closed kernel and the
+    coalescing one on the same lane: ns per event at 8 shards)."""
     import numpy as np
     import torch
     from repro_torch.core import build, exponential_analogue
     from repro_torch.kernels import event_sim as es
     from repro_torch.latency import lambda_max
-    from test_torch_event_sim_cuda import hold_coalesced, hold_open
+    from test_torch_event_sim_cuda import cluster_model, hold_coalesced, hold_open
 
     dev = torch.device("cuda")
 
@@ -1113,7 +1530,46 @@ def ext_timing(rec):
                          (0, 1, 2), 0.25, 256, device=dev)
     open_fig_ms = cuda_ms(lambda: es.sim_open_lanes(ofig[0], ofig[1], **ofig[2]),
                           reps=3)
+
+    # the counting instantiation at 8 shards: one lane of fig_cluster C's
+    # network at its middle p, beside the closed kernel on the same lane
+    # and the coalescing one with 8 flows per shard
+    cm = cluster_model(CL_SHARDS, 12 * CL_SHARDS, key_space=CL_SIM_KEYS)
+    cspec, cseeds, ckw = es.grid_lanes(cm.network, np.array([CL_SIM_P[1]]),
+                                       EXT_TIMING_REQUESTS, (0,), 0.25, dev)
+    cnt_ms = cuda_ms(lambda: es.sim_lanes(cspec, cseeds, count_branches=True,
+                                          **ckw), reps=5)
+    ckern = es.sim_lanes(cspec, cseeds, count_branches=True, **ckw)
+    cplain, cnt_plain_ms = timed_plain(
+        lambda: es.sim_lanes_plain(cspec, cseeds, count_branches=True, **ckw))
+    rec["event_sim_count_max_abs_err"] = max(
+        rec["event_sim_count_max_abs_err"],
+        hold_coalesced(ckern, cplain, exact=False))
+    closed_ms = cuda_ms(lambda: es.sim_lanes(cspec, cseeds, **ckw), reps=5)
+    cnt_events = int(ckern.events.long().sum())
+    # outputs: the closed loop's four and the delayed fraction, and two
+    # counts per branch
+    cnt_bytes = spec_bytes(cspec, cseeds, ckw) + 4 * (5 + 2 * cspec.visits.shape[1])
+    # per event: the closed loop's work and the count's increment
+    cnt_ops = cnt_events * (5 * ckw["mpl"] + 61)
+    nb, nby = work_bound(cnt_bytes, cnt_ops)
+    fspec, fseeds, fkw = es.grid_lanes(cm.network, np.array([CL_SIM_P[1]]),
+                                       EXT_TIMING_REQUESTS, (0,), 0.25, dev,
+                                       coalesce_flows=8)
+    fl_ms = cuda_ms(lambda: es.sim_lanes(fspec, fseeds, **fkw), reps=5)
+    fl_events = int(es.sim_lanes(fspec, fseeds, **fkw).events.long().sum())
+    n_k = int(cspec.svc_ns.shape[1])
     out = {
+        "count_8_shards": {
+            "ms": cnt_ms, "plain_ms": cnt_plain_ms, "events": cnt_events,
+            "ns_per_event": cnt_ms * 1e6 / cnt_events,
+            "closed_ms": closed_ms,
+            "closed_ns_per_event": closed_ms * 1e6 / cnt_events,
+            "coalesced_ms": fl_ms, "coalesced_events": fl_events,
+            "coalesced_ns_per_event": fl_ms * 1e6 / fl_events,
+            "stations": n_k, "mpl": ckw["mpl"], "bytes": cnt_bytes,
+            "ops": cnt_ops, "bound_ms": nb,
+            "requests": EXT_TIMING_REQUESTS},
         "coalesced": {"ms": co_ms, "plain_ms": co_plain_ms, "events": co_events,
                       "ns_per_event": co_ms * 1e6 / co_events,
                       "bytes": co_bytes, "ops": co_ops, "bound_ms": cb,
@@ -1124,6 +1580,13 @@ def ext_timing(rec):
                  "bytes": open_bytes, "ops": open_ops, "bound_ms": ob,
                  "fig_b_launch_ms": open_fig_ms,
                  "requests": EXT_TIMING_REQUESTS}}
+    c8 = out["count_8_shards"]
+    print(f"event_sim count, {CL_SHARDS} shards (K {n_k}, mpl {ckw['mpl']}): "
+          f"{cnt_ms:.3f} ms per 1-lane launch ({c8['ns_per_event']:.1f} ns per "
+          f"event), plain {cnt_plain_ms:.1f} ms, bound {nb:.5f} ms; the closed "
+          f"kernel on the same lane {c8['closed_ns_per_event']:.1f} ns per "
+          f"event, the coalescing one (8 flows per shard) "
+          f"{c8['coalesced_ns_per_event']:.1f} ns per event", flush=True)
     print(f"event_sim coalesced: {co_ms:.3f} ms per 1-lane launch "
           f"({out['coalesced']['ns_per_event']:.1f} ns per event), plain "
           f"{co_plain_ms:.1f} ms, bound {cb:.5f} ms; fig_delayed_hits B's "
@@ -1144,6 +1607,11 @@ def ext_timing(rec):
          "replaces": "src/repro/core/simulator.py:846",
          "ms": open_ms, "plain_ms": open_plain_ms, "bound_ms": ob,
          "bound_by": oby, "library_ms": None},
+        {"name": "event_sim_count", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim.cu",
+         "replaces": "src/repro/core/simulator.py:162",
+         "ms": cnt_ms, "plain_ms": cnt_plain_ms, "bound_ms": nb,
+         "bound_by": nby, "library_ms": None},
     ]
 
 
@@ -2916,6 +3384,7 @@ def main() -> int:
     phases.run("wkv_vs_plain", check_wkv, rec)
     phases.run("coalesce_vs_plain", check_coalesce, rec)
     phases.run("open_vs_plain", check_open, rec)
+    phases.run("cluster_vs_plain", check_cluster, rec)
 
     kr.replay_lanes.launches = 0
     es.sim_lanes.launches = 0
@@ -2934,6 +3403,9 @@ def main() -> int:
     phases.run("figures_path", figures_path, rec)
     launches["event_sim_coalesced"] = es.sim_lanes.flows_launches
     launches["event_sim_open"] = es.sim_open_lanes.launches
+    es.sim_lanes.count_launches = 0
+    phases.run("cluster_differential", cluster_differential, rec)
+    launches["event_sim_count"] = es.sim_lanes.count_launches
     # the full-width model in bf16, and the same weights in float32
     cfg = get_config(ARCH)
     model = (cfg, phases.run("model_init", transformer.init_params, cfg))
@@ -2986,6 +3458,7 @@ def main() -> int:
         k["max_abs_err"] = rec[f"{k['name']}_max_abs_err"]
     rec["kernels"] = kernels
     rec["phase_seconds"] = phases.seconds
+    print(f"phases: {sum(phases.seconds.values()):.1f} s in all", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

@@ -237,13 +237,25 @@ def classify_inflight(keys: ArrayLike, hits: ArrayLike | torch.Tensor,
 
     ``keys`` is (T,) or (S, T); ``hits`` is (..., T) with any leading grid
     axes (when ``keys`` is (S, T) the second-to-last hits axis must be S).
-    Returns int8 classes shaped like ``hits``, {TRUE_MISS=0, TRUE_HIT=1,
-    DELAYED_HIT=2}, as a host array.
+    ``window`` may also be shaped like ``hits`` (at least 2-D): one window
+    stream per hits row, every row still classified in the same single
+    pass over the requests, each bit for bit as that row alone with its
+    own window.  Returns int8 classes shaped like ``hits``, {TRUE_MISS=0,
+    TRUE_HIT=1, DELAYED_HIT=2}, as a host array.
     """
     dev = resolve_device(device)
     keys = np.asarray(keys)
     hits_t = torch.as_tensor(hits).to(dev)
-    windows = _window_stream(window, int(keys.shape[-1]), fail_prob, fail_seed)
+    n_t = int(keys.shape[-1])
+    per_row = np.asarray(0 if window is None else window)
+    if per_row.ndim >= 2:
+        if per_row.shape != tuple(hits_t.shape):
+            raise ValueError(f"per-row windows {per_row.shape} vs hits "
+                             f"{tuple(hits_t.shape)}")
+        windows = np.stack([_window_stream(w, n_t, fail_prob, fail_seed)
+                            for w in per_row.reshape(-1, n_t)])
+    else:
+        windows = _window_stream(window, n_t, fail_prob, fail_seed)
     key_space = _resolve_key_space(keys, key_space)
     if keys.ndim == 1:
         keys2 = keys[None, :]
@@ -266,7 +278,7 @@ def classify_inflight(keys: ArrayLike, hits: ArrayLike | torch.Tensor,
     n_l = flat_h.shape[0]
     cls = _classify_lanes(
         torch.from_numpy(keys2[key_lane].astype(np.int64)).to(dev), flat_h,
-        torch.from_numpy(np.broadcast_to(windows, (n_l, windows.shape[0]))
-                         .copy()).to(dev),
+        torch.from_numpy(np.broadcast_to(windows, (n_l, n_t)).copy()).to(dev),
         key_space)
     return cls.cpu().numpy().reshape(tuple(hits_t.shape))
+

@@ -354,8 +354,8 @@ def sweep_cache_sizes(
 
     Every size is a lane of ONE replay launch, with the delayed-hit
     classification fused into the same pass when the sizes share a window
-    stream (per-size scalar windows that differ are classified per size
-    afterwards).
+    stream (per-size scalar windows that differ are classified afterwards,
+    every size a lane of one pass over the requests).
 
     ``miss_latency_requests`` — a scalar, one window per size, or one
     window per *request* (an ``(n_requests,)`` array applied to every
@@ -394,6 +394,14 @@ def sweep_cache_sizes(
         **policy_kwargs)
     hits_g = res.hits[:, 0].cpu().numpy()
     ops_g = unpack_grid_ops(res)[:, 0]
+    cls_sizes = None
+    if classify and res.cls is None:
+        per_size = np.stack([np.broadcast_to(w, (n_requests,))
+                             for w in windows])
+        cls_sizes = classify_inflight(trace, res.hits[:, 0], per_size,
+                                      key_space=key_space,
+                                      fail_prob=fetch_fail_prob,
+                                      fail_seed=seed, device=dev)
     service = dataclasses.replace(
         PAPER_SERVICES.get(policy, ServiceTimes()), disk=disk_us
     )
@@ -404,13 +412,7 @@ def sweep_cache_sizes(
                                  disk_servers=disk_servers)
         meas = dataclasses.replace(meas, capacity=c)
         if np.any(w):
-            if res.cls is not None:
-                cls = res.cls[i, 0]
-            else:
-                cls = classify_inflight(trace, res.hits[i, 0], w,
-                                        key_space=key_space,
-                                        fail_prob=fetch_fail_prob,
-                                        fail_seed=seed, device=dev)
+            cls = res.cls[i, 0] if res.cls is not None else cls_sizes[i]
             meas = dataclasses.replace(
                 meas,
                 miss_latency_requests=int(round(float(np.mean(w)))),

@@ -85,6 +85,15 @@
 //     prefix).  Arrivals win ties against departures and toggles, toggles
 //     against departures, as in the reference.
 //
+// Per-branch counts in the closed loop (kMode kCount): the reference's
+// threefry engine counts every closed run's completions per branch (the
+// cluster prong reads them per shard); the closed kernel does not, so
+// that its instantiations keep their code.  kCount is the closed loop
+// with those counts and nothing of coalescing: the owner of a completing
+// job adds one to its branch's count in shared memory by an atomic, and
+// the warmup snapshot copies the counts as kFlows does.  Its events are
+// the closed kernel's, draw for draw.
+//
 // Where bit-exactness with the JAX reference could break:
 //   * argmin ties: jnp.argmin returns the FIRST index.  Each thread keeps
 //     its lowest index among equal remaining times, and the second
@@ -125,10 +134,12 @@ constexpr int CLS_DELAYED = 2;
 constexpr int PARKED = -2;               // station of a job parked on a fetch
 constexpr uint32_t INF_REL = 0x7fffffffu;  // INF_NS: a time that never comes
 // kernel modes: the closed loop, the closed loop with coalescing, the
-// open loop (coalescing and bursts as runtime switches)
+// open loop (coalescing and bursts as runtime switches), the closed loop
+// with per-branch counts
 constexpr int kClosed = 0;
 constexpr int kFlows = 1;
 constexpr int kOpen = 2;
+constexpr int kCount = 3;
 
 __device__ __forceinline__ uint32_t mix(uint32_t x) {
   x ^= x >> 16;
@@ -250,8 +261,8 @@ struct Ext {
   const int* bmiss;       // (lanes, B) open loop: 1 if the route has a disk
   const float* ia_mean;   // (lanes) open loop: mean interarrival, ns
   float* delayed_frac;    // (lanes)
-  int* branch_done;       // (lanes, B) closed: measured completions
-  int* branch_delayed;    // (lanes, B) closed: measured delayed hits
+  int* branch_done;       // (lanes, B) kFlows, kCount: measured completions
+  int* branch_delayed;    // (lanes, B) kFlows, kCount: measured delayed hits
   int* dropped;           // (lanes) open: arrivals that found no slot
   float* soj;             // (lanes, rec_len) open: sojourn, us
   signed char* cls;       // (lanes, rec_len) open: class
@@ -275,7 +286,7 @@ constexpr int kBatch = 32;
 // With coalescing or the open loop, also: (K) disk ranks, the leader
 // table, the flow CDF and (kFlows) the per-branch counts and their warmup
 // snapshots; the open loop keeps (B) miss classes; R = 0 job slots hold
-// two more arrays (flow, age).
+// two more arrays (flow, age).  kCount keeps the per-branch counts only.
 struct Layout {
   int q, law, draw, vis, cum, miss, enter, leave, trash, rank, lead, fcum,
       bcnt, jobs, bytes;
@@ -305,16 +316,17 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
   o += trace ? 4 * mpl * n_l : 0;
   s.trash = o;
   o += trace ? 4 * 32 : 0;
+  const bool ext = mode == kFlows || mode == kOpen;
   s.rank = o;
-  o += mode != kClosed ? 4 * n_k : 0;
+  o += ext ? 4 * n_k : 0;
   s.lead = o;
-  o += mode != kClosed ? 4 * n_lead : 0;
+  o += ext ? 4 * n_lead : 0;
   s.fcum = o;
-  o += mode != kClosed ? 4 * n_cdf : 0;
+  o += ext ? 4 * n_cdf : 0;
   s.bcnt = o;
-  o += mode == kFlows ? 16 * n_b : 0;
+  o += mode == kFlows || mode == kCount ? 16 * n_b : 0;
   s.jobs = o;
-  o += smem_jobs ? (mode == kClosed ? 24 : 32) * mpl : 0;
+  o += smem_jobs ? (ext ? 32 : 24) * mpl : 0;
   s.bytes = o;
   return s;
 }
@@ -392,8 +404,9 @@ struct Jobs<0> {
 template <int kTrace, int R, int kMode>
 __global__ void __launch_bounds__(32)
     sim_kernel(const Args a, const Rings rings, const Ext ex) {
-  constexpr bool kExt = kMode != kClosed;  // coalescing state present
+  constexpr bool kExt = kMode == kFlows || kMode == kOpen;  // coalescing state
   constexpr bool kOp = kMode == kOpen;
+  constexpr bool kCnt = kMode == kFlows || kMode == kCount;  // per-branch counts
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane_id = blockIdx.x;
   const int me = threadIdx.x;
@@ -437,9 +450,9 @@ __global__ void __launch_bounds__(32)
       if (zipf) {
         for (int f = me; f < ex.n_flows; f += 32) fcum[f] = ex.flow_cum[f];
       }
-      if constexpr (kMode == kFlows) {
-        for (int i = me; i < 4 * n_b; i += 32) bcnt[i] = 0;
-      }
+    }
+    if constexpr (kCnt) {
+      for (int i = me; i < 4 * n_b; i += 32) bcnt[i] = 0;
     }
   }
   __syncwarp();
@@ -812,6 +825,9 @@ __global__ void __launch_bounds__(32)
       }
       __syncwarp();
     }
+    if constexpr (kMode == kCount) {
+      if (done && me == owner && o_br < n_b) atomicAdd(&bcnt[o_br], 1);
+    }
     if constexpr (kOp) {
       // the leaving request's sojourn is its owner's age of the slot
       if (done && me == owner) record(completed, o_age, miss[min(bj, n_b - 1)] ? CLS_MISS : CLS_HIT);
@@ -856,7 +872,7 @@ __global__ void __launch_bounds__(32)
       warm_completed = completed;
       warm_elapsed_us = elapsed_us;
       if constexpr (kExt) warm_delayed = delayed;
-      if constexpr (kMode == kFlows) {
+      if constexpr (kCnt) {
         __syncwarp();  // the counts' atomics are done
         for (int i = me; i < 2 * n_b; i += 32) bcnt[2 * n_b + i] = bcnt[i];
         __syncwarp();
@@ -866,7 +882,7 @@ __global__ void __launch_bounds__(32)
     ++slot;
   }
   store_trace();
-  if constexpr (kMode == kFlows) {
+  if constexpr (kCnt) {
     __syncwarp();
     for (int b = me; b < n_b; b += 32) {
       ex.branch_done[lane_id * n_b + b] = bcnt[b] - bcnt[2 * n_b + b];
@@ -880,7 +896,7 @@ __global__ void __launch_bounds__(32)
     a.events[lane_id] = events;
     a.tmeas[lane_id] = t_meas;
     if constexpr (kTrace > 0) rings.n_count[lane_id] = completed;  // one record each
-    if constexpr (kExt) {
+    if constexpr (kExt || kCnt) {
       ex.delayed_frac[lane_id] = static_cast<float>(delayed - warm_delayed) /
                                  static_cast<float>(max(completed - warm_completed, 1));
     }
@@ -979,19 +995,31 @@ extern "C" int event_sim_shared_bytes(int n_k, int n_b, int n_l, int mpl,
 // job state in shared memory).
 extern "C" int event_sim_slots(int mpl) { return reg_slots(mpl); }
 
-// Shared memory of one block of the coalescing or open-loop launch.
+// The mode of an ExtArgs launch: the open loop, coalescing (n_flows > 0)
+// or the closed loop with per-branch counts.
+static int ext_mode(const ExtArgs& p) {
+  return p.open ? kOpen : p.n_flows > 0 ? kFlows : kCount;
+}
+
+// Shared memory of one block of the coalescing, open-loop or counting
+// launch.
 extern "C" int event_sim_ext_shared_bytes(const ExtArgs* p) {
   return layout(p->n_k, p->n_b, p->n_l, p->mpl, false, reg_slots(p->mpl) == 0,
-                p->open ? kOpen : kFlows, p->n_lead,
-                p->flow_cum != nullptr ? p->n_flows : 0)
+                ext_mode(*p), p->n_lead, p->flow_cum != nullptr ? p->n_flows : 0)
       .bytes;
 }
 
-// The coalescing (open == 0) or open-loop launch, one warp per lane on
+// The coalescing (open == 0, n_flows > 0), open-loop (open == 1) or
+// counting (open == 0, n_flows == 0) launch, one warp per lane on
 // `stream`; returns the cudaError_t.
 extern "C" int event_sim_ext_launch(const ExtArgs* p, void* stream) {
-  return p->open ? launch_ext<kOpen>(args_of(*p), ext_of(*p), p->lanes, stream)
-                 : launch_ext<kFlows>(args_of(*p), ext_of(*p), p->lanes, stream);
+  const Args a = args_of(*p);
+  const Ext ex = ext_of(*p);
+  switch (ext_mode(*p)) {
+    case kOpen: return launch_ext<kOpen>(a, ex, p->lanes, stream);
+    case kFlows: return launch_ext<kFlows>(a, ex, p->lanes, stream);
+    default: return launch_ext<kCount>(a, ex, p->lanes, stream);
+  }
 }
 
 // Launch one warp per lane on `stream`; returns the cudaError_t.

@@ -43,6 +43,13 @@ job slots with per-request sojourn and class records.  Their extra draws
 come from a second keyed stream (:func:`lane_base2`), so the closed
 loop's draws keep their counters and ``n_flows = 0`` runs the closed
 kernel bit for bit as before.
+
+**Per-branch counts** in the closed loop (``count_branches=True`` with
+``n_flows = 0``): the measured completions per branch, which the
+reference's threefry engine takes on every closed run and the cluster
+prong reads per shard.  The closed kernel does not take them (its
+instantiations keep their code); a fourth instantiation does
+(``kCount``), with the closed loop's events draw for draw.
 """
 
 from __future__ import annotations
@@ -179,8 +186,9 @@ class LaneOutputs(NamedTuple):
     events: torch.Tensor      # (L,) i32
     t_measured: torch.Tensor  # (L,) f32 µs
     rings: Optional[TraceRings] = None  # filled when trace_cap > 0
-    # filled when n_flows > 0: the measured delayed-hit fraction (L,) f32,
-    # and the measured completions and delayed hits per branch (L, B) i32
+    # filled when n_flows > 0 or count_branches: the measured delayed-hit
+    # fraction (L,) f32 (zero without coalescing), and the measured
+    # completions and delayed hits per branch (L, B) i32
     delayed_frac: Optional[torch.Tensor] = None
     branch_done: Optional[torch.Tensor] = None
     branch_delayed: Optional[torch.Tensor] = None
@@ -232,7 +240,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                     trace_cap: int = 0,
                     bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
                     flow_theta: float = 0.0, n_disks: int = 1,
-                    disk_rank: Optional[torch.Tensor] = None) -> LaneOutputs:
+                    disk_rank: Optional[torch.Tensor] = None,
+                    count_branches: bool = False) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
     inputs' device (``is_queue`` may be bool or int32, as for the kernel).
 
@@ -258,7 +267,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     f`` (:func:`flow_index`, Zipf(``flow_theta``) when it is > 0) and
     either parks on its in-flight fetch (no server, no queue place) or
     leads it.  The warmup snapshot also takes the delayed count and the
-    per-branch counts.  ``n_flows = 0`` runs no coalescing code.
+    per-branch counts.  ``n_flows = 0`` runs no coalescing code; with
+    ``count_branches`` it still counts each lane's completions per branch
+    (and no delayed hits), with the same warmup snapshot.
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
@@ -314,9 +325,12 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                               device=dev)
         leave_s = torch.zeros_like(enter_s)
         miss = bmiss.bool()
+    co = None
     if n_flows:
         co = _Coalescer(seeds, mpl, n_flows, flow_theta, n_disks, disk_rank,
                         n_b)
+    elif count_branches:
+        co = _BranchCounts(n_l, n_b, dev)
 
     e = 0
     while True:
@@ -386,8 +400,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         has_slot = busy[lane, k_next] < servers[lane, k_next]
         starts_now = ~is_q | has_slot
         waits = ~starts_now
-        if n_flows:
+        if co is not None:
             co.count_done(active & done, b_j)
+        if n_flows:
             parks = co.place(active, j, k_next, c)
             starts_now = starts_now & ~parks
             waits = waits & ~parks
@@ -404,7 +419,7 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         warm_now = active & (completed >= warmup) & (warm_completed < 0)
         warm_completed = torch.where(warm_now, completed, warm_completed)
         warm_elapsed = torch.where(warm_now, elapsed, warm_elapsed)
-        if n_flows:
+        if co is not None:
             co.snapshot(warm_now)
         events = torch.where(active, events + 1, events)
 
@@ -412,25 +427,58 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     x = (completed - warm_completed).to(torch.float32) / t_meas
     out = LaneOutputs(x, completed.to(torch.int32), events.to(torch.int32),
                       t_meas, rings)
-    if n_flows:
+    if co is not None:
         out = out._replace(**co.results(completed - warm_completed))
     return out
 
 
-class _Coalescer:
+class _BranchCounts:
+    """Per-branch measured completions and delayed hits of every lane,
+    the delayed count, and their warmup snapshots (the closed loop's
+    ``count_branches``; the base of :class:`_Coalescer`)."""
+
+    def __init__(self, n_l: int, n_b: int, dev: torch.device):
+        self.lane = torch.arange(n_l, device=dev)
+        self.n_b = n_b
+        self.delayed = torch.zeros(n_l, dtype=torch.int64, device=dev)
+        self.done_b = torch.zeros((n_l, n_b), dtype=torch.int64, device=dev)
+        self.delayed_b = torch.zeros_like(self.done_b)
+        self.warm = [torch.zeros_like(self.delayed), self.done_b.clone(),
+                     self.delayed_b.clone()]
+
+    def count_done(self, done, b_j) -> None:
+        keep = done & (b_j < self.n_b)
+        self.done_b[self.lane, b_j.clamp(max=self.n_b - 1)] += keep.long()
+
+    def snapshot(self, warm_now) -> None:
+        for w, v in zip(self.warm, (self.delayed, self.done_b,
+                                    self.delayed_b)):
+            m = warm_now.view(-1, *[1] * (v.dim() - 1))
+            w.copy_(torch.where(m, v, w))
+
+    def results(self, n_measured: torch.Tensor) -> dict:
+        frac = ((self.delayed - self.warm[0]).to(torch.float32)
+                / n_measured.clamp(min=1).to(torch.float32))
+        return dict(delayed_frac=frac,
+                    branch_done=(self.done_b - self.warm[1]).to(torch.int32),
+                    branch_delayed=(self.delayed_b
+                                    - self.warm[2]).to(torch.int32))
+
+
+class _Coalescer(_BranchCounts):
     """The MSHR state of :func:`sim_lanes_plain` with ``n_flows > 0`` (and
     of :func:`sim_open_lanes_plain`), every lane batched: each job's flow
-    (-1: none), the leader table, the delayed and per-branch counts and
-    their warmup snapshots."""
+    (-1: none), the leader table, and the counts of
+    :class:`_BranchCounts`."""
 
     def __init__(self, seeds: torch.Tensor, n_jobs: int, n_flows: int,
                  flow_theta: float, n_disks: int, disk_rank: torch.Tensor,
                  n_b: int):
         dev = seeds.device
         n_l = seeds.shape[0]
-        self.lane = torch.arange(n_l, device=dev)
+        super().__init__(n_l, n_b, dev)
         self.base2 = lane_base2(seeds)[:, None]
-        self.n, self.n_flows, self.n_b = n_jobs, n_flows, n_b
+        self.n, self.n_flows = n_jobs, n_flows
         cdf = flow_cdf(n_flows, flow_theta)
         self.cdf = None if cdf is None else torch.from_numpy(cdf).to(dev)
         self.rank = disk_rank.long()
@@ -438,11 +486,6 @@ class _Coalescer:
                                device=dev)
         self.leader = torch.full((n_l, max(n_disks, 1) * n_flows), -1,
                                  dtype=torch.int64, device=dev)
-        self.delayed = torch.zeros(n_l, dtype=torch.int64, device=dev)
-        self.done_b = torch.zeros((n_l, n_b), dtype=torch.int64, device=dev)
-        self.delayed_b = torch.zeros_like(self.done_b)
-        self.warm = [torch.zeros_like(self.delayed), self.done_b.clone(),
-                     self.delayed_b.clone()]
 
     def block(self, e) -> int:
         """First counter of event ``e``'s block of the second stream."""
@@ -492,10 +535,6 @@ class _Coalescer:
         self.flow[woken] = -1
         self.flow[lane, j] = torch.where(fill, -1, self.flow[lane, j])
 
-    def count_done(self, done, b_j) -> None:
-        keep = done & (b_j < self.n_b)
-        self.done_b[self.lane, b_j.clamp(max=self.n_b - 1)] += keep.long()
-
     def place(self, active, j, k_next, c: int, at: Optional[torch.Tensor] = None):
         """Job ``j`` arrives at ``k_next`` (lanes ``at``, default every
         lane): at a disk it samples a flow and parks behind that flow's
@@ -512,20 +551,6 @@ class _Coalescer:
         self.leader[lane, f_new] = torch.where(lead, j, self.leader[lane, f_new])
         self.flow[lane, j] = torch.where(at_disk, f_new, self.flow[lane, j])
         return parks
-
-    def snapshot(self, warm_now) -> None:
-        for w, v in zip(self.warm, (self.delayed, self.done_b,
-                                    self.delayed_b)):
-            m = warm_now.view(-1, *[1] * (v.dim() - 1))
-            w.copy_(torch.where(m, v, w))
-
-    def results(self, n_measured: torch.Tensor) -> dict:
-        frac = ((self.delayed - self.warm[0]).to(torch.float32)
-                / n_measured.clamp(min=1).to(torch.float32))
-        return dict(delayed_frac=frac,
-                    branch_done=(self.done_b - self.warm[1]).to(torch.int32),
-                    branch_delayed=(self.delayed_b
-                                    - self.warm[2]).to(torch.int32))
 
 
 class OpenLaneOutputs(NamedTuple):
@@ -854,7 +879,8 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
               trace_cap: int = 0,
               bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
               flow_theta: float = 0.0, n_disks: int = 1,
-              disk_rank: Optional[torch.Tensor] = None) -> LaneOutputs:
+              disk_rank: Optional[torch.Tensor] = None,
+              count_branches: bool = False) -> LaneOutputs:
     """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
@@ -866,9 +892,14 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     table; the result then carries the filled rings.  ``n_flows > 0``
     runs the coalescing kernel (see :func:`sim_lanes_plain`) and needs
     ``disk_rank``, the (L, K) int32 disk rank of each station; the result
-    then carries the delayed fraction and the per-branch counts.  Untraced,
-    traced and coalescing launches are counted apart
-    (``sim_lanes.launches``, ``.traced_launches``, ``.flows_launches``).
+    then carries the delayed fraction and the per-branch counts.
+    ``count_branches`` with ``n_flows = 0`` runs the counting kernel
+    (``kCount``): the closed loop's events with the per-branch counts (and
+    a zero delayed fraction) on the result; traced as well, it is one
+    traced and one counting launch, which simulate the same events.
+    Untraced, traced, coalescing and counting launches are counted apart
+    (``sim_lanes.launches``, ``.traced_launches``, ``.flows_launches``,
+    ``.count_launches``).
     """
     if trace_cap < 0:
         raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
@@ -893,12 +924,22 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if seeds.device.type == "cpu":
         return sim_lanes_plain(spec, seeds, n_requests=n_requests,
                                warmup=warmup, mpl=mpl, max_events=max_events,
-                               trace_cap=trace_cap, bmiss=bmiss, **flows)
-    if n_flows:
+                               trace_cap=trace_cap, bmiss=bmiss,
+                               count_branches=count_branches, **flows)
+    count = {}
+    if n_flows or count_branches:
         out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
                           n_jobs=mpl, max_events=max_events, **flows)
-        sim_lanes.flows_launches += 1
-        return out
+        if n_flows:
+            sim_lanes.flows_launches += 1
+        else:
+            sim_lanes.count_launches += 1
+        if not trace_cap:
+            return out
+        # traced as well: the traced launch simulates the same events
+        count = dict(delayed_frac=out.delayed_frac,
+                     branch_done=out.branch_done,
+                     branch_delayed=out.branch_delayed)
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
     n_b, n_r = spec.visits.shape[1], spec.visits.shape[2]
@@ -934,12 +975,13 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         sim_lanes.traced_launches += 1
     else:
         sim_lanes.launches += 1
-    return LaneOutputs(*outs, rings)
+    return LaneOutputs(*outs, rings, **count)
 
 
 sim_lanes.launches = 0  # untraced kernel launches (CUDA path only)
 sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
 sim_lanes.flows_launches = 0  # coalescing kernel launches (CUDA path only)
+sim_lanes.count_launches = 0  # counting kernel launches (CUDA path only)
 
 
 def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
@@ -993,7 +1035,8 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 warmup: int, n_jobs: int, max_events: torch.Tensor,
                 n_flows: int, flow_theta: float, n_disks: int,
                 disk_rank: Optional[torch.Tensor], open_loop=None):
-    """One launch of the coalescing (``open_loop`` None) or open-loop
+    """One launch of the coalescing (``open_loop`` None, ``n_flows > 0``),
+    counting (``open_loop`` None, ``n_flows = 0``) or open-loop
     (``open_loop = (ia_mean, bmiss, burst)``) instantiation."""
     dev = seeds.device
     n_l = seeds.shape[0]
@@ -1172,6 +1215,7 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
                   seeds: Sequence[int] = (0, 1, 2),
                   warmup_frac: float = 0.25, trace: int = 0,
                   coalesce_flows: int = 0, coalesce_theta: float = 0.0,
+                  count_branches: bool = False,
                   device: str = "cuda") -> SimResult:
     """Closed-loop (p_hit x seed) grid on the counter-RNG event engine.
 
@@ -1188,7 +1232,10 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
     ``delayed_frac``, ``branch_throughput`` and ``branch_delayed`` (per
     branch of ``net``, completions per µs of the measured window) as the
     reference's ``simulate_network`` does.  With ``F = 0`` no coalescing
-    code runs, ``delayed_frac`` is zero and the branch columns are None.
+    code runs, ``delayed_frac`` is zero and the branch columns are None,
+    unless ``count_branches``: then the counting kernel fills them (the
+    reference's threefry engine fills them on every closed run; the
+    cluster prong asks for them).
     """
     dev = resolve_device(device)
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
@@ -1198,17 +1245,29 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
                                       warmup_frac, dev, trace=trace,
                                       coalesce_flows=int(coalesce_flows),
                                       coalesce_theta=float(coalesce_theta))
-    out = sim_lanes(spec, seed_v, **kwargs)
+    out = sim_lanes(spec, seed_v, count_branches=count_branches, **kwargs)
+    return _grid_result(out, p_hits, n_s, len(net.branches), n_requests,
+                       visits=spec.visits[0] if trace else None)
+
+
+def _grid_result(out: LaneOutputs, p_hits: np.ndarray, n_s: int, n_b: int,
+                n_requests: int, visits=None) -> SimResult:
+    """The reference's summary of a closed-loop grid's lanes ``out`` (lane
+    ``s * P + p`` of ``n_s`` seeds): the mean throughput and CI95 across
+    seeds; with per-branch counts on ``out``, the delayed fraction and the
+    per-branch rates of the network's ``n_b`` branches, each lane's
+    counts over its measured window, averaged over seeds; with
+    ``visits``, the lanes' rings decoded onto ``traces``."""
+    n_p = len(p_hits)
     traces = None
-    if trace:
-        traces = decode_trace_grid(out.rings, spec.visits[0], n_s, n_p)
+    if visits is not None:
+        traces = decode_trace_grid(out.rings, visits, n_s, n_p)
     xs = out.x.cpu().numpy().reshape(n_s, n_p)
     mean = xs.mean(axis=0)
     ci = (1.96 * xs.std(axis=0, ddof=1) / math.sqrt(n_s) if n_s > 1
           else np.zeros_like(mean))
     extra = dict(delayed_frac=np.zeros(n_p, dtype=np.float32))
-    if coalesce_flows:
-        n_b = len(net.branches)
+    if out.branch_done is not None:
         t_meas = out.t_measured.cpu().numpy().reshape(n_s, n_p, 1)
         per_branch = [a.cpu().numpy()[:, :n_b].reshape(n_s, n_p, n_b)
                       / t_meas for a in (out.branch_done, out.branch_delayed)]

@@ -4,8 +4,8 @@ Port of ``repro.obs.trace`` (``src/repro/obs/trace.py``).  The host-side
 half (the class ids, :class:`TraceRecords`, :func:`make_records`,
 :func:`trace_from_rings` and :func:`decode_trace_grid`) is numpy and is
 copied as it is; :class:`TraceRings` holds the simulator's ring buffers as
-torch tensors with an explicit lane axis.  The heapq oracles' collector is
-not ported (the oracles are not).
+torch tensors with an explicit lane axis.  :class:`PyTraceCollector`, the
+heapq oracles' collector (``repro_torch.core.py_sim``), is copied as well.
 
 One trace record describes one *completed request* (one pass through a
 routing branch of the queueing network):
@@ -252,3 +252,91 @@ def decode_trace_grid(rings: TraceRings, visits, S: int, P: int):
             )
         out.append(row)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Python-oracle collector
+# ---------------------------------------------------------------------------
+
+
+class PyTraceCollector:
+    """Trace collector for the heapq oracles (same schema, same capping).
+
+    The oracle stamps ``enter(j, pos, t)`` when job *j* is placed at its
+    ``pos``-th visit, ``leave(j, pos, t)`` when that visit's service (or
+    MSHR park) ends, and ``complete(...)`` when the request finishes.
+    ``finish(visits)`` keeps the last ``cap`` records, mirroring the
+    ring buffer's overwrite semantics.
+    """
+
+    def __init__(self, cap: int, n_jobs: int, route_len: int):
+        self.cap = int(cap)
+        self.route_len = int(route_len)
+        self._enter_us = [[np.nan] * route_len for _ in range(n_jobs)]
+        self._leave_us = [[np.nan] * route_len for _ in range(n_jobs)]
+        self._records: list[tuple] = []
+        self.n_emitted = 0
+
+    def start(self, j: int, t_us: float) -> None:
+        self._enter_us[j] = [np.nan] * self.route_len
+        self._leave_us[j] = [np.nan] * self.route_len
+        self._enter_us[j][0] = t_us
+
+    def enter(self, j: int, pos: int, t_us: float) -> None:
+        self._enter_us[j][pos] = t_us
+
+    def leave(self, j: int, pos: int, t_us: float) -> None:
+        self._leave_us[j][pos] = t_us
+
+    def enter_at(self, j: int, pos: int) -> float:
+        return self._enter_us[j][pos]
+
+    def complete(
+        self, j: int, branch: int, cls: int, nvis: int, parked_us: float
+    ) -> int:
+        """Emit job j's record; returns the assigned request id."""
+        req = self.n_emitted
+        self.n_emitted += 1
+        self._records.append(
+            (
+                req,
+                branch,
+                cls,
+                nvis,
+                parked_us,
+                list(self._enter_us[j]),
+                list(self._leave_us[j]),
+            )
+        )
+        if self.cap > 0 and len(self._records) > self.cap:
+            del self._records[0]
+        return req
+
+    def finish(self, visits=None) -> TraceRecords:
+        if not self._records:
+            empty_l = np.zeros((0, self.route_len))
+            return make_records(
+                np.zeros(0, dtype=np.int64),
+                np.zeros(0, dtype=np.int64),
+                np.zeros(0, dtype=np.int64),
+                np.zeros(0, dtype=np.int64),
+                np.zeros(0),
+                empty_l,
+                empty_l,
+                visits=visits,
+                n_emitted=self.n_emitted,
+            )
+        req, branch, cls, nvis, parked_us, enter_us, leave_us = zip(
+            *self._records
+        )
+        return make_records(
+            req,
+            branch,
+            cls,
+            nvis,
+            parked_us,
+            np.asarray(enter_us),
+            np.asarray(leave_us),
+            visits=visits,
+            n_emitted=self.n_emitted,
+        )

@@ -30,9 +30,10 @@ reproduces it.
 
 Not ported yet, and raising ``NotImplementedError``: mamba2 and its
 hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
-``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11),
-the cluster forecast ``n_shards > 1`` (item 9) and the hierarchy forecast
-``tiers > 0`` (item 10).
+``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11)
+and the hierarchy forecast ``tiers > 0`` (item 10).  The cluster forecast
+``n_shards > 1`` composes the cluster as the reference does
+(:mod:`repro_torch.cluster`).
 """
 
 from __future__ import annotations
@@ -68,8 +69,9 @@ class ServeConfig:
     # physical core count drives the controller's effective MPL in the p*
     # forecast, and disk_servers > 0 models the backing store / prefill
     # path as a bounded-concurrency queue station instead of the paper's
-    # infinite-server disk.  n_shards > 1 (a cluster of pods) is not
-    # ported yet.
+    # infinite-server disk.  n_shards > 1 lifts the p* forecast to a
+    # hash-routed cluster of n_shards identical pods (Engine.forecast_network):
+    # per-shard station replicas, cluster-level p*.
     cores: int = 72
     disk_servers: int = 0
     n_shards: int = 1
@@ -100,10 +102,6 @@ class Engine:
             raise NotImplementedError(
                 "ServeConfig.sketch_cap > 0: the admission-stream sketch is "
                 "not ported yet (ROADMAP queue 1 item 8)")
-        if serve.n_shards > 1:
-            raise NotImplementedError(
-                "ServeConfig.n_shards > 1: the cluster forecast is not "
-                "ported yet (ROADMAP queue 1 item 9)")
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -428,21 +426,27 @@ class Engine:
         ``ServeConfig.cores``.  ``coalesce_flows > 0`` models prefill
         deduplication over that many hot chunks, via
         :func:`repro_torch.core.queueing.coalesced_network` with the
-        prefill latency as the in-flight window.  ``n_shards > 1``
-        (``shard_profile``) and ``tiers > 0`` (``tier_profile``) raise: the
-        cluster and hierarchy prongs are not ported yet (ROADMAP queue 1
-        items 9, 10).
+        prefill latency as the in-flight window.
+
+        ``n_shards`` (default ``ServeConfig.n_shards``) > 1 lifts the
+        measured-profile network to a hash-routed cluster of identical
+        pods via :func:`repro_torch.cluster.compose_cluster` and returns
+        the composed cluster network — per-shard station replicas, cluster
+        MPL ``n_shards * replicas * cores``, cluster-level p*.
+        ``shard_profile`` (a :class:`repro_torch.cluster.ShardProfile`)
+        supplies routing skew + per-shard local hit ratios; the default is
+        a perfectly balanced homogeneous cluster.  ``coalesce_flows`` and
+        ``n_shards > 1`` compose: the cluster network is built first and
+        :func:`repro_torch.core.queueing.coalesced_network` then solves one
+        shard-local sigma_k per ``sK:disk``.  ``tiers > 0``
+        (``tier_profile``) raises: the hierarchy prong is not ported yet
+        (ROADMAP queue 1 item 10).
         """
         from repro_torch.core.harness import PAPER_SERVICES, ServiceTimes
         from repro_torch.core.queueing import (QUEUE, THINK, Branch,
                                                ClosedNetwork, Station,
                                                coalesced_network, disk_station)
 
-        n_shards = self.serve.n_shards if n_shards is None else int(n_shards)
-        if n_shards > 1 or shard_profile is not None:
-            raise NotImplementedError(
-                "forecast_network(n_shards > 1): the cluster prong is not "
-                "ported yet (ROADMAP queue 1 item 9)")
         if tiers or tier_profile is not None:
             raise NotImplementedError(
                 "forecast_network(tiers > 0): the hierarchy prong is not "
@@ -475,6 +479,12 @@ class Engine:
         ]
         net = ClosedNetwork(f"serving-{self.serve.policy}", tuple(stations),
                             tuple(branches), mpl)
+        n_shards = self.serve.n_shards if n_shards is None else int(n_shards)
+        if n_shards > 1:
+            from repro_torch.cluster import compose_cluster, uniform_profile
+
+            profile = shard_profile or uniform_profile(n_shards)
+            net = compose_cluster(net, profile, mpl=mpl * n_shards).network
         if coalesce_flows:
             net = coalesced_network(net, flows=coalesce_flows,
                                     window_us=prefill_us)

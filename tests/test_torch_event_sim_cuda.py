@@ -19,9 +19,19 @@ flows F 1, 16 and 64, uniform and Zipf(0.99), one and two disk ranks,
 job slots in registers and in shared memory, with and without bursts.
 On deterministic service every output is identical, the per-branch
 counts, sojourns and classes included.
+
+The counting instantiation (``count_branches`` without coalescing) is
+held against its plain version and against the closed kernel, whose
+events it must repeat draw for draw (``COUNT_CASES``), and lanes of the
+sharded cluster's composed networks run through the counting and the
+coalescing instantiations (``CLUSTER_CASES``: 4 shards at mpl 48, 8
+shards at mpl 96, 16 shards at mpl 192 and 8 shards at the cluster's
+default mpl, 576 jobs in shared memory); both lists run in
+``chip_smoke.py`` too.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -182,6 +192,94 @@ OPEN_CASES = [
 OPEN_RATES = np.array([0.1, 0.6])
 
 
+# (id, network, deterministic service) of the counting instantiation:
+# mpl 24, 48, 72, 144, 300 run 1, 2, 4, 8 register slots and shared memory
+COUNT_CASES = [
+    ("lru-mpl24", lambda: _lru(24, True), True),
+    ("lru-mpl48", lambda: _lru(48, True), True),
+    ("lru-exp-mpl72", lambda: _lru(72, False), False),
+    ("lru-mpl144", lambda: _lru(144, True), True),
+    ("lru-mpl300", lambda: _lru(300, True), True),
+    ("2disk-exp-mpl24", lambda: _two(24, False), False),
+]
+
+
+def cluster_model(n_shards, mpl=None, policy="lru", theta=1.0,
+                  key_space=1024):
+    """The composed cluster of ``tests/test_cluster.py``: ``n_shards``
+    shards behind a 64-vnode ring (seed 1), ideal profile of Zipf(theta)
+    keys, a 100 us disk; ``mpl`` None is the cluster's default, 72 jobs per
+    shard."""
+    from repro_torch.cluster import (HashRing, cluster_network,
+                                     ideal_shard_profile, zipf_key_probs)
+
+    probs = zipf_key_probs(key_space, theta, seed=0)
+    assign = HashRing(n_shards, vnodes=64, seed=1).assignment(key_space)
+    return cluster_network(policy, n_shards,
+                           profile=ideal_shard_profile(assign, probs),
+                           disk_us=100.0, mpl=mpl)
+
+
+# (id, shards, mpl (None: the default), flows per shard; 0: counting):
+# the widths the cluster's phases launch — 4 shards at mpl 48 (2 register
+# slots), fig_cluster C's 8 shards at mpl 96 (4 slots), the differential's
+# 16 shards at mpl 192 (K 65, B 32, a 16 x 8 leader table; 8 slots) and 8
+# shards at the default mpl 576 (jobs in shared memory)
+CLUSTER_CASES = [
+    ("4shard-mpl48-F8", 4, 48, 8),
+    ("4shard-mpl48-count", 4, 48, 0),
+    ("8shard-mpl96-F8", 8, 96, 8),
+    ("16shard-mpl192-F8", 16, 192, 8),
+    ("16shard-mpl192-count", 16, 192, 0),
+    ("8shard-mpl576-F8", 8, None, 8),
+    ("8shard-mpl576-count", 8, None, 0),
+]
+
+
+def count_pair(case, device, n_requests=400):
+    """Counting kernel, its plain version and the closed kernel on a
+    ``COUNT_CASES`` case: two p_hits x two seeds."""
+    _, net, _ = case
+    spec, seeds, kw = tes.grid_lanes(net(), np.array([0.3, 0.7]), n_requests,
+                                     (0, 1), 0.25, device)
+    return (tes.sim_lanes(spec, seeds, count_branches=True, **kw),
+            tes.sim_lanes_plain(spec, seeds, count_branches=True, **kw),
+            tes.sim_lanes(spec, seeds, **kw))
+
+
+def cluster_pair(case, device, n_requests=300):
+    """Kernel and plain outputs of a ``CLUSTER_CASES`` case: the cluster
+    network at two global p_hits, one seed, with the per-branch counts;
+    at least ``n_requests`` requests, and enough that the measured window
+    (after the 25% warmup) holds two completions per job."""
+    _, n_shards, mpl, flows = case
+    net = cluster_model(n_shards, mpl).network
+    n_requests = max(n_requests, math.ceil(2 * net.mpl / 0.75))
+    spec, seeds, kw = tes.grid_lanes(net, np.array([0.45, 0.75]), n_requests,
+                                     (0,), 0.25, device,
+                                     coalesce_flows=flows)
+    return (tes.sim_lanes(spec, seeds, count_branches=True, **kw),
+            tes.sim_lanes_plain(spec, seeds, count_branches=True, **kw))
+
+
+def traced_count_pair(device, n_requests=300, cap=64):
+    """A traced run with per-branch counts (on the card: one traced and one
+    counting launch) and its plain version (one pass): a 4-shard cluster
+    lane at two global p_hits."""
+    net = cluster_model(4, 48).network
+    spec, seeds, kw = tes.grid_lanes(net, np.array([0.45, 0.75]), n_requests,
+                                     (0,), 0.25, device, trace=cap)
+    return (tes.sim_lanes(spec, seeds, count_branches=True, **kw),
+            tes.sim_lanes_plain(spec, seeds, count_branches=True, **kw))
+
+
+def hold_traced_count(kern, plain, cap=64) -> float:
+    """Records as the traced kernel's are held, counts as the counting
+    kernel's.  Returns max |dx|."""
+    _hold(kern, plain, cap)
+    return hold_coalesced(kern, plain, exact=False)
+
+
 def coalesce_pair(case, device, n_requests=400):
     """Kernel and plain outputs of a ``COALESCE_CASES`` case: two p_hits x
     two seeds."""
@@ -208,6 +306,16 @@ def hold_coalesced(kern, plain, exact) -> float:
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
                                        err_msg=f)
     return float((kern.x.cpu() - plain.x.cpu()).abs().max())
+
+
+def hold_counted(kern, plain, closed, exact) -> float:
+    """The counting kernel against its plain version (as
+    :func:`hold_coalesced`), and its events, completions, throughput and
+    measured time identical to the closed kernel's.  Returns max |dx|."""
+    err = hold_coalesced(kern, plain, exact)
+    for f in ("x", "completed", "events", "t_measured"):
+        assert torch.equal(getattr(kern, f), getattr(closed, f)), f
+    return err
 
 
 def open_pair(case, device, n_requests=250):
@@ -255,3 +363,35 @@ def test_open_kernel_matches_plain(cuda_device, case):
     kern, plain = open_pair(case, cuda_device)
     assert tes.sim_open_lanes.launches == before + 1
     hold_open(kern, plain, exact=case[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COUNT_CASES, ids=[c[0] for c in COUNT_CASES])
+def test_counting_kernel_matches_plain(cuda_device, case):
+    before = tes.sim_lanes.count_launches
+    kern, plain, closed = count_pair(case, cuda_device)
+    assert tes.sim_lanes.count_launches == before + 1
+    hold_counted(kern, plain, closed, exact=case[-1])
+    measured = kern.completed.long() - int(0.25 * 400)
+    assert torch.equal(kern.branch_done.long().sum(dim=1), measured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLUSTER_CASES,
+                         ids=[c[0] for c in CLUSTER_CASES])
+def test_cluster_lanes_match_plain(cuda_device, case):
+    counter = "flows_launches" if case[-1] else "count_launches"
+    before = getattr(tes.sim_lanes, counter)
+    kern, plain = cluster_pair(case, cuda_device)
+    assert getattr(tes.sim_lanes, counter) == before + 1
+    hold_coalesced(kern, plain, exact=False)
+    assert int((kern.branch_done > 0).sum()) > case[1]
+
+
+@pytest.mark.cuda
+def test_traced_counting_takes_two_launches(cuda_device):
+    before = (tes.sim_lanes.traced_launches, tes.sim_lanes.count_launches)
+    kern, plain = traced_count_pair(cuda_device)
+    assert (tes.sim_lanes.traced_launches, tes.sim_lanes.count_launches) == \
+        (before[0] + 1, before[1] + 1)
+    hold_traced_count(kern, plain)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.cluster import cluster_network, simulate_cluster
 from repro_torch.configs.registry import get_config
 from repro_torch.core import policy_models
 from repro_torch.core.simulator import simulate_network
@@ -43,7 +44,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "models.transformer", "configs.registry", "configs.rwkv6_7b",
                  "configs.internlm2_1_8b", "cache.py_ref", "serving.kv_pages",
                  "serving.prefix_cache", "serving.engine", "training.data",
-                 "launch.serve"):
+                 "launch.serve", "cluster", "cluster.hashing",
+                 "cluster.model", "cluster.sim", "core.py_sim"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -85,6 +87,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_network(net, [0.5], n_requests=10, seeds=(0,),
                          arrival_rate=0.1)
+    cm = cluster_network("lru", 2, mpl=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_cluster(cm, [0.5], n_requests=10, seeds=(0,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_cluster(cm, [0.5], n_requests=10, seeds=(0,),
+                         coalesce_flows=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer.forward(params, [[1, 2, 3]], cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -100,6 +100,30 @@ def test_sweep_simulates_every_size_in_one_launch(monkeypatch):
         assert x == float(alone.throughput[0])
 
 
+def test_sweep_classifies_every_size_in_one_pass(monkeypatch):
+    """Per-size windows that differ: every size is a lane of one
+    classification pass, and the columns are the reference's."""
+    from repro_torch.cache import replay as treplay
+
+    calls = []
+    real = treplay._classify_lanes
+
+    def counted(keys, hits, windows, key_space):
+        calls.append(tuple(keys.shape))
+        return real(keys, hits, windows, key_space)
+
+    monkeypatch.setattr(treplay, "_classify_lanes", counted)
+    sizes = [40, 120, 300]
+    kw = dict(key_space=512, n_requests=2000, fetch_fail_prob=0.1,
+              miss_latency_requests=np.array([3, 9, 5]))
+    t = tharness.sweep_cache_sizes("lru", sizes, device="cpu", **kw)
+    assert calls == [(len(sizes), 2000)]
+    j = jharness.sweep_cache_sizes("lru", sizes, backend="pallas", **kw)
+    assert set(t) == set(j)
+    for k in j:
+        np.testing.assert_allclose(t[k], j[k], rtol=1e-12, err_msg=k)
+
+
 def test_run_cache_trace_matches_reference():
     trace = tharness.zipf_trace(1000, 256, 0.99, 1)
     th, to = tharness.run_cache_trace("s3fifo", 24, trace, seed=1,

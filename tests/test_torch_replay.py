@@ -96,6 +96,33 @@ def test_classify_inflight_matches_reference(window, fail_prob):
     np.testing.assert_array_equal(t, np.asarray(j))
 
 
+@pytest.mark.parametrize("fail_prob", [0.0, 0.2])
+def test_classify_lanes_equal_each_lane_classified_alone(fail_prob):
+    """One window stream per hits row, every row a lane of one pass: each
+    lane bit for bit the row classified alone (and the reference's)."""
+    keys, _ = streams(seed=5)
+    keys = keys[0]
+    hits = np.random.default_rng(3).random((4, T)) < 0.55
+    windows = [5, 0, 3, window_of("per_request")]
+    per_row = np.stack([np.broadcast_to(w, (T,)) for w in windows])
+    got = treplay.classify_inflight(keys, hits, per_row, key_space=KEY_SPACE,
+                                    fail_prob=fail_prob, fail_seed=1,
+                                    device="cpu")
+    assert got.dtype == np.int8 and got.shape == hits.shape
+    for i, w in enumerate(windows):
+        alone = treplay.classify_inflight(keys, hits[i], w,
+                                          key_space=KEY_SPACE,
+                                          fail_prob=fail_prob, fail_seed=1,
+                                          device="cpu")
+        np.testing.assert_array_equal(got[i], alone)
+        np.testing.assert_array_equal(got[i], np.asarray(
+            jreplay.classify_inflight(keys, hits[i], w, key_space=KEY_SPACE,
+                                      fail_prob=fail_prob, fail_seed=1)))
+    with pytest.raises(ValueError):
+        treplay.classify_inflight(keys, hits[:3], per_row,
+                                  key_space=KEY_SPACE, device="cpu")
+
+
 def test_window_and_attempt_streams_match():
     np.testing.assert_array_equal(treplay.refetch_attempts(500, 0.3, 7),
                                   jreplay.refetch_attempts(500, 0.3, 7))

@@ -4,8 +4,9 @@
 pure host code and must equal the reference's exactly.  The port's
 ``Engine`` on reduced internlm2, with the reference's weights converted,
 must serve the same tokens and end with the same ``stats()`` as the JAX
-``Engine`` on the same request stream (both in float32).  The one-pod
-``forecast_network`` must be the reference's network, and
+``Engine`` on the same request stream (both in float32).
+``forecast_network`` — one pod, and a hash-routed cluster of pods
+(``n_shards > 1``) — must be the reference's network, and
 ``forecast_slo`` its SLO forecast.  Modes not ported yet raise, naming
 their ROADMAP item.
 """
@@ -238,6 +239,8 @@ def _net_summary(net, grid=(0.0, 0.3, 0.7, 0.95)):
     dict(),
     dict(coalesce_flows=8),
     dict(replicas=8, cores=16, batched_update=True),
+    dict(n_shards=4),
+    dict(n_shards=4, coalesce_flows=8, cores=16),
 ])
 def test_forecast_network_equals_the_reference(models, kw):
     reqs = zipf_request_stream(10, n_prefixes=4, prefix_len=16,
@@ -291,8 +294,6 @@ def test_unported_modes_raise(models):
     _, cfg, _, tp = models
     with pytest.raises(NotImplementedError, match="item 8"):
         Engine(cfg, tp, ServeConfig(sketch_cap=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Engine(cfg, tp, ServeConfig(n_shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         Engine(get_config("zamba2-1.2b", reduced=True), tp, ServeConfig(),
                device="cpu")
@@ -300,9 +301,45 @@ def test_unported_modes_raise(models):
         Engine(get_config("whisper-tiny", reduced=True), tp, ServeConfig(),
                device="cpu")
     eng = Engine(cfg, tp, ServeConfig(max_new_tokens=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.forecast_network(6000.0, 40.0, n_shards=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.forecast_network(6000.0, 40.0, tiers=2)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.observed_profile()
+
+
+def test_cluster_forecast_equals_the_reference(models):
+    """``ServeConfig.n_shards`` and a skewed ``shard_profile``: the composed
+    cluster network is the reference's (the reference's profile type for
+    the reference, the port's for the port, from the same placement)."""
+    import repro.cluster as jcluster
+    import repro_torch.cluster as tcluster
+
+    reqs = zipf_request_stream(10, n_prefixes=4, prefix_len=16,
+                               vocab=models[1].vocab, seed=4, new_tokens=4)
+    jeng, teng, _, _ = _serve_both(models, reqs, max_seqs=2,
+                                   max_new_tokens=4, n_shards=3)
+    want = jeng.forecast_network(step_us=6000.0, prefill_us=40.0)
+    got = teng.forecast_network(step_us=6000.0, prefill_us=40.0)
+    a, b = _net_summary(got), _net_summary(want)
+    assert a.pop("p_star") == pytest.approx(b.pop("p_star"), abs=1e-12)
+    np.testing.assert_allclose(a.pop("upper"), b.pop("upper"), rtol=1e-12)
+    assert a == b and got.name.endswith("cluster3")
+    probs = jcluster.zipf_key_probs(512, 1.0, seed=0)
+    assign = jcluster.HashRing(4, seed=1).assignment(512)
+    want = jeng.forecast_network(
+        step_us=6000.0, prefill_us=40.0, n_shards=4,
+        shard_profile=jcluster.ideal_shard_profile(assign, probs))
+    got = teng.forecast_network(
+        step_us=6000.0, prefill_us=40.0, n_shards=4,
+        shard_profile=tcluster.ideal_shard_profile(assign, probs))
+    a, b = _net_summary(got), _net_summary(want)
+    assert a.pop("p_star") == pytest.approx(b.pop("p_star"), abs=1e-12)
+    np.testing.assert_allclose(a.pop("upper"), b.pop("upper"), rtol=1e-12)
+    for (sa, *ra), (sb, *rb) in zip(a.pop("stations"), b.pop("stations")):
+        assert [sa] + ra[:-1] == [sb] + rb[:-1]
+        np.testing.assert_allclose(ra[-1], rb[-1], rtol=1e-12)
+    for (na, va, pa), (nb, vb, pb) in zip(a.pop("branches"),
+                                          b.pop("branches")):
+        assert (na, va) == (nb, vb)
+        np.testing.assert_allclose(pa, pb, rtol=1e-12, atol=1e-15)
+    assert a == b
