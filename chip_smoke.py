@@ -9,8 +9,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 1. device: the card's name and power limit;
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's 30 instantiations (closed,
-   traced, traced for long routes, coalescing, open loop, counting), of
+   spills of each of the event-sim kernel's 35 instantiations (closed,
+   traced, traced for long routes, coalescing, open loop, counting,
+   tiered), of
    the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
    widths) and of the split-TF32 flash kernel's ten (float32 at d_head
@@ -18,6 +19,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    ``cuobjdump --dump-sass`` of the library: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions and
    every split-TF32 one HMMA (``mma.sync``);
+   then the checks of 3, 4, 5, 6d, 6e, 6f and 6g, which time nothing, run
+   at once in four worker processes (``parallel_checks``), longest first,
+   each check's seconds printed; 6, 6b and 6c after them;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
@@ -79,6 +83,16 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    shards at the default mpl 576) through the counting and coalescing
    instantiations, per-branch counts included: integers identical, the
    rest within 1e-6;
+6f. ``tiers_vs_plain``: the tiered instantiation (cross-tier leader tables,
+   cascading fills) against its plain version on lanes of composed
+   hierarchies (``TIERS_CASES``: tests/test_hierarchy.py's 2 x 2 at mpl 16
+   to 300, every register-slot count and shared memory, F 2 to 8, uniform
+   and Zipf flows, p up to 0.8393; fig_hierarchy's 3 x 2 at mpl 96, F 4;
+   one job refilling the entry it fills): integers identical, and every
+   output on deterministic service;
+6g. ``tiers_long_vs_plain``: the same on fig_hierarchy's network with
+   deterministic service at fig_hierarchy's 8 000 requests, 3 p x 2
+   seeds: every output identical;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -96,15 +110,25 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    (the analytic p* shift, the simulated recovery on a bounded disk, the
    measured sweep's sigma and coalesced bound) and ``fig_latency.py`` (the
    analytic inversion, the open loop against Erlang-C, per-class
-   sojourns under coalescing, the SLO optimum) and ``fig_cluster.py``
+   sojourns under coalescing, the SLO optimum), ``fig_cluster.py``
    (routing imbalance, the cluster p* below the single node's, the
    simulated 8-shard cluster against the key-routing oracle, routed and
-   rebalanced stability boundaries, bursts) through the port at the
-   benchmarks' sizes, each figure's and section's wall time printed; the
-   coalescing and open-loop kernels' launches are counted here; the
+   rebalanced stability boundaries, bursts) and ``fig_hierarchy.py`` (the
+   Che tier profile, the LRU-client inversion at the tier-aware p*, FIFO
+   monotone, the MVA forecast, the tiered kernel against the oracle over
+   16 seeds a side, starvation, the
+   convoy effect and sigma1) through the port at the benchmarks' sizes,
+   each figure's and section's wall time printed; the coalescing,
+   open-loop and tiered kernels' launches are counted here; the
    delayed-hits sweep classifies every size in one pass, held bit for bit
    to each size classified alone;
-8c. the cluster path (``cluster_differential``): ``tests/test_cluster.py``'s
+8c. the hierarchy path (``hierarchy_differential``): tests/test_hierarchy.py's
+   tiered simulations (twins, levels, sigma1) and tests/test_properties.py's
+   tiered twins, with the case the reference fails there (p 0.8393), each
+   the kernel against the port's oracle in those tests' bands (the twins
+   over 8 seeds a side); the tiered
+   kernel's launches are counted over this phase and fig_hierarchy;
+8d. the cluster path (``cluster_differential``): ``tests/test_cluster.py``'s
    simulations through the port, the 12-case matrix (LRU, FIFO, CLOCK x
    Zipf 0 and 1 x 1 and 4 shards) and the 16-shard cases, each the kernel
    against the port's key-routing oracle within that file's bands, the
@@ -174,7 +198,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    figures' networks beside their plain versions (``ext_timing``), and
    the figures' own launches; the counting instantiation on one lane of
    fig_cluster C's 8-shard network, beside the closed and coalescing
-   kernels on the same lane (ns per event at 8 shards).
+   kernels on the same lane (ns per event at 8 shards); the tiered
+   instantiation on one lane of fig_hierarchy's network (mpl 96, F 4),
+   beside the closed, counting and coalescing kernels on the same lane.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  The
@@ -304,6 +330,47 @@ CL_ORACLE_SEEDS = (3, 4, 5, 6)
 # 40k requests, whose mean throughputs must lie within CL_LONG_SE
 # standard errors of their difference, the errors from this run's spread
 CL_LONG_REQUESTS, CL_LONG_SEEDS, CL_LONG_SE = 40_000, 16, 4.0
+# tiers_vs_plain: requests per lane of TIERS_CASES of
+# tests/test_torch_event_sim_cuda.py (at least; two measured completions
+# per job)
+TIERS_PLAIN_REQUESTS = 300
+# tiers_long_vs_plain: fig_hierarchy's network (3 x 2, mpl 96, F 4) with
+# deterministic service at fig_hierarchy's HI_REQUESTS, p x seeds (0, 1)
+TIERS_LONG_CASE = ("fig-det-mpl96-F4-long", "fig", 96, 4, 0.0,
+                   (0.3, 0.55, 0.8), True)
+# benchmarks/fig_hierarchy.py's sizes: key space, skew, clients, shards,
+# mpl, origin, the per-client L1 capacities, the per-shard L2 capacity,
+# the grid, its stated tolerances and its requests (max(8 000,
+# N_SIM_REQUESTS // 2))
+HI_KEYS, HI_THETA, HI_CLIENTS, HI_SHARDS = 256, 0.8, 3, 2
+HI_MPL, HI_DISK_US, HI_L2_CAP, HI_GRID_N = 96, 100.0, 32, 9
+HI_L1_CAPS = (4, 8, 16, 32, 64, 96, 128, 176, 224)
+HI_FORECAST_TOL, HI_TWIN_TOL, HI_SIGMA_TOL = 0.10, 0.10, 0.25
+HI_REQUESTS = max(8_000, FIG_REQUESTS // 2)
+# fig_hierarchy C compares 2 simulated seeds with one oracle run of 4 000
+# requests (seed 3), whose throughput scatters by 15% (sd over oracle
+# seeds 3-34 at p 0.51; 12% at p 0.29; tools/tiered_twins.py): at that
+# draw the reference's own JAX simulator misses the 10% tolerance too
+# (by 24.8% and 26.8%), and so does the tiered kernel (tools/tiered_twins.py
+# --script-draw); so C holds the means of HI_TWIN_SEEDS seeds a side, both
+# at HI_REQUESTS, to the script's tolerances
+HI_TWIN_SEEDS = 16
+# tests/test_hierarchy.py's model and run lengths (simulator, oracle),
+# and tests/test_properties.py's tiered twins (p, flows, seed; 10 000
+# requests a side) with the case the reference itself fails
+HD_MODEL = dict(n_clients=2, n_shards=2, mpl=16, disk_us=50.0)
+HD_REQUESTS = (8_000, 4_000)
+HD_TWIN_CASES = ((0.2, 2, 0), (0.5, 4, 1), (0.8, 2, 2))
+HD_REFERENCE_FAILS = (0.8393, 2, 0)
+HD_TWIN_REQUESTS = 10_000
+# the twins' throughput scatters by 7% over oracle seeds (p 0.8393: sd
+# 0.124 on a mean of 1.849, seeds 0-15; tools/tiered_twins.py), and the
+# oracle, which draws the LRU head's bounded-Pareto service at its mean,
+# sits 7-9% above both simulators there; so each case holds the means of
+# HD_TWIN_SEEDS seeds a side (the kernel on seeds seed .. seed + 7, the
+# oracle on the same) to the bands (the test's own draw:
+# tools/tiered_twins.py --seeds 2 --first-seed seed)
+HD_TWIN_SEEDS = 8
 # the main path's throughputs (requests/us) as the event-sim kernel of
 # commit ca3464b (one lane per network, state in shared memory) computed
 # them on an NVIDIA H100 80GB HBM3 at 700.00 W: same arithmetic, so the
@@ -341,6 +408,11 @@ MAIN_PATH_X = {
 }
 TRACE_CHECK_REQUESTS, TRACE_CHECK_CAP = 2000, 512  # overflowing rings
 TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
+# the kernels' checks against their plain versions that time nothing run
+# at once, in CHECK_WORKERS processes of their own (each its own CUDA
+# context), longest first: the plain versions are bound by the host's
+# launches, so the processes overlap on one card
+CHECK_WORKERS = 4
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
 LRU_PATH = (1 << 22, 4096, 64)  # slots, ids per batch, batches
@@ -576,14 +648,14 @@ def ptxas_info(proc, pattern, name_of):
 def event_sim_ptxas(procs, rec):
     """Registers, stack frame and spills of each event-sim instantiation
     (untraced, traced, traced for routes over 32 visits, coalescing, open
-    loop, counting; R register slots per thread, R = 0: shared memory), as
-    ptxas reports them; raises unless all 30 compiled."""
+    loop, counting, tiered; R register slots per thread, R = 0: shared
+    memory), as ptxas reports them; raises unless all 35 compiled."""
     modes = ("untraced", "traced", "traced, routes over 32")
     info = ptxas_info(
-        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([0123])E",
+        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([01234])E",
         lambda m: ((modes[int(m.group(1))], "coalescing", "open loop",
-                    "counting")[int(m.group(3))] + f" R={m.group(2)}"))
-    if len(info) != 30 or not all(len(v) == 4 for v in info.values()):
+                    "counting", "tiered")[int(m.group(3))] + f" R={m.group(2)}"))
+    if len(info) != 35 or not all(len(v) == 4 for v in info.values()):
         raise AssertionError(f"ptxas reported {info}")
     for fn, v in sorted(info.items()):
         print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
@@ -932,7 +1004,56 @@ def check_cluster(rec):
           "version's, counts == the counting plain version's", flush=True)
     rec["event_sim_count_max_abs_err"] = err["count"]
     rec["event_sim_coalesced_max_abs_err"] = max(
-        rec["event_sim_coalesced_max_abs_err"], err["coalesced"])
+        rec.get("event_sim_coalesced_max_abs_err", 0.0), err["coalesced"])
+
+
+def check_tiers(rec):
+    """``tiers_vs_plain``: the tiered instantiation against its plain
+    version on the card, on ``TIERS_CASES`` of
+    ``tests/test_torch_event_sim_cuda.py`` (tests/test_hierarchy.py's
+    2 x 2 hierarchy at mpl 16, 48, 72, 192 and 300, F 2 to 8, uniform and
+    Zipf flows, p 0.2, 0.5 and 0.8393; fig_hierarchy's 3 x 2 hierarchy at
+    mpl 96 and F 4; one job refilling the entry it fills): integers
+    identical (completions, events, per-branch counts), and on
+    deterministic service every output, the per-level delayed fractions
+    included; the rest within 1e-6."""
+    import torch
+    from test_torch_event_sim_cuda import TIERS_CASES, hold_tiered, tiers_pair
+
+    err = 0.0
+    for case in TIERS_CASES:
+        kern, plain = tiers_pair(case, torch.device("cuda"),
+                                 TIERS_PLAIN_REQUESTS)
+        torch.cuda.synchronize()
+        err = max(err, hold_tiered(kern, plain, exact=case[-1]))
+        print(f"tiers {case[0]}: kernel == plain "
+              f"({'identical' if case[-1] else 'integers identical'}), "
+              f"delayed per level "
+              f"{kern.delayed_tier.cpu().numpy().round(4).tolist()}",
+              flush=True)
+    rec["event_sim_tiers_max_abs_err"] = err
+
+
+def check_tiers_long(rec):
+    """``tiers_long_vs_plain``: the tiered instantiation against its plain
+    version on ``TIERS_LONG_CASE``, fig_hierarchy's network with
+    deterministic service at the length fig_hierarchy's runs give the
+    kernel (``HI_REQUESTS``), three p x two seeds: long enough for the
+    leader tables and the two-wave cascades to build up; every output
+    identical."""
+    import torch
+    from test_torch_event_sim_cuda import hold_tiered, tiers_pair
+
+    kern, plain = tiers_pair(TIERS_LONG_CASE, torch.device("cuda"),
+                             HI_REQUESTS)
+    torch.cuda.synchronize()
+    err = hold_tiered(kern, plain, exact=True)
+    print(f"tiers {TIERS_LONG_CASE[0]}: {HI_REQUESTS} requests x "
+          f"{kern.x.numel()} lanes, kernel == plain (identical), events "
+          f"{kern.events.tolist()}, delayed per level "
+          f"{kern.delayed_tier.cpu().numpy().round(4).tolist()}", flush=True)
+    rec["event_sim_tiers_max_abs_err"] = max(
+        rec.get("event_sim_tiers_max_abs_err", 0.0), err)
 
 
 def table2_classify(device):
@@ -1283,17 +1404,140 @@ def fig_cluster(device):
     return out
 
 
+def fig_hierarchy(device):
+    """``benchmarks/fig_hierarchy.py`` through the port, at its sizes and
+    tolerances: (A) the Che tier profile, L1 filtering starving L2; (B)
+    the LRU-client inversion — the simulated cluster throughput peaks at an
+    interior p1 within 1.1 grid steps of the tier-aware p*, 3% above the
+    last point, FIFO clients monotone, the MVA forecast within 10% of the
+    simulation everywhere (the counting kernel, 9 p x 2 seeds); (C) the
+    tiered kernel against the heapq oracle within 10% in throughput, 0.06
+    in the L1 and 0.04 in the L2 delayed fraction; (D) cross-tier
+    coalescing starving with p1, the convoy effect (coalescing lowering
+    throughput at low p1) and the analytic sigma1 within 25% of the
+    simulated one."""
+    import numpy as np
+    from repro_torch.cluster import zipf_key_probs
+    from repro_torch.hierarchy import (coalesced_hierarchy, hierarchy_network,
+                                       simulate_hierarchy,
+                                       simulate_hierarchy_py, tier_sigma_of,
+                                       tiered_profile)
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    prof = tiered_profile(zipf_key_probs(HI_KEYS, HI_THETA, seed=0),
+                          np.array(HI_L1_CAPS), l2_cap=HI_L2_CAP,
+                          assign=np.arange(HI_KEYS) % HI_SHARDS,
+                          n_shards=HI_SHARDS)
+    p2_mean = prof.l2_hit.mean(axis=1)
+    if not p2_mean[-1] < p2_mean[0] - 0.05:
+        raise AssertionError(f"fig_hierarchy A: p2 {p2_mean[0]} -> "
+                             f"{p2_mean[-1]}")
+    out["profile"] = {"p1": prof.l1_hit.tolist(), "p2_mean": p2_mean.tolist()}
+    seconds["A"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lo, hi = prof.p_range()
+    grid = np.linspace(lo + 1e-3, hi - 1e-3, HI_GRID_N)
+    out["headline"], models = {}, {}
+    for policy in ("lru", "fifo"):
+        model = hierarchy_network(policy, "lru", n_clients=HI_CLIENTS,
+                                  n_shards=HI_SHARDS, profile=prof,
+                                  disk_us=HI_DISK_US, mpl=HI_MPL)
+        models[policy] = model
+        p_star = model.p_star(grid=4001)
+        mva = np.array([model.mva_throughput(p) for p in grid])
+        sim = simulate_hierarchy(model, grid, n_requests=HI_REQUESTS,
+                                 seeds=(0, 1), device=device)
+        rel = np.abs(sim.throughput - mva) / sim.throughput
+        ok = bool(np.all(rel < HI_FORECAST_TOL))
+        k = int(np.argmax(sim.throughput))
+        if policy == "lru":
+            ok = ok and (k < HI_GRID_N - 1
+                         and sim.throughput[k] > 1.03 * sim.throughput[-1]
+                         and abs(grid[k] - p_star) <= 1.1 * (grid[1] - grid[0])
+                         and p_star < hi - 0.01)
+        else:
+            ok = ok and (p_star >= hi - 1e-9 and np.all(
+                np.diff(sim.throughput) > -0.02 * sim.throughput[:-1]))
+        out["headline"][policy] = {
+            "p_grid": grid.tolist(), "p_star": float(p_star),
+            "x_mva": mva.tolist(), "x_sim": sim.throughput.tolist(),
+            "rel_err_max": float(rel.max()), "peak_p": float(grid[k])}
+        if not ok:
+            raise AssertionError(f"fig_hierarchy B ({policy} clients): "
+                                 f"{out['headline'][policy]}")
+        print(f"fig_hierarchy B {policy}: p* {p_star:.4f}, sim peak at p1 "
+              f"{grid[k]:.4f}, MVA within {rel.max():.3f}", flush=True)
+    seconds["B"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = models["lru"]
+    twin_p = [float(grid[2]), float(grid[HI_GRID_N // 2])]
+    jx = simulate_hierarchy(model, twin_p, n_requests=HI_REQUESTS,
+                            seeds=tuple(range(HI_TWIN_SEEDS)),
+                            coalesce_flows=4, device=device)
+    seconds["C_sim"] = time.perf_counter() - t0
+    runs = [[simulate_hierarchy_py(model, p, n_requests=HI_REQUESTS, seed=sd,
+                                   coalesce_flows=4)
+             for sd in range(3, 3 + HI_TWIN_SEEDS)] for p in twin_p]
+    py = {k: np.array([np.mean([getattr(r, k)[0] for r in rs]) for rs in runs])
+          for k in ("throughput", "delayed_l1_frac", "delayed_l2_frac")}
+    rel = np.abs(jx.throughput - py["throughput"]) / py["throughput"]
+    d1 = np.abs(jx.delayed_l1_frac - py["delayed_l1_frac"])
+    d2 = np.abs(jx.delayed_l2_frac - py["delayed_l2_frac"])
+    out["twins"] = {"p": twin_p, "x_sim": jx.throughput.tolist(),
+                    "x_oracle": py["throughput"].tolist(),
+                    "rel_err": rel.tolist(), "dl1_gap": d1.tolist(),
+                    "dl2_gap": d2.tolist(), "seeds": HI_TWIN_SEEDS}
+    print(f"fig_hierarchy C: X {jx.throughput.round(4).tolist()} vs oracle "
+          f"{py['throughput'].round(4).tolist()} ({HI_TWIN_SEEDS} seeds a "
+          f"side, rel {rel.round(3).tolist()})", flush=True)
+    if not (np.all(rel < HI_TWIN_TOL) and np.all(d1 < 0.06)
+            and np.all(d2 < 0.04)):
+        raise AssertionError(f"fig_hierarchy C: {out['twins']}")
+    seconds["C"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    coal_p = np.array([float(grid[1]), float(grid[HI_GRID_N // 2]),
+                       float(grid[-2])])
+    coal = simulate_hierarchy(model, coal_p, n_requests=HI_REQUESTS,
+                              seeds=(0, 1), coalesce_flows=4, device=device)
+    plain = simulate_hierarchy(model, coal_p, n_requests=HI_REQUESTS,
+                               seeds=(0, 1), device=device)
+    cnet = coalesced_hierarchy(model, flows=4)
+    s1s = np.array([tier_sigma_of(cnet, float(p))[0] for p in coal_p])
+    miss_frac = 1.0 - np.array([prof.tier_p(float(p))[0] for p in coal_p])
+    sim_s1 = coal.delayed_l1_frac / miss_frac
+    rel_s = np.abs(s1s - sim_s1) / sim_s1
+    out["delayed"] = {"p": coal_p.tolist(), "x_coal": coal.throughput.tolist(),
+                      "x_plain": plain.throughput.tolist(),
+                      "dl1": coal.delayed_l1_frac.tolist(),
+                      "dl2": coal.delayed_l2_frac.tolist(),
+                      "sigma1_analytic": s1s.tolist(),
+                      "sigma1_sim": sim_s1.tolist()}
+    if not (coal.delayed_l1_frac[-1] < coal.delayed_l1_frac[0] - 0.05
+            and coal.delayed_l2_frac[-1] <= coal.delayed_l2_frac[0] + 1e-9
+            and coal.throughput[0] < plain.throughput[0]
+            and np.all(rel_s < HI_SIGMA_TOL)):
+        raise AssertionError(f"fig_hierarchy D: {out['delayed']}")
+    seconds["D"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
 def figures_path(rec, device="cuda"):
     """The delayed-hits, latency and cluster path: the qualitative
     assertions of ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py``,
-    ``fig_latency.py`` and ``fig_cluster.py`` through the port (the machine
-    with the card has no jax), at the benchmarks' sizes; each figure's wall
-    seconds."""
+    ``fig_latency.py``, ``fig_cluster.py`` and ``fig_hierarchy.py`` through
+    the port (the machine with the card has no jax), at the benchmarks'
+    sizes; each figure's wall seconds."""
     out, seconds = {}, {}
     for name, fn in (("table2_classify", table2_classify),
                      ("fig_delayed_hits", fig_delayed_hits),
                      ("fig_latency", fig_latency),
-                     ("fig_cluster", fig_cluster)):
+                     ("fig_cluster", fig_cluster),
+                     ("fig_hierarchy", fig_hierarchy)):
         t0 = time.perf_counter()
         out[name] = fn(device)
         seconds[name] = time.perf_counter() - t0
@@ -1408,6 +1652,85 @@ def cluster_differential(rec, device="cuda"):
     rec["cluster_differential"] = out
 
 
+def hierarchy_differential(rec, device="cuda"):
+    """``tests/test_hierarchy.py``'s tiered simulations through the port
+    (its 2 x 2 LRU hierarchy at mpl 16, F 2): the kernel at p 0.35 (8k
+    requests, seeds 0 and 1) against the port's oracle (4k, seed 2) within
+    rel 0.15 in X, 0.08 in the L1 and 0.05 in the L2 delayed fraction,
+    the tier split summing to the delayed fraction; the level shares at p
+    0.4 within 0.05 of ``level_fractions``; the analytic sigma1 within rel
+    0.3 of the simulated one.  Then ``tests/test_properties.py``'s tiered
+    twins, (p, F, seed) = (0.2, 2, 0), (0.5, 4, 1), (0.8, 2, 2), 10k
+    requests a side, the means of HD_TWIN_SEEDS seeds a side within rel
+    0.2 in X, 0.1 and 0.06 in the delayed fractions; and the case the
+    reference fails there, (0.8393, 2, 0), held the same way."""
+    import numpy as np
+    from repro_torch.hierarchy import (hierarchy_network, simulate_hierarchy,
+                                       simulate_hierarchy_py, tier_sigma_of)
+
+    model = hierarchy_network("lru", "lru", **HD_MODEL)
+    n_sim, n_py = HD_REQUESTS
+    out = {}
+    jx = simulate_hierarchy(model, [0.35], n_requests=n_sim, seeds=(0, 1),
+                            coalesce_flows=2, device=device)
+    py = simulate_hierarchy_py(model, 0.35, n_requests=n_py, seed=2,
+                               coalesce_flows=2)
+    got = {"rel_x": abs(jx.throughput[0] - py.throughput[0]) / py.throughput[0],
+           "dl1_gap": abs(jx.delayed_l1_frac[0] - py.delayed_l1_frac[0]),
+           "dl2_gap": abs(jx.delayed_l2_frac[0] - py.delayed_l2_frac[0])}
+    split = max(abs(r.delayed_frac[0] - r.delayed_l1_frac[0]
+                    - r.delayed_l2_frac[0]) for r in (jx, py))
+    s1 = tier_sigma_of(model.coalesced(flows=2), 0.35)[0]
+    sim_s1 = jx.delayed_l1_frac[0] / (1.0 - 0.35)
+    lv = simulate_hierarchy(model, [0.4], n_requests=n_sim, seeds=(0,),
+                            coalesce_flows=2, device=device)
+    lv_gap = np.abs(lv.level_throughput[0] / lv.throughput[0]
+                    - model.level_fractions(0.4)).max()
+    out["twins"] = {k: float(v) for k, v in got.items()}
+    out["twins"].update(split=float(split), x_sim=float(jx.throughput[0]),
+                        x_oracle=float(py.throughput[0]),
+                        sigma1=float(s1), sigma1_sim=float(sim_s1),
+                        level_gap=float(lv_gap))
+    if not (got["rel_x"] < 0.15 and got["dl1_gap"] < 0.08
+            and got["dl2_gap"] < 0.05 and split < 1e-6
+            and jx.delayed_l1_frac[0] > jx.delayed_l2_frac[0] > 0.0
+            and abs(s1 - sim_s1) < 0.3 * abs(sim_s1) and lv_gap < 0.05
+            and abs(lv.shard_throughput[0].sum()
+                    - lv.level_throughput[0, 1:].sum())
+            < 1e-6 * lv.throughput[0]):
+        raise AssertionError(f"hierarchy differential: {out['twins']}")
+    print(f"hierarchy twins p 0.35: X {jx.throughput[0]:.4f} vs oracle "
+          f"{py.throughput[0]:.4f} (rel {got['rel_x']:.3f}), L1 gap "
+          f"{got['dl1_gap']:.4f}, L2 gap {got['dl2_gap']:.4f}; sigma1 "
+          f"{s1:.3f} vs {sim_s1:.3f}; levels within {lv_gap:.4f}",
+          flush=True)
+    for p, flows, seed in HD_TWIN_CASES + (HD_REFERENCE_FAILS,):
+        seeds = tuple(range(seed, seed + HD_TWIN_SEEDS))
+        res = simulate_hierarchy(model, [p], n_requests=HD_TWIN_REQUESTS,
+                                 seeds=seeds, coalesce_flows=flows,
+                                 device=device)
+        refs = [simulate_hierarchy_py(model, p, n_requests=HD_TWIN_REQUESTS,
+                                      seed=sd, coalesce_flows=flows)
+                for sd in seeds]
+        x = float(res.throughput[0])
+        xr = float(np.mean([r.throughput[0] for r in refs]))
+        case = {"x_sim": x, "x_oracle": xr, "seeds": len(seeds),
+                "rel_x": abs(x - xr) / max(x, xr),
+                "dl1_gap": abs(float(res.delayed_l1_frac[0]) - float(
+                    np.mean([r.delayed_l1_frac[0] for r in refs]))),
+                "dl2_gap": abs(float(res.delayed_l2_frac[0]) - float(
+                    np.mean([r.delayed_l2_frac[0] for r in refs])))}
+        out[f"p={p:g} F={flows} seed={seed}"] = case
+        print(f"hierarchy twins p {p:g} F {flows} seed {seed}: X {x:.4f} vs "
+              f"oracle {xr:.4f} ({len(seeds)} seeds a side, rel "
+              f"{case['rel_x']:.3f}, band 0.2), L1 gap {case['dl1_gap']:.4f},"
+              f" L2 gap {case['dl2_gap']:.4f}", flush=True)
+        if not (case["rel_x"] < 0.2 and case["dl1_gap"] < 0.1
+                and case["dl2_gap"] < 0.06):
+            raise AssertionError(f"hierarchy twins {(p, flows, seed)}: {case}")
+    rec["hierarchy_differential"] = out
+
+
 def cluster_long_run(device="cuda", n_requests=CL_LONG_REQUESTS,
                      n_seeds=CL_LONG_SEEDS, n_se=CL_LONG_SE) -> dict:
     """The differential's LRU, theta 1, 4-shard case at ``n_requests``:
@@ -1468,7 +1791,9 @@ def ext_timing(rec):
     from repro_torch.core import build, exponential_analogue
     from repro_torch.kernels import event_sim as es
     from repro_torch.latency import lambda_max
-    from test_torch_event_sim_cuda import cluster_model, hold_coalesced, hold_open
+    from test_torch_event_sim_cuda import (cluster_model, hierarchy_model,
+                                           hold_coalesced, hold_open,
+                                           hold_tiered)
 
     dev = torch.device("cuda")
 
@@ -1559,6 +1884,48 @@ def ext_timing(rec):
     fl_ms = cuda_ms(lambda: es.sim_lanes(fspec, fseeds, **fkw), reps=5)
     fl_events = int(es.sim_lanes(fspec, fseeds, **fkw).events.long().sum())
     n_k = int(cspec.svc_ns.shape[1])
+
+    # the tiered instantiation: one lane of fig_hierarchy's LRU-client
+    # hierarchy (3 clients, 2 shards, mpl 96) at its middle p with 4 flows
+    # per table, beside the closed, counting and coalescing kernels on the
+    # same lane
+    hm = hierarchy_model("fig", HI_MPL)
+    hp = np.array([0.5 * sum(hm.profile.p_range())])
+    tspec, tseeds, tkw = es.grid_lanes(hm.network, hp, EXT_TIMING_REQUESTS,
+                                       (0,), 0.25, dev, coalesce_flows=4,
+                                       tiers=hm.mshr)
+    ti_ms = cuda_ms(lambda: es.sim_lanes(tspec, tseeds, **tkw), reps=5)
+    tkern = es.sim_lanes(tspec, tseeds, **tkw)
+    tplain, ti_plain_ms = timed_plain(
+        lambda: es.sim_lanes_plain(tspec, tseeds, **tkw))
+    rec["event_sim_tiers_max_abs_err"] = max(
+        rec["event_sim_tiers_max_abs_err"],
+        hold_tiered(tkern, tplain, exact=False))
+    ti_events = int(tkern.events.long().sum())
+    hspec, hseeds, hkw = es.grid_lanes(hm.network, hp, EXT_TIMING_REQUESTS,
+                                       (0,), 0.25, dev)
+    h_closed_ms = cuda_ms(lambda: es.sim_lanes(hspec, hseeds, **hkw), reps=5)
+    h_count_ms = cuda_ms(lambda: es.sim_lanes(hspec, hseeds,
+                                              count_branches=True, **hkw),
+                         reps=5)
+    h_events = int(es.sim_lanes(hspec, hseeds, **hkw).events.long().sum())
+    fhspec, fhseeds, fhkw = es.grid_lanes(hm.network, hp, EXT_TIMING_REQUESTS,
+                                          (0,), 0.25, dev, coalesce_flows=4)
+    h_flows_ms = cuda_ms(lambda: es.sim_lanes(fhspec, fhseeds, **fhkw), reps=5)
+    h_flows_events = int(es.sim_lanes(fhspec, fhseeds,
+                                      **fhkw).events.long().sum())
+    tables = tkw["tiers"]
+    ti_bytes = (spec_bytes(tspec, tseeds, tkw)
+                + sum(t.numel() * t.element_size() for t in tables[:3])
+                + 4 * (5 + 2 * tspec.visits.shape[1] + tables.max_held))
+    # per event: the closed loop's work and the count (as kCount), the
+    # placement (three table reads, the flow draw) and the leader write;
+    # per delayed hit (each measured one, at least): the cascade's mark and
+    # its fresh request's draws
+    n_delayed = int(round(float(tkern.delayed_frac[0])
+                          * (int(tkern.completed[0]) - tkw["warmup"])))
+    ti_ops = ti_events * (5 * tkw["mpl"] + 81) + 40 * n_delayed
+    tb, tby = work_bound(ti_bytes, ti_ops)
     out = {
         "count_8_shards": {
             "ms": cnt_ms, "plain_ms": cnt_plain_ms, "events": cnt_events,
@@ -1579,7 +1946,20 @@ def ext_timing(rec):
                  "events": open_events, "ns_per_event": open_ms * 1e6 / open_events,
                  "bytes": open_bytes, "ops": open_ops, "bound_ms": ob,
                  "fig_b_launch_ms": open_fig_ms,
-                 "requests": EXT_TIMING_REQUESTS}}
+                 "requests": EXT_TIMING_REQUESTS},
+        "tiers": {"ms": ti_ms, "plain_ms": ti_plain_ms, "events": ti_events,
+                  "ns_per_event": ti_ms * 1e6 / ti_events,
+                  "delayed_hits": n_delayed, "p": float(hp[0]),
+                  "closed_ms": h_closed_ms, "count_ms": h_count_ms,
+                  "closed_events": h_events,
+                  "closed_ns_per_event": h_closed_ms * 1e6 / h_events,
+                  "count_ns_per_event": h_count_ms * 1e6 / h_events,
+                  "coalesced_ms": h_flows_ms,
+                  "coalesced_events": h_flows_events,
+                  "coalesced_ns_per_event": h_flows_ms * 1e6 / h_flows_events,
+                  "stations": int(tspec.svc_ns.shape[1]), "mpl": tkw["mpl"],
+                  "bytes": ti_bytes, "ops": ti_ops, "bound_ms": tb,
+                  "requests": EXT_TIMING_REQUESTS}}
     c8 = out["count_8_shards"]
     print(f"event_sim count, {CL_SHARDS} shards (K {n_k}, mpl {ckw['mpl']}): "
           f"{cnt_ms:.3f} ms per 1-lane launch ({c8['ns_per_event']:.1f} ns per "
@@ -1591,6 +1971,14 @@ def ext_timing(rec):
           f"({out['coalesced']['ns_per_event']:.1f} ns per event), plain "
           f"{co_plain_ms:.1f} ms, bound {cb:.5f} ms; fig_delayed_hits B's "
           f"launch {co_fig_ms:.3f} ms", flush=True)
+    t8 = out["tiers"]
+    print(f"event_sim tiers, fig_hierarchy's lane (K {t8['stations']}, mpl "
+          f"{tkw['mpl']}, F 4, p {hp[0]:.4f}): {ti_ms:.3f} ms per 1-lane "
+          f"launch ({t8['ns_per_event']:.1f} ns per event), plain "
+          f"{ti_plain_ms:.1f} ms, bound {tb:.5f} ms; on the same lane the "
+          f"closed kernel {t8['closed_ns_per_event']:.1f}, the counting one "
+          f"{t8['count_ns_per_event']:.1f}, the coalescing one "
+          f"{t8['coalesced_ns_per_event']:.1f} ns per event", flush=True)
     print(f"event_sim open: {open_ms:.3f} ms per 1-lane launch "
           f"({out['open']['ns_per_event']:.1f} ns per event), plain "
           f"{open_plain_ms:.1f} ms, bound {ob:.5f} ms; fig_latency B's "
@@ -1612,6 +2000,11 @@ def ext_timing(rec):
          "replaces": "src/repro/core/simulator.py:162",
          "ms": cnt_ms, "plain_ms": cnt_plain_ms, "bound_ms": nb,
          "bound_by": nby, "library_ms": None},
+        {"name": "event_sim_tiers", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim.cu",
+         "replaces": "src/repro/core/simulator.py:483",
+         "ms": ti_ms, "plain_ms": ti_plain_ms, "bound_ms": tb,
+         "bound_by": tby, "library_ms": None},
     ]
 
 
@@ -1678,7 +2071,7 @@ def check_trace(rec):
         err = max(err, hold_trace(what, kern, plain, spec.visits[0],
                                   exact=what.startswith("det")))
     rec["event_sim_traced_max_abs_err"] = max(
-        rec["event_sim_traced_max_abs_err"], err)
+        rec.get("event_sim_traced_max_abs_err", 0.0), err)
 
 
 def lru_inputs(n_slots, n_acc, padded, seed):
@@ -2182,8 +2575,8 @@ def full_size(rec):
     # of the traced plain version, whose throughput, completions and
     # events are the untraced plain version's
     spec, seeds, kw_t = es.grid_lanes(
-        lru_network(disk_us=100.0), np.asarray(P_GRID), SIM_REQUESTS, SEEDS,
-        0.25, torch.device("cuda"), trace=TRACE_FULL)
+        lru_network(disk_us=100.0), np.asarray(P_GRID), SIM_REQUESTS,
+        SEEDS, 0.25, torch.device("cuda"), trace=TRACE_FULL)
     kw = untraced(kw_t)
     sim_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw), reps=5)
     traced_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw_t), reps=5)
@@ -2207,8 +2600,8 @@ def full_size(rec):
     # untraced launches are one such lane
     meas = measure_cache("lru", 384, key_space=4096, n_requests=60_000,
                          device="cuda")
-    one = es.grid_lanes(meas.network, np.asarray([meas.hit_ratio]), 16_000,
-                        (0,), 0.25, torch.device("cuda"))
+    one = es.grid_lanes(meas.network, np.asarray([meas.hit_ratio]),
+                        SIM_REQUESTS, (0,), 0.25, torch.device("cuda"))
     sim_one_lane_ms = cuda_ms(lambda: es.sim_lanes(one[0], one[1], **one[2]),
                               reps=5)
     out_one = es.sim_lanes(one[0], one[1], **one[2])
@@ -3337,6 +3730,57 @@ def attention_timing():
     return rows
 
 
+# the checks that time nothing, by name, in the order they are handed to
+# the workers (longest first)
+PARALLEL_CHECKS = {
+    "tiers_long_vs_plain": check_tiers_long,
+    "replay_vs_plain": check_replay,
+    "event_sim_vs_plain": check_event_sim,
+    "cluster_vs_plain": check_cluster,
+    "tiers_vs_plain": check_tiers,
+    "open_vs_plain": check_open,
+    "trace_vs_plain": check_trace,
+    "coalesce_vs_plain": check_coalesce,
+}
+
+
+def _check_worker_init():
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _run_check(name):
+    """One check in a worker: (name, seconds, what it recorded)."""
+    rec = {}
+    t0 = time.perf_counter()
+    PARALLEL_CHECKS[name](rec)
+    seconds = time.perf_counter() - t0
+    print(f"check {name}: {seconds:.3f} s", flush=True)
+    return name, seconds, rec
+
+
+def parallel_checks(rec):
+    """Run ``PARALLEL_CHECKS`` in ``CHECK_WORKERS`` processes (spawned, so
+    each has its own CUDA context; the kernels are the build's), and merge
+    what each recorded: the largest of each ``*_max_abs_err``.  A check
+    that fails fails the phase; leaving the pool stops every worker."""
+    import multiprocessing
+
+    seconds = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(CHECK_WORKERS, initializer=_check_worker_init) as pool:
+        for name, sec, got in pool.imap_unordered(_run_check,
+                                                  PARALLEL_CHECKS):
+            seconds[name] = sec
+            for k, v in got.items():
+                rec[k] = (max(rec.get(k, 0.0), v)
+                          if k.endswith("_max_abs_err") else v)
+    rec["check_seconds"] = seconds
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3375,16 +3819,11 @@ def main() -> int:
     phases.run("wkv_ptxas", wkv_ptxas, ptxas, rec)
     phases.run("flash_ptxas", flash_ptxas, ptxas, rec)
     phases.run("sass", sass_counts, rec)
-    phases.run("replay_vs_plain", check_replay, rec)
-    phases.run("event_sim_vs_plain", check_event_sim, rec)
-    phases.run("trace_vs_plain", check_trace, rec)
+    phases.run("parallel_checks", parallel_checks, rec)
     phases.run("lru_update_vs_plain", check_lru_update, rec)
     phases.run("flash_vs_plain", check_flash, rec)
     phases.run("paged_vs_plain", check_paged, rec)
     phases.run("wkv_vs_plain", check_wkv, rec)
-    phases.run("coalesce_vs_plain", check_coalesce, rec)
-    phases.run("open_vs_plain", check_open, rec)
-    phases.run("cluster_vs_plain", check_cluster, rec)
 
     kr.replay_lanes.launches = 0
     es.sim_lanes.launches = 0
@@ -3400,9 +3839,14 @@ def main() -> int:
     launches["lru_batch_update"] = cu.lru_update.launches
     es.sim_lanes.flows_launches = 0
     es.sim_open_lanes.launches = 0
+    es.sim_lanes.tiers_launches = 0
     phases.run("figures_path", figures_path, rec)
     launches["event_sim_coalesced"] = es.sim_lanes.flows_launches
     launches["event_sim_open"] = es.sim_open_lanes.launches
+    # the tiered kernel's path: fig_hierarchy (in figures_path) and the
+    # hierarchy's differential
+    phases.run("hierarchy_differential", hierarchy_differential, rec)
+    launches["event_sim_tiers"] = es.sim_lanes.tiers_launches
     es.sim_lanes.count_launches = 0
     phases.run("cluster_differential", cluster_differential, rec)
     launches["event_sim_count"] = es.sim_lanes.count_launches

@@ -6,7 +6,9 @@ LRU-like/FIFO-like classification.
 The package exports the names the reference's ``repro.core`` exports:
 the models of :mod:`repro_torch.core.queueing` and
 :mod:`repro_torch.core.policy_models` and the classification of
-:mod:`repro_torch.core.classify`.
+:mod:`repro_torch.core.classify`.  The tiered networks' MSHR table
+:class:`~repro_torch.core.simspec.MshrSpec` is importable from here too,
+outside ``__all__``, which stays the reference's.
 """
 
 from repro_torch.core.queueing import (
@@ -35,6 +37,7 @@ from repro_torch.core.policy_models import (
     s3fifo_network,
     slru_network,
 )
+from repro_torch.core.simspec import MshrSpec
 from repro_torch.core.classify import (
     FIFO_LIKE,
     LRU_LIKE,

@@ -96,7 +96,7 @@ def simulate_py(
     ``class_frac``, ``class_sojourn``, ``drop_frac`` — the oracle twin of
     :class:`repro_torch.core.simulator.OpenSimResult`).
 
-    ``tiers`` (the reference's ``repro.core.simspec.MshrSpec``, or any
+    ``tiers`` (a :class:`~repro_torch.core.simspec.MshrSpec`, or any
     object with its ``acq_group``/``acq_slot``/``rel_slot`` annotation
     arrays, ``max_held`` and ``validate``) switches MSHR
     coalescing to the **cross-tier** tables of a composed hierarchy
@@ -105,8 +105,7 @@ def simulate_py(
     tiers (a woken delayed hit force-frees its own held entries, waking
     its followers).  Needs ``coalesce_flows > 0``; with 0 the annotations
     are ignored (the no-coalescing reference).  The oracle twin of the
-    reference's ``simulate_network(tiers=...)`` (the port's simulator
-    does not take ``tiers`` yet: ROADMAP queue 1, item 6.4).
+    simulators' ``simulate_network(tiers=...)``.
 
     ``trace > 0`` collects per-request trace records in the
     :mod:`repro_torch.obs.trace` schema (same capping semantics as the

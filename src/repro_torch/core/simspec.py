@@ -8,6 +8,11 @@ built in numpy exactly as the JAX package builds them and then placed on
 the requested device as tensors.
 
 :class:`SimResult` is the closed-loop summary the simulator returns.
+
+:class:`MshrSpec` is the cross-tier MSHR annotation table of a tiered
+(hierarchy) network: per-(branch, visit-position) acquire and release
+marks that generalize the single ``disk_rank`` convention to a DAG of
+caches (numpy, a copy of the reference's).
 """
 
 from __future__ import annotations
@@ -114,6 +119,79 @@ def compile_network(net: ClosedNetwork, p_hit: float,
     )
 
 
+class MshrSpec(NamedTuple):
+    """Cross-tier MSHR annotations for one composed (tiered) network.
+
+    All arrays are shaped like ``SimSpec.visits`` (B branches × L route
+    positions, -1 meaning "nothing here") and are *hit-ratio independent*
+    (branch probabilities change with p, routes do not):
+
+    ``acq_group[b, i]``
+        MSHR group acquired on ARRIVAL at visit ``(b, i)``.  With F flows
+        per group, the fetch for flow ``f`` of group ``g`` lives at leader
+        slot ``g*F + f``.  Groups 0..n_clients-1 are the per-client L1
+        tables; the shard-local origin tables follow (the deeper tier's
+        coalescing never crosses shards).
+    ``acq_slot[b, i]``
+        Which of the job's ``max_held`` held-entry registers the
+        acquisition writes (0 = shallowest tier).
+    ``rel_slot[b, i]``
+        Held-entry register released on COMPLETION of visit ``(b, i)`` —
+        the fill lands, every request parked on that slot completes as a
+        delayed hit (cascading across tiers: a woken job releases *its*
+        held entries too, waking its own followers).
+
+    Semantics contract (the event-sim kernel, its plain version and the
+    heapq oracle :mod:`repro_torch.core.py_sim`): a job samples one flow
+    per request at its first acquire point; arriving at an acquire
+    position whose slot already has a leader, it parks — no queue
+    position, no I/O-depth slot, no further route visits — and completes
+    at fill time, skipping all fill metadata (the single-tier delayed-hit
+    convention).
+    """
+
+    acq_group: np.ndarray  # (B, L) i32, -1 = no acquire at this visit
+    acq_slot: np.ndarray  # (B, L) i32, -1 matching acq_group
+    rel_slot: np.ndarray  # (B, L) i32, -1 = no release at this visit
+    n_groups: int
+    max_held: int
+
+    def validate(self, visits: np.ndarray) -> None:
+        """Structural checks against a compiled route table."""
+        ag = np.asarray(self.acq_group)
+        asl = np.asarray(self.acq_slot)
+        rs = np.asarray(self.rel_slot)
+        if ag.shape != visits.shape or asl.shape != visits.shape \
+                or rs.shape != visits.shape:
+            raise ValueError(
+                f"MshrSpec arrays {ag.shape} do not match visits "
+                f"{visits.shape}")
+        if ((ag >= 0) != (asl >= 0)).any():
+            raise ValueError("acq_group and acq_slot must mark the same "
+                             "positions")
+        if (ag >= self.n_groups).any() or (asl >= self.max_held).any() \
+                or (rs >= self.max_held).any():
+            raise ValueError("MshrSpec group/slot index out of range")
+        if (ag[:, 0] >= 0).any():
+            raise ValueError("a branch cannot acquire at its first visit "
+                             "(requests start at a think station)")
+        for b in range(ag.shape[0]):
+            acquired = {int(s) for s in asl[b] if s >= 0}
+            released = {int(s) for s in rs[b] if s >= 0}
+            if acquired != released:
+                raise ValueError(
+                    f"branch {b}: acquired slots {sorted(acquired)} != "
+                    f"released slots {sorted(released)} — a leaked leader "
+                    f"entry would deadlock the closed loop")
+            for s in acquired:
+                a_pos = int(np.nonzero(asl[b] == s)[0][0])
+                r_pos = int(np.nonzero(rs[b] == s)[0][0])
+                if r_pos < a_pos:
+                    raise ValueError(
+                        f"branch {b}: slot {s} released at position "
+                        f"{r_pos} before its acquire at {a_pos}")
+
+
 def stack_specs(specs: Sequence[SimSpec]) -> SimSpec:
     """Stack specs along a leading lane axis, padded to the largest station
     (K), branch (B) and route (Lr) counts.
@@ -174,7 +252,7 @@ class SimResult:
     branch_delayed: np.ndarray | None = None
     # tiered (MshrSpec) runs only: delayed-hit completions split by the
     # held-slot level the job parked at, (P, max_held) fractions of
-    # measured completions.  None: the port has no tiered runs yet.
+    # measured completions.  None otherwise.
     delayed_tier_frac: np.ndarray | None = None
     # decoded per-lane trace records ([seed][p]
     # repro_torch.obs.trace.TraceRecords); None unless the run asked for

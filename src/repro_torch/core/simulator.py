@@ -7,7 +7,10 @@ with a fresh branch, optionally traced (``trace=K``: per-request records,
 :mod:`repro_torch.obs`).  With ``coalesce_flows > 0`` misses coalesce on
 an MSHR-style outstanding-miss table (delayed hits): a job arriving at a
 disk station whose flow already has a fetch in flight parks, holds no
-server, and completes when the fill lands.
+server, and completes when the fill lands.  With ``tiers`` (an
+:class:`~repro_torch.core.simspec.MshrSpec`) the tables are cross-tier:
+acquire and release points come from the annotation arrays, and fills
+cascade across tiers.
 
 The **open loop** (``arrival_rate`` set): Poisson arrivals (or ON-OFF
 bursts, ``burst``) into a pool of ``max_in_system`` job slots; every
@@ -19,9 +22,10 @@ The whole (p_hit x seed) grid is one launch of the event-sim kernel
 on the CPU.  Its counter-based RNG is the one of the reference's
 ``backend="pallas"`` engine, so the closed loop without coalescing agrees
 statistically with the reference's threefry engine and exactly with its
-pallas engine on deterministic service.  The reference runs coalescing
-and the open loop only on its threefry engine; the port runs them on its
-counter engine, so they agree with the reference statistically.
+pallas engine on deterministic service.  The reference runs coalescing,
+the tiered tables and the open loop only on its threefry engine; the
+port runs them on its counter engine, so they agree with the reference
+statistically.
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ __all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "OpenSimResult",
 # the ROADMAP item that ports it.  Each is refused when it differs from
 # the reference's default (second).
 _LATER = {
-    "tiers": ("ROADMAP queue 1, item 6.4 (tiered MSHR tables)", None),
     "sketch_cap": ("ROADMAP queue 1, item 8 (streaming sketches)", 0),
     "window_us": ("ROADMAP queue 1, item 8 (streaming sketch windows)", 0.0),
 }
@@ -135,13 +138,27 @@ def simulate_network(
     the same mean rate: exponential ON periods of mean ``mean_on_us`` µs
     at ``arrival_rate / duty``, separated by arrival-free OFF periods.
 
+    ``tiers`` (a :class:`~repro_torch.core.simspec.MshrSpec`, built by
+    :func:`repro_torch.hierarchy.compose_tiers`) switches the MSHR tables
+    to **cross-tier** leader tables: acquire, park and release points come
+    from the per-(branch, position) annotation arrays instead of the
+    disk ranks, an L1 miss can park behind its client's in-flight L2
+    fetch *or*, leading there, behind a shard-local in-flight origin
+    fetch, and fills cascade across tiers (the event-sim kernel's tiered
+    instantiation).  It needs ``coalesce_flows > 0`` to do anything; with
+    0 the annotations are ignored, as in the reference.  Closed loop
+    only: with ``arrival_rate`` it raises :class:`ValueError`.  The
+    result then carries ``delayed_tier_frac`` — delayed hits split by the
+    tier level parked at (column 0: client-local L1 table; later:
+    shard-local origin tables).
+
     The keywords are the reference's.  ``backend`` names the engine: the
     port has one, the reference's counter-RNG ``"pallas"`` engine, so that
     is its default and ``"jax"`` (the reference's threefry engine) raises
-    :class:`ValueError`.  ``tiers``, ``sketch_cap`` and ``window_us``, and
-    ``trace`` together with coalescing or the open loop, belong to later
-    slices of the port: they raise :class:`NotImplementedError` naming
-    their ROADMAP item.
+    :class:`ValueError`.  ``sketch_cap`` and ``window_us``, and ``trace``
+    together with coalescing (tiered or not) or the open loop, belong to
+    later slices of the port: they raise :class:`NotImplementedError`
+    naming their ROADMAP item.
     """
     if backend not in ("jax", "pallas"):
         raise ValueError(f"unknown backend {backend!r} (want 'jax' or "
@@ -150,7 +167,15 @@ def simulate_network(
         raise ValueError("backend='jax' is the reference's threefry engine, "
                          "which the port does not have: its one engine is "
                          "the counter-RNG engine of backend='pallas'")
-    given = {"tiers": tiers, "sketch_cap": sketch_cap, "window_us": window_us}
+    if tiers is not None and arrival_rate is not None:
+        raise ValueError("tiered MSHR coalescing runs the closed loop only "
+                         "(no arrival_rate/burst)")
+    if tiers is not None and not coalesce_flows:
+        tiers = None  # the annotations only size flow groups
+    if tiers is not None:
+        tiers.validate(compile_network(net, float(np.atleast_1d(p_hits)[0]),
+                                       device="cpu").visits.numpy())
+    given = {"sketch_cap": sketch_cap, "window_us": window_us}
     for name, value in given.items():
         item, default = _LATER[name]
         if value is default or (default is not None and value == default):
@@ -169,7 +194,8 @@ def simulate_network(
         return simulate_grid(net, p_hits, n_requests=n_requests, seeds=seeds,
                              warmup_frac=warmup_frac, trace=trace,
                              coalesce_flows=coalesce_flows,
-                             coalesce_theta=coalesce_theta, device=device)
+                             coalesce_theta=coalesce_theta, tiers=tiers,
+                             device=device)
     return _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                           warmup_frac, max_in_system, burst, coalesce_flows,
                           coalesce_theta, device)

@@ -94,6 +94,28 @@
 // the warmup snapshot copies the counts as kFlows does.  Its events are
 // the closed kernel's, draw for draw.
 //
+// Tiered MSHR tables (kMode kTiers): the reference runs its hierarchy's
+// cross-tier coalescing only on its threefry engine (src/repro/core/
+// simulator.py _simulate_tiered); this instantiation is the port's
+// counterpart, event for event sim_lanes_plain(tiers=...).  Acquire and
+// release points come from three (B, Lr) tables, staged in shared memory
+// as int8, in place of the disk ranks; the leader table holds n_groups * F
+// entries.  Each job keeps, in its owner's registers, its request's flow
+// (drawn at its first acquire, from the second stream's flow counter),
+// its held entry per level (kMaxHeld levels, a compile-time bound) and
+// the entry and level it is parked on.  When j completes a visit that
+// releases a level it holds, the fill cascades in at most max_held waves
+// over a bitmap of freed entries in shared memory (n_groups * F + 1 bits):
+// each owner marks its parked jobs whose entry is in the bitmap (one
+// reduction counts them), the bitmap is cleared, and the marked jobs'
+// held entries are set in it (shared atomics) and their leaders cleared;
+// a __syncwarp() orders each write before the next read.  So an entry the
+// cascade frees reads free at j's placement in the same event.  The woken
+// jobs keep their marks until the FIFO successor and the busy count are
+// taken from the state before the cascade, as the reference takes them;
+// then they complete as delayed hits (per-branch and per-level counts by
+// shared atomics) and start fresh requests from the second stream.
+//
 // Where bit-exactness with the JAX reference could break:
 //   * argmin ties: jnp.argmin returns the FIRST index.  Each thread keeps
 //     its lowest index among equal remaining times, and the second
@@ -120,6 +142,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -140,6 +163,12 @@ constexpr int kClosed = 0;
 constexpr int kFlows = 1;
 constexpr int kOpen = 2;
 constexpr int kCount = 3;
+constexpr int kTiers = 4;
+// kTiers: held entries per job, and the marks of a job the cascade wakes
+// (this wave; an earlier wave)
+constexpr int kMaxHeld = 2;
+constexpr int WAKING = -3;
+constexpr int WOKEN = -4;
 
 __device__ __forceinline__ uint32_t mix(uint32_t x) {
   x ^= x >> 16;
@@ -270,6 +299,17 @@ struct Ext {
   float on_mean, off_mean;  // open with burst: ON and OFF phase means, ns
 };
 
+// kTiers' inputs and outputs beyond Ext's: its own parameter type, so that
+// the other instantiations keep their parameters (and their code; a larger
+// Ext changes their register allocation)
+struct TierExt : Ext {
+  const int* acq_group;   // (lanes, B, Lr) group acquired on arrival
+  const int* acq_slot;    // (lanes, B, Lr) level it is held at
+  const int* rel_slot;    // (lanes, B, Lr) level released on completion
+  float* delayed_tier;    // (lanes, max_held) delayed hits per level
+  int max_held;
+};
+
 // Register slots per thread for mpl jobs; 0: job state in shared memory.
 __host__ __device__ constexpr int reg_slots(int mpl) {
   return mpl <= 32 ? 1 : mpl <= 64 ? 2 : mpl <= 128 ? 4 : mpl <= 256 ? 8 : 0;
@@ -287,9 +327,13 @@ constexpr int kBatch = 32;
 // table, the flow CDF and (kFlows) the per-branch counts and their warmup
 // snapshots; the open loop keeps (B) miss classes; R = 0 job slots hold
 // two more arrays (flow, age).  kCount keeps the per-branch counts only.
+// kTiers keeps the leader table, the flow CDF, the per-branch counts, the
+// per-level delayed counts and their snapshots, the freed-entry bitmap,
+// R = 0 job slots with kMaxHeld + 2 more arrays (held entries, parked
+// entry and level), and last the three (B, Lr) int8 tables.
 struct Layout {
   int q, law, draw, vis, cum, miss, enter, leave, trash, rank, lead, fcum,
-      bcnt, jobs, bytes;
+      bcnt, dlv, freed, jobs, tab, bytes;
 };
 
 __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
@@ -317,16 +361,23 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
   s.trash = o;
   o += trace ? 4 * 32 : 0;
   const bool ext = mode == kFlows || mode == kOpen;
+  const bool tiers = mode == kTiers;
   s.rank = o;
   o += ext ? 4 * n_k : 0;
   s.lead = o;
-  o += ext ? 4 * n_lead : 0;
+  o += ext || tiers ? 4 * n_lead : 0;
   s.fcum = o;
-  o += ext ? 4 * n_cdf : 0;
+  o += ext || tiers ? 4 * n_cdf : 0;
   s.bcnt = o;
-  o += mode == kFlows || mode == kCount ? 16 * n_b : 0;
+  o += mode == kFlows || mode == kCount || tiers ? 16 * n_b : 0;
+  s.dlv = o;
+  o += tiers ? 8 * kMaxHeld : 0;
+  s.freed = o;
+  o += tiers ? 4 * ((n_lead + 32) / 32) : 0;
   s.jobs = o;
-  o += smem_jobs ? (ext ? 32 : 24) * mpl : 0;
+  o += smem_jobs ? (tiers ? 4 * (10 + kMaxHeld) : ext ? 32 : 24) * mpl : 0;
+  s.tab = o;
+  o += tiers ? 3 * n_b * n_l : 0;
   s.bytes = o;
   return s;
 }
@@ -401,17 +452,47 @@ struct Jobs<0> {
   }
 };
 
-template <int kTrace, int R, int kMode>
+// kTiers: the job slots with, per job, the entry held at each level and
+// the entry and level it is parked on (-1: none); the other modes keep
+// Jobs<R> as it is.
+template <int R>
+struct TierJobs : Jobs<R> {
+  int hd_[kMaxHeld][R], po_[R], pl_[R];
+  __device__ __forceinline__ int& hd(int r, int l) { return hd_[l][r]; }
+  __device__ __forceinline__ int& po(int r) { return po_[r]; }
+  __device__ __forceinline__ int& pl(int r) { return pl_[r]; }
+};
+
+// mpl > 256: those arrays in shared memory too, past the eight of Jobs<0>.
+template <>
+struct TierJobs<0> : Jobs<0> {
+  int *hd_, *po_, *pl_;
+  int mpl_;
+  __device__ void bind(unsigned char* p, int mpl, int me) {
+    Jobs<0>::bind(p, mpl, me);
+    int* a = reinterpret_cast<int*>(p) + me;
+    hd_ = a + 8 * mpl;
+    po_ = a + (8 + kMaxHeld) * mpl;
+    pl_ = a + (9 + kMaxHeld) * mpl;
+    mpl_ = mpl;
+  }
+  __device__ __forceinline__ int& hd(int r, int l) { return hd_[l * mpl_ + 32 * r]; }
+  __device__ __forceinline__ int& po(int r) { return po_[32 * r]; }
+  __device__ __forceinline__ int& pl(int r) { return pl_[32 * r]; }
+};
+
+template <int kTrace, int R, int kMode, class E = Ext>
 __global__ void __launch_bounds__(32)
-    sim_kernel(const Args a, const Rings rings, const Ext ex) {
+    sim_kernel(const Args a, const Rings rings, const E ex) {
   constexpr bool kExt = kMode == kFlows || kMode == kOpen;  // coalescing state
   constexpr bool kOp = kMode == kOpen;
-  constexpr bool kCnt = kMode == kFlows || kMode == kCount;  // per-branch counts
+  constexpr bool kTi = kMode == kTiers;  // tiered tables
+  constexpr bool kCnt = kMode == kFlows || kMode == kCount || kTi;  // per-branch counts
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane_id = blockIdx.x;
   const int me = threadIdx.x;
   const int n_k = a.n_k, n_b = a.n_b, n_l = a.n_l, mpl = a.mpl;
-  const bool zipf = kExt && ex.flow_cum != nullptr;
+  const bool zipf = (kExt || kTi) && ex.flow_cum != nullptr;
   const Layout lay = layout(n_k, n_b, n_l, mpl, kTrace > 0, R == 0, kMode,
                             ex.n_lead, zipf ? ex.n_flows : 0);
   int2* q = reinterpret_cast<int2*>(smem + lay.q);
@@ -427,6 +508,9 @@ __global__ void __launch_bounds__(32)
   int* lead = reinterpret_cast<int*>(smem + lay.lead);
   float* fcum = reinterpret_cast<float*>(smem + lay.fcum);
   int* bcnt = reinterpret_cast<int*>(smem + lay.bcnt);  // done, delayed, warm x2
+  int* dlv = reinterpret_cast<int*>(smem + lay.dlv);    // per level, warm
+  unsigned* freed = reinterpret_cast<unsigned*>(smem + lay.freed);
+  signed char* tab = reinterpret_cast<signed char*>(smem + lay.tab);  // ag, as, rel
 
   // stage the lane's spec
   {
@@ -454,6 +538,19 @@ __global__ void __launch_bounds__(32)
     if constexpr (kCnt) {
       for (int i = me; i < 4 * n_b; i += 32) bcnt[i] = 0;
     }
+    if constexpr (kTi) {
+      for (int i = me; i < ex.n_lead; i += 32) lead[i] = -1;
+      if (zipf) {
+        for (int f = me; f < ex.n_flows; f += 32) fcum[f] = ex.flow_cum[f];
+      }
+      for (int i = me; i < 2 * kMaxHeld; i += 32) dlv[i] = 0;
+      const int nt = n_b * n_l, ot = lane_id * nt;
+      for (int i = me; i < nt; i += 32) {
+        tab[i] = static_cast<signed char>(ex.acq_group[ot + i]);
+        tab[nt + i] = static_cast<signed char>(ex.acq_slot[ot + i]);
+        tab[2 * nt + i] = static_cast<signed char>(ex.rel_slot[ot + i]);
+      }
+    }
   }
   __syncwarp();
 
@@ -471,7 +568,7 @@ __global__ void __launch_bounds__(32)
 
   // init: every job starts a request at its (think) first station; the
   // open loop starts with every slot free
-  Jobs<R> jobs;
+  typename std::conditional<kTi, TierJobs<R>, Jobs<R>>::type jobs;
   jobs.bind(smem + lay.jobs, mpl, me);
 #pragma unroll
   for (int r = 0; r < jobs.slots(); ++r) {
@@ -496,6 +593,13 @@ __global__ void __launch_bounds__(32)
     if constexpr (kExt) {
       jobs.fl(r) = -1;
       jobs.age(r) = 0.0f;
+    }
+    if constexpr (kTi) {
+      jobs.fl(r) = -1;
+#pragma unroll
+      for (int l = 0; l < kMaxHeld; ++l) jobs.hd(r, l) = -1;
+      jobs.po(r) = -1;
+      jobs.pl(r) = -1;
     }
   }
 
@@ -664,6 +768,7 @@ __global__ void __launch_bounds__(32)
     const int owner = j & 31;
     int o_st = 0, o_nx = 0, o_br = 0, o_pos = 0, o_fl = -1;  // meaningful in the owner
     float o_age = 0.0f;
+    int o_fill = -1;  // kTiers: the entry j's visit releases (-1: none)
     jobs.at(j >> 5, [&](int r) {
       o_st = jobs.st(r);
       o_nx = jobs.nx(r);
@@ -674,6 +779,26 @@ __global__ void __launch_bounds__(32)
         o_age = jobs.age(r);
       }
     });
+    if constexpr (kTi) {
+      // the fill: completing this visit frees the entry j holds at the
+      // level it releases (the cascade never touches j, which is live).
+      // Through constant slot indices, outside the lambda, so that the
+      // slots stay registers
+#pragma unroll
+      for (int r = 0; r < jobs.max_slots(); ++r) {
+        if (r == (j >> 5) && r < jobs.slots()) {
+          o_fl = jobs.fl(r);
+          const int rel = tab[2 * n_b * n_l + min(o_br, n_b - 1) * n_l + o_pos];
+#pragma unroll
+          for (int l = 0; l < kMaxHeld; ++l) {
+            if (l == rel) {
+              o_fill = jobs.hd(r, l);
+              if (me == owner) jobs.hd(r, l) = -1;
+            }
+          }
+        }
+      }
+    }
     const int k_cur = __shfl_sync(FULL, o_st, owner);
     const int route_next = __shfl_sync(FULL, o_nx, owner);
     // kTrace: j's branch and position, and this thread's stamp slot of
@@ -694,6 +819,77 @@ __global__ void __launch_bounds__(32)
       f_cur = __shfl_sync(FULL, o_fl, owner);
       fill = f_cur >= 0 && rank[k_cur] >= 0;
     }
+    // j parks (kExt, kTiers) behind the leader of its flow f_new (kExt) or
+    // of entry slot_new (kTiers) at k_next
+    bool at_disk = false, parks = false;
+    int f_new = -1;
+    // kTiers: the fill's cascade, then j's placement at k_next
+    int n_woken_t = 0, acq_lvl = -1, slot_new = -1;
+    bool at_acq = false;
+    if constexpr (kTi) {
+      bj = __shfl_sync(FULL, o_br, owner);
+      pos_j = __shfl_sync(FULL, o_pos, owner);
+      f_cur = __shfl_sync(FULL, o_fl, owner);
+      const int slot0 = __shfl_sync(FULL, o_fill, owner);
+      if (slot0 >= 0) {
+        const int n_words = (ex.n_lead + 32) >> 5;  // n_lead + 1 bits
+        for (int w = me; w < n_words; w += 32) freed[w] = w == (slot0 >> 5) ? 1u << (slot0 & 31) : 0u;
+        if (me == 0) lead[slot0] = -1;
+        __syncwarp();
+        for (int wave = 0; wave < ex.max_held; ++wave) {
+          // the parked jobs whose entry the last wave freed wake
+          int lnew = 0;
+#pragma unroll
+          for (int r = 0; r < jobs.slots(); ++r) {
+            if (jobs.st(r) == PARKED) {
+              const int e = jobs.po(r);
+              if ((freed[e >> 5] >> (e & 31)) & 1u) {
+                jobs.st(r) = WAKING;
+                ++lnew;
+              }
+            }
+          }
+          const int nw = __reduce_add_sync(FULL, lnew);
+          if (nw == 0) break;
+          n_woken_t += nw;
+          __syncwarp();  // the bitmap's reads are done
+          for (int w = me; w < n_words; w += 32) freed[w] = 0u;
+          __syncwarp();
+          // their held entries are fills that landed too
+#pragma unroll
+          for (int r = 0; r < jobs.slots(); ++r) {
+            if (jobs.st(r) == WAKING) {
+#pragma unroll
+              for (int l = 0; l < kMaxHeld; ++l) {
+                const int h = jobs.hd(r, l);
+                if (h >= 0) {
+                  atomicOr(&freed[h >> 5], 1u << (h & 31));
+                  lead[h] = -1;
+                }
+              }
+              jobs.st(r) = WOKEN;
+            }
+          }
+          __syncwarp();
+        }
+      }
+      // the placement: at an acquire j takes its request's flow (drawn now
+      // if it has none) and parks behind the entry's leader or leads it
+      const int ti = min(route_next < 0 ? new_branch : bj, n_b - 1) * n_l +
+                     (route_next < 0 ? 0 : pos_j + 1);
+      const int g = tab[ti];
+      at_acq = g >= 0;
+      if (at_acq) {
+        acq_lvl = tab[n_b * n_l + ti];
+        const int f_req = f_cur >= 0
+                              ? f_cur
+                              : flow_of(u01(base2, c0 + 2u * mpl), ex.n_flows, flow_cdf);
+        slot_new = g * ex.n_flows + f_req;
+        f_new = f_req;
+        parks = lead[slot_new] >= 0;
+      }
+    }
+
     // the station after j's next one, unless j completes (owner's view)
     const int nx_cont = after(o_br, o_pos + 1);
 
@@ -708,8 +904,6 @@ __global__ void __launch_bounds__(32)
     const int svc_w = d[k_cur], svc_j = d[n_k + k_next];
     // kExt: arriving at a disk, j samples a flow and parks behind its
     // leader or leads it (the entry a fill clears this event reads free)
-    bool at_disk = false, parks = false;
-    int f_new = -1;
     if constexpr (kExt) {
       if (ex.n_flows > 0 && !(kOp && done)) {
         const int rk = rank[k_next];
@@ -734,7 +928,7 @@ __global__ void __launch_bounds__(32)
         __reduce_add_sync(FULL, lbusy) + (handover && k_next == k_cur ? 1 : 0);
     bool starts_now = !qn.x || busy_next < qn.y;
     bool waits = !starts_now;
-    if constexpr (kExt) {
+    if constexpr (kExt || kTi) {
       starts_now = starts_now && !parks && !(kOp && done);
       waits = waits && !parks && !(kOp && done);
     }
@@ -787,6 +981,41 @@ __global__ void __launch_bounds__(32)
       }
     }
 
+    // kTiers: the cascade's jobs complete as delayed hits, counted under
+    // the branch and at the level they parked at, and start fresh requests
+    if constexpr (kTi) {
+      if (n_woken_t > 0) {
+#pragma unroll
+        for (int r = 0; r < jobs.slots(); ++r) {
+          if (jobs.st(r) == WOKEN) {
+            const int i = me + 32 * r;
+            const int b = jobs.br(r);
+            if (b < n_b) {
+              atomicAdd(&bcnt[b], 1);
+              atomicAdd(&bcnt[n_b + b], 1);
+            }
+            atomicAdd(&dlv[jobs.pl(r)], 1);
+            const uint32_t ci = c0 + 2u * static_cast<uint32_t>(i);
+            const int wb = count_below(cum, n_b, u01(base2, ci));
+            const int wst = visit(wb, 0);
+            jobs.ready(r) = clock + static_cast<uint32_t>(service_ns(u01(base2, ci + 1u), law[wst]));
+            jobs.st(r) = wst;
+            jobs.nx(r) = after(wb, 0);
+            jobs.br(r) = wb;
+            jobs.pos(r) = 0;
+            jobs.enq(r) = BIG_SEQ;
+            jobs.fl(r) = -1;
+#pragma unroll
+            for (int l = 0; l < kMaxHeld; ++l) jobs.hd(r, l) = -1;
+            jobs.po(r) = -1;
+            jobs.pl(r) = -1;
+          }
+        }
+        completed += n_woken_t;
+        delayed += n_woken_t;
+      }
+    }
+
     // the owners' updates, predicated: a branch here costs more than
     // it skips.  The successor starts service, j moves on.
     {
@@ -812,6 +1041,30 @@ __global__ void __launch_bounds__(32)
         jobs.pos(r) = done ? 0 : o_pos + 1;
         if constexpr (kExt) jobs.fl(r) = at_disk ? f_new : -1;
       });
+    }
+    if constexpr (kTi) {
+#pragma unroll
+      for (int r = 0; r < jobs.max_slots(); ++r) {
+        if (me == owner && r == (j >> 5) && r < jobs.slots()) {
+          jobs.fl(r) = at_acq ? f_new : done ? -1 : o_fl;
+#pragma unroll
+          for (int l = 0; l < kMaxHeld; ++l) {
+            if (l == acq_lvl && !parks) jobs.hd(r, l) = slot_new;
+          }
+          jobs.po(r) = parks ? slot_new : -1;
+          jobs.pl(r) = parks ? acq_lvl : -1;
+        }
+      }
+    }
+    if constexpr (kTi) {
+      // j leads its entry, and a completion is counted; thread 0 writes
+      // after every read above
+      __syncwarp();
+      if (me == 0) {
+        if (at_acq && !parks) lead[slot_new] = j;
+        if (done && bj < n_b) atomicAdd(&bcnt[bj], 1);
+      }
+      __syncwarp();
     }
     if constexpr (kExt) {
       // the leader table: the fill frees j's entry, a leading miss takes
@@ -871,10 +1124,13 @@ __global__ void __launch_bounds__(32)
     if (completed >= a.warmup && warm_completed < 0) {
       warm_completed = completed;
       warm_elapsed_us = elapsed_us;
-      if constexpr (kExt) warm_delayed = delayed;
+      if constexpr (kExt || kTi) warm_delayed = delayed;
       if constexpr (kCnt) {
         __syncwarp();  // the counts' atomics are done
         for (int i = me; i < 2 * n_b; i += 32) bcnt[2 * n_b + i] = bcnt[i];
+        if constexpr (kTi) {
+          if (me < kMaxHeld) dlv[kMaxHeld + me] = dlv[me];
+        }
         __syncwarp();
       }
     }
@@ -900,21 +1156,28 @@ __global__ void __launch_bounds__(32)
       ex.delayed_frac[lane_id] = static_cast<float>(delayed - warm_delayed) /
                                  static_cast<float>(max(completed - warm_completed, 1));
     }
+    if constexpr (kTi) {
+      for (int l = 0; l < ex.max_held; ++l) {
+        ex.delayed_tier[lane_id * ex.max_held + l] =
+            static_cast<float>(dlv[l] - dlv[kMaxHeld + l]) /
+            static_cast<float>(max(completed - warm_completed, 1));
+      }
+    }
     if constexpr (kOp) ex.dropped[lane_id] = dropped;
   }
 }
 
-template <int kTrace, int R, int kMode = kClosed>
+template <int kTrace, int R, int kMode = kClosed, class E = Ext>
 int launch_slots(const Args& a, const Rings& rings, int lanes, void* stream,
-                 const Ext& ex = Ext{}) {
+                 const E& ex = E{}) {
   const int n_cdf = ex.flow_cum != nullptr ? ex.n_flows : 0;
   const int bytes = layout(a.n_k, a.n_b, a.n_l, a.mpl, kTrace > 0, R == 0, kMode,
                            ex.n_lead, n_cdf).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      sim_kernel<kTrace, R, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      sim_kernel<kTrace, R, kMode, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   if (lanes == 0) return 0;
-  sim_kernel<kTrace, R, kMode><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
+  sim_kernel<kTrace, R, kMode, E><<<lanes, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
       a, rings, ex);
   return (int)cudaGetLastError();
 }
@@ -930,14 +1193,14 @@ int launch(const Args& a, const Rings& rings, int lanes, void* stream) {
   }
 }
 
-template <int kMode>
-int launch_ext(const Args& a, const Ext& ex, int lanes, void* stream) {
+template <int kMode, class E = Ext>
+int launch_ext(const Args& a, const E& ex, int lanes, void* stream) {
   switch (reg_slots(a.mpl)) {
-    case 1: return launch_slots<0, 1, kMode>(a, Rings{}, lanes, stream, ex);
-    case 2: return launch_slots<0, 2, kMode>(a, Rings{}, lanes, stream, ex);
-    case 4: return launch_slots<0, 4, kMode>(a, Rings{}, lanes, stream, ex);
-    case 8: return launch_slots<0, 8, kMode>(a, Rings{}, lanes, stream, ex);
-    default: return launch_slots<0, 0, kMode>(a, Rings{}, lanes, stream, ex);
+    case 1: return launch_slots<0, 1, kMode, E>(a, Rings{}, lanes, stream, ex);
+    case 2: return launch_slots<0, 2, kMode, E>(a, Rings{}, lanes, stream, ex);
+    case 4: return launch_slots<0, 4, kMode, E>(a, Rings{}, lanes, stream, ex);
+    case 8: return launch_slots<0, 8, kMode, E>(a, Rings{}, lanes, stream, ex);
+    default: return launch_slots<0, 0, kMode, E>(a, Rings{}, lanes, stream, ex);
   }
 }
 
@@ -969,8 +1232,12 @@ struct ExtArgs {
   int* dropped;
   float* soj;
   signed char* cls;
+  const int* acq_group;
+  const int* acq_slot;
+  const int* rel_slot;
+  float* delayed_tier;
   int lanes, n_k, n_b, n_l, mpl, n_requests, warmup, n_flows, n_lead, open,
-      burst, rec_len;
+      burst, rec_len, tiers, max_held;
   float on_mean, off_mean;
 };
 
@@ -995,28 +1262,40 @@ extern "C" int event_sim_shared_bytes(int n_k, int n_b, int n_l, int mpl,
 // job state in shared memory).
 extern "C" int event_sim_slots(int mpl) { return reg_slots(mpl); }
 
-// The mode of an ExtArgs launch: the open loop, coalescing (n_flows > 0)
-// or the closed loop with per-branch counts.
+// The mode of an ExtArgs launch: the open loop, the tiered tables,
+// coalescing (n_flows > 0) or the closed loop with per-branch counts.
 static int ext_mode(const ExtArgs& p) {
-  return p.open ? kOpen : p.n_flows > 0 ? kFlows : kCount;
+  return p.open ? kOpen : p.tiers ? kTiers : p.n_flows > 0 ? kFlows : kCount;
 }
 
-// Shared memory of one block of the coalescing, open-loop or counting
-// launch.
+// Shared memory of one block of the coalescing, open-loop, counting or
+// tiered launch.
 extern "C" int event_sim_ext_shared_bytes(const ExtArgs* p) {
   return layout(p->n_k, p->n_b, p->n_l, p->mpl, false, reg_slots(p->mpl) == 0,
                 ext_mode(*p), p->n_lead, p->flow_cum != nullptr ? p->n_flows : 0)
       .bytes;
 }
 
-// The coalescing (open == 0, n_flows > 0), open-loop (open == 1) or
-// counting (open == 0, n_flows == 0) launch, one warp per lane on
-// `stream`; returns the cudaError_t.
+// The coalescing (open == 0, n_flows > 0), open-loop (open == 1),
+// tiered (tiers == 1, n_flows > 0, max_held <= kMaxHeld) or counting
+// (open == 0, n_flows == 0) launch, one warp per lane on `stream`;
+// returns the cudaError_t.
 extern "C" int event_sim_ext_launch(const ExtArgs* p, void* stream) {
   const Args a = args_of(*p);
   const Ext ex = ext_of(*p);
   switch (ext_mode(*p)) {
     case kOpen: return launch_ext<kOpen>(a, ex, p->lanes, stream);
+    case kTiers: {
+      if (p->max_held > kMaxHeld || p->max_held < 1) return (int)cudaErrorInvalidValue;
+      TierExt tx;
+      static_cast<Ext&>(tx) = ex;
+      tx.acq_group = p->acq_group;
+      tx.acq_slot = p->acq_slot;
+      tx.rel_slot = p->rel_slot;
+      tx.delayed_tier = p->delayed_tier;
+      tx.max_held = p->max_held;
+      return launch_ext<kTiers, TierExt>(a, tx, p->lanes, stream);
+    }
     case kFlows: return launch_ext<kFlows>(a, ex, p->lanes, stream);
     default: return launch_ext<kCount>(a, ex, p->lanes, stream);
   }

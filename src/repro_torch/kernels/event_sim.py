@@ -50,6 +50,16 @@ reference's threefry engine takes on every closed run and the cluster
 prong reads per shard.  The closed kernel does not take them (its
 instantiations keep their code); a fourth instantiation does
 (``kCount``), with the closed loop's events draw for draw.
+
+**Tiered MSHR tables** (``tiers`` with ``n_flows > 0``; the reference's
+``_simulate_tiered``, threefry only): per-(branch, position) acquire and
+release marks (:class:`LaneTiers`, from an
+:class:`~repro_torch.core.simspec.MshrSpec`) in place of the disk ranks,
+a leader table of ``n_groups * F`` entries, up to ``max_held`` held
+entries per job, and fills that cascade: the jobs parked on a filled
+entry complete as delayed hits and free the entries they hold, waking
+their own followers.  A fifth instantiation of the kernel (``kTiers``);
+its plain version is :func:`sim_lanes_plain` with ``tiers``.
 """
 
 from __future__ import annotations
@@ -192,6 +202,41 @@ class LaneOutputs(NamedTuple):
     delayed_frac: Optional[torch.Tensor] = None
     branch_done: Optional[torch.Tensor] = None
     branch_delayed: Optional[torch.Tensor] = None
+    # filled with tiers: the measured delayed hits by the held level the
+    # job parked at, (L, max_held) f32 fractions of measured completions
+    delayed_tier: Optional[torch.Tensor] = None
+
+
+class LaneTiers(NamedTuple):
+    """The tiered MSHR tables of every lane (an
+    :class:`~repro_torch.core.simspec.MshrSpec` per lane, see
+    :func:`lane_tiers`): (L, B, Lr) int32 ``acq_group``, ``acq_slot`` and
+    ``rel_slot`` (-1: nothing at that visit), and the leader groups and
+    held levels of the widest lane."""
+
+    acq_group: torch.Tensor
+    acq_slot: torch.Tensor
+    rel_slot: torch.Tensor
+    n_groups: int
+    max_held: int
+
+
+def lane_tiers(mshrs, n_b: int, n_r: int, device) -> LaneTiers:
+    """:class:`LaneTiers` of one MshrSpec per lane, padded as
+    :func:`~repro_torch.core.simspec.stack_specs` pads the routes to
+    ``n_b`` branches of ``n_r`` positions: past a route's end nothing is
+    acquired or released, and a padded branch copies the lane's last
+    real branch's marks, as it copies that branch's route."""
+    def pad(a) -> np.ndarray:
+        a = np.asarray(a, np.int32)
+        b, r = a.shape
+        a = np.concatenate([a, np.full((b, n_r - r), -1, np.int32)], axis=1)
+        return np.concatenate([a, np.repeat(a[-1:], n_b - b, axis=0)])
+
+    tables = [torch.from_numpy(np.stack([pad(getattr(m, f)) for m in mshrs]))
+              .to(device) for f in ("acq_group", "acq_slot", "rel_slot")]
+    return LaneTiers(*tables, n_groups=max(int(m.n_groups) for m in mshrs),
+                     max_held=max(int(m.max_held) for m in mshrs))
 
 
 def lane_base2(seeds: torch.Tensor) -> torch.Tensor:
@@ -241,7 +286,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                     bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
                     flow_theta: float = 0.0, n_disks: int = 1,
                     disk_rank: Optional[torch.Tensor] = None,
-                    count_branches: bool = False) -> LaneOutputs:
+                    count_branches: bool = False,
+                    tiers: Optional[LaneTiers] = None) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
     inputs' device (``is_queue`` may be bool or int32, as for the kernel).
 
@@ -270,6 +316,24 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     per-branch counts.  ``n_flows = 0`` runs no coalescing code; with
     ``count_branches`` it still counts each lane's completions per branch
     (and no delayed hits), with the same warmup snapshot.
+
+    With ``tiers`` (and ``n_flows = F > 0``) misses coalesce on the tiered
+    tables (the reference ``_simulate_tiered``; ``disk_rank`` unused),
+    each lane with a leader table of ``tiers.n_groups * F`` entries, and
+    per job its flow (drawn at its first acquire of a request, as a miss
+    draws it, and kept to the request's end), its held entry per level
+    and the entry it is parked on.  Per event, in this order: the fill —
+    completing visit ``(b, i)`` with ``rel_slot[b, i] = s`` frees the
+    entry job ``j`` holds at level ``s``; the cascade — in at most
+    ``max_held`` waves, every job parked on an entry freed by the last
+    wave wakes and its held entries are freed; every freed entry's
+    leader is cleared, every woken job completes as a delayed hit (counted
+    under the branch it parked on and at the level it parked at) and
+    starts a fresh request from the second stream; the FIFO release; the
+    advance; the placement — at an acquire position ``j`` parks behind
+    the leader of entry ``acq_group * F + flow``, or leads it and holds
+    it at level ``acq_slot``; the warmup snapshot, which also takes the
+    per-level counts.
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
@@ -326,7 +390,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         leave_s = torch.zeros_like(enter_s)
         miss = bmiss.bool()
     co = None
-    if n_flows:
+    if tiers is not None:
+        co = _TieredCoalescer(seeds, mpl, n_flows, flow_theta, tiers, n_b)
+    elif n_flows:
         co = _Coalescer(seeds, mpl, n_flows, flow_theta, n_disks, disk_rank,
                         n_b)
     elif count_branches:
@@ -356,7 +422,21 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                                               elapsed), elapsed)
         k_cur = station[lane, j]
 
-        if n_flows:
+        if tiers is not None:
+            # j's visit may land a fill: the cascade's jobs complete as
+            # delayed hits and start fresh requests
+            woken = co.cascade(active, j, branch, pos)
+            if woken is not None:
+                co.count(woken, branch)
+                co.count_levels(woken)
+                wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
+                ready = torch.where(woken, wsvc, ready)
+                station = torch.where(woken, wst, station)
+                branch = torch.where(woken, wb, branch)
+                pos = torch.where(woken, 0, pos)
+                completed = completed + woken.sum(dim=1)
+                co.release(woken)
+        elif n_flows:
             # j's fetch landed: the jobs parked on it complete as delayed
             # hits and start fresh requests
             woken, fill, f_cur = co.fill(active, j, k_cur)
@@ -402,7 +482,12 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         waits = ~starts_now
         if co is not None:
             co.count_done(active & done, b_j)
-        if n_flows:
+        if tiers is not None:
+            parks = co.place(active, j, torch.where(done, new_branch, b_j),
+                             torch.where(done, 0, nxt), done, c)
+            starts_now = starts_now & ~parks
+            waits = waits & ~parks
+        elif n_flows:
             parks = co.place(active, j, k_next, c)
             starts_now = starts_now & ~parks
             waits = waits & ~parks
@@ -481,7 +566,7 @@ class _Coalescer(_BranchCounts):
         self.n, self.n_flows = n_jobs, n_flows
         cdf = flow_cdf(n_flows, flow_theta)
         self.cdf = None if cdf is None else torch.from_numpy(cdf).to(dev)
-        self.rank = disk_rank.long()
+        self.rank = None if disk_rank is None else disk_rank.long()
         self.flow = torch.full((n_l, n_jobs), -1, dtype=torch.int64,
                                device=dev)
         self.leader = torch.full((n_l, max(n_disks, 1) * n_flows), -1,
@@ -551,6 +636,118 @@ class _Coalescer(_BranchCounts):
         self.leader[lane, f_new] = torch.where(lead, j, self.leader[lane, f_new])
         self.flow[lane, j] = torch.where(at_disk, f_new, self.flow[lane, j])
         return parks
+
+
+class _TieredCoalescer(_Coalescer):
+    """The tiered MSHR state of :func:`sim_lanes_plain` with ``tiers``,
+    every lane batched: each job's flow, held entries (one per level) and
+    the entry and level it is parked on (-1: none), the leader table of
+    ``n_groups * F`` entries, the counts of :class:`_BranchCounts` and the
+    delayed hits per level."""
+
+    def __init__(self, seeds: torch.Tensor, n_jobs: int, n_flows: int,
+                 flow_theta: float, tiers: LaneTiers, n_b: int):
+        super().__init__(seeds, n_jobs, n_flows, flow_theta, tiers.n_groups,
+                         None, n_b)
+        dev, n_l = seeds.device, seeds.shape[0]
+        self.acq_g, self.acq_s, self.rel_s = (
+            t.long() for t in (tiers.acq_group, tiers.acq_slot,
+                               tiers.rel_slot))
+        self.max_held = tiers.max_held
+        self.held = torch.full((n_l, n_jobs, tiers.max_held), -1,
+                               dtype=torch.int64, device=dev)
+        self.parked_on = torch.full((n_l, n_jobs), -1, dtype=torch.int64,
+                                    device=dev)
+        self.parked_lvl = self.parked_on.clone()
+        self.dlvl = torch.zeros((n_l, tiers.max_held), dtype=torch.int64,
+                                device=dev)
+        self.warm_dlvl = self.dlvl.clone()
+
+    def cascade(self, active, j, branch, pos) -> Optional[torch.Tensor]:
+        """Job ``j`` completes its visit: the fill it releases, if any,
+        frees its held entry, and the cascade's waves wake the jobs parked
+        on freed entries (returned, (L, N) bool; None when no lane fills),
+        whose held entries free in turn; the freed entries' leaders are
+        cleared."""
+        lane, n_gf = self.lane, self.leader.shape[1]
+        b = branch[lane, j].clamp(max=self.n_b - 1)
+        rel = self.rel_s[lane, b, pos[lane, j]]
+        at = rel.clamp(min=0)
+        entry = self.held[lane, j, at]
+        self.held[lane, j, at] = torch.where(active & (rel >= 0), -1, entry)
+        fills = active & (rel >= 0) & (entry >= 0)
+        if not bool(fills.any()):
+            return None
+        freed = torch.zeros((lane.shape[0], n_gf + 1), dtype=torch.bool,
+                            device=lane.device)
+        freed[lane, torch.where(fills, entry, n_gf)] = True
+        freed[:, n_gf] = False
+        freed_all = freed.clone()
+        woken = torch.zeros_like(self.parked_on, dtype=torch.bool)
+        for _ in range(self.max_held):
+            wave = ((self.parked_on >= 0) & ~woken
+                    & freed.gather(1, self.parked_on.clamp(min=0)))
+            freed = torch.zeros_like(freed)
+            held = torch.where(wave[..., None] & (self.held >= 0), self.held,
+                               n_gf)
+            freed.scatter_(1, held.flatten(1), True)
+            freed[:, n_gf] = False
+            woken |= wave
+            freed_all |= freed
+        self.leader = torch.where(freed_all[:, :n_gf], -1, self.leader)
+        return woken
+
+    def count_levels(self, woken) -> None:
+        """The woken jobs' delayed hits at the level each parked at."""
+        self.dlvl.scatter_add_(1, self.parked_lvl.clamp(min=0), woken.long())
+
+    def release(self, woken) -> None:
+        """The woken jobs hold nothing, park nowhere and have no flow."""
+        self.held[woken] = -1
+        self.parked_on[woken] = -1
+        self.parked_lvl[woken] = -1
+        self.flow[woken] = -1
+
+    def place(self, active, j, branch_j, pos_j, done, c: int):
+        """Job ``j`` arrives at position ``pos_j`` of branch ``branch_j``:
+        at an acquire it takes its request's flow (drawn now if it has
+        none) and parks behind that entry's leader or leads it.  Returns
+        the lanes where ``j`` parks."""
+        lane, n_f = self.lane, self.n_flows
+        b = branch_j.clamp(max=self.n_b - 1)
+        g = self.acq_g[lane, b, pos_j]
+        lvl = self.acq_s[lane, b, pos_j]
+        at = active & (g >= 0)
+        f_own = self.flow[lane, j]
+        f_req = torch.where(f_own >= 0, f_own,
+                            flow_index(self.flows_u[:, c], n_f, self.cdf))
+        slot = g.clamp(min=0) * n_f + f_req
+        parks = at & (self.leader[lane, slot] >= 0)
+        leads = at & ~parks
+        self.leader[lane, slot] = torch.where(leads, j, self.leader[lane, slot])
+        lc = lvl.clamp(min=0)
+        self.held[lane, j, lc] = torch.where(leads, slot,
+                                             self.held[lane, j, lc])
+        self.flow[lane, j] = torch.where(
+            active, torch.where(at, f_req, torch.where(done, -1, f_own)),
+            f_own)
+        self.parked_on[lane, j] = torch.where(
+            active, torch.where(parks, slot, -1), self.parked_on[lane, j])
+        self.parked_lvl[lane, j] = torch.where(
+            active, torch.where(parks, lvl, -1), self.parked_lvl[lane, j])
+        return parks
+
+    def snapshot(self, warm_now) -> None:
+        super().snapshot(warm_now)
+        self.warm_dlvl.copy_(torch.where(warm_now[:, None], self.dlvl,
+                                         self.warm_dlvl))
+
+    def results(self, n_measured: torch.Tensor) -> dict:
+        out = super().results(n_measured)
+        out["delayed_tier"] = ((self.dlvl - self.warm_dlvl).to(torch.float32)
+                               / n_measured.clamp(min=1).to(torch.float32)
+                               [:, None])
+        return out
 
 
 class OpenLaneOutputs(NamedTuple):
@@ -837,11 +1034,18 @@ class _ExtArgs(ctypes.Structure):
         "isq", "svc", "did", "dpar", "bcum", "visits", "servers", "seeds",
         "max_events", "disk_rank", "flow_cum", "bmiss", "ia_mean", "x",
         "completed", "events", "tmeas", "delayed_frac", "branch_done",
-        "branch_delayed", "dropped", "soj", "cls")]
+        "branch_delayed", "dropped", "soj", "cls", "acq_group", "acq_slot",
+        "rel_slot", "delayed_tier")]
         + [(n, ctypes.c_int) for n in (
             "lanes", "n_k", "n_b", "n_l", "mpl", "n_requests", "warmup",
-            "n_flows", "n_lead", "open", "burst", "rec_len")]
+            "n_flows", "n_lead", "open", "burst", "rec_len", "tiers",
+            "max_held")]
         + [("on_mean", ctypes.c_float), ("off_mean", ctypes.c_float)])
+
+# the tiered kernel's limits: held levels per job (registers), and leader
+# groups and levels in its int8 tables
+MAX_HELD = 2
+MAX_GROUPS = 127
 
 
 def _check_inputs(spec: _LaneSpec, seeds: torch.Tensor, extra: dict) -> None:
@@ -859,7 +1063,10 @@ def _check_inputs(spec: _LaneSpec, seeds: torch.Tensor, extra: dict) -> None:
             "max_events": ((n_l,), (torch.int32,)),
             "bmiss": ((n_l, n_b), (torch.bool, torch.int32)),
             "disk_rank": ((n_l, n_k), (torch.int32,)),
-            "ia_mean": ((n_l,), (torch.float32,))}
+            "ia_mean": ((n_l,), (torch.float32,)),
+            "acq_group": ((n_l, n_b, n_r), (torch.int32,)),
+            "acq_slot": ((n_l, n_b, n_r), (torch.int32,)),
+            "rel_slot": ((n_l, n_b, n_r), (torch.int32,))}
     arrays = dict(spec._asdict(), **extra)
     for name, a in arrays.items():
         shape, dtypes = want[name]
@@ -880,7 +1087,8 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
               bmiss: Optional[torch.Tensor] = None, n_flows: int = 0,
               flow_theta: float = 0.0, n_disks: int = 1,
               disk_rank: Optional[torch.Tensor] = None,
-              count_branches: bool = False) -> LaneOutputs:
+              count_branches: bool = False,
+              tiers: Optional[LaneTiers] = None) -> LaneOutputs:
     """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
@@ -897,15 +1105,33 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     (``kCount``): the closed loop's events with the per-branch counts (and
     a zero delayed fraction) on the result; traced as well, it is one
     traced and one counting launch, which simulate the same events.
-    Untraced, traced, coalescing and counting launches are counted apart
-    (``sim_lanes.launches``, ``.traced_launches``, ``.flows_launches``,
-    ``.count_launches``).
+    ``tiers`` (a :class:`LaneTiers`, with ``n_flows > 0``) runs the tiered
+    kernel (``kTiers``, see :func:`sim_lanes_plain`) in place of the
+    coalescing one; the result carries the per-branch counts and the
+    delayed fraction per held level.
+    Untraced, traced, coalescing, counting and tiered launches are counted
+    apart (``sim_lanes.launches``, ``.traced_launches``,
+    ``.flows_launches``, ``.count_launches``, ``.tiers_launches``).
     """
     if trace_cap < 0:
         raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
     if n_flows < 0:
         raise ValueError(f"n_flows must be >= 0, got {n_flows}")
     extra = dict(max_events=max_events)
+    if tiers is not None:
+        if not n_flows:
+            raise ValueError("tiers need n_flows > 0 (the flows per leader "
+                             "group)")
+        if not 1 <= tiers.max_held <= MAX_HELD:
+            raise ValueError(f"tiers.max_held {tiers.max_held}: the tiered "
+                             f"kernel holds 1 to MAX_HELD = {MAX_HELD} "
+                             f"entries per job")
+        if not 1 <= tiers.n_groups <= MAX_GROUPS:
+            raise ValueError(f"tiers.n_groups {tiers.n_groups}: the tiered "
+                             f"kernel's int8 tables take 1 to MAX_GROUPS = "
+                             f"{MAX_GROUPS} leader groups")
+        extra.update(acq_group=tiers.acq_group, acq_slot=tiers.acq_slot,
+                     rel_slot=tiers.rel_slot)
     if trace_cap:
         if n_flows:
             raise NotImplementedError(
@@ -914,13 +1140,13 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         if bmiss is None:
             raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
         extra["bmiss"] = bmiss
-    if n_flows:
+    if n_flows and tiers is None:
         if disk_rank is None:
             raise ValueError("n_flows > 0 needs the (L, K) disk_rank table")
         extra["disk_rank"] = disk_rank
     _check_inputs(spec, seeds, extra)
     flows = dict(n_flows=n_flows, flow_theta=flow_theta, n_disks=n_disks,
-                 disk_rank=disk_rank)
+                 disk_rank=disk_rank, tiers=tiers)
     if seeds.device.type == "cpu":
         return sim_lanes_plain(spec, seeds, n_requests=n_requests,
                                warmup=warmup, mpl=mpl, max_events=max_events,
@@ -930,7 +1156,9 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if n_flows or count_branches:
         out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
                           n_jobs=mpl, max_events=max_events, **flows)
-        if n_flows:
+        if tiers is not None:
+            sim_lanes.tiers_launches += 1
+        elif n_flows:
             sim_lanes.flows_launches += 1
         else:
             sim_lanes.count_launches += 1
@@ -982,6 +1210,7 @@ sim_lanes.launches = 0  # untraced kernel launches (CUDA path only)
 sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
 sim_lanes.flows_launches = 0  # coalescing kernel launches (CUDA path only)
 sim_lanes.count_launches = 0  # counting kernel launches (CUDA path only)
+sim_lanes.tiers_launches = 0  # tiered kernel launches (CUDA path only)
 
 
 def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
@@ -1034,10 +1263,11 @@ def _check_shared(nbytes: int, what: str) -> None:
 def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 warmup: int, n_jobs: int, max_events: torch.Tensor,
                 n_flows: int, flow_theta: float, n_disks: int,
-                disk_rank: Optional[torch.Tensor], open_loop=None):
+                disk_rank: Optional[torch.Tensor], open_loop=None,
+                tiers: Optional[LaneTiers] = None):
     """One launch of the coalescing (``open_loop`` None, ``n_flows > 0``),
-    counting (``open_loop`` None, ``n_flows = 0``) or open-loop
-    (``open_loop = (ia_mean, bmiss, burst)``) instantiation."""
+    counting (``open_loop`` None, ``n_flows = 0``), tiered (``tiers``) or
+    open-loop (``open_loop = (ia_mean, bmiss, burst)``) instantiation."""
     dev = seeds.device
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
@@ -1066,6 +1296,12 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if n_flows:
         a.disk_rank = ptr(disk_rank)
         a.flow_cum = ptr(None if cdf is None else torch.from_numpy(cdf).to(dev))
+    n_lead = max(n_disks, 1) * n_flows
+    if tiers is not None:
+        a.acq_group, a.acq_slot, a.rel_slot = (
+            ptr(t) for t in (tiers.acq_group, tiers.acq_slot, tiers.rel_slot))
+        a.tiers, a.max_held = 1, tiers.max_held
+        n_lead = tiers.n_groups * n_flows
     outs = dict(x=empty(torch.float32), completed=empty(torch.int32),
                 events=empty(torch.int32), tmeas=empty(torch.float32),
                 delayed_frac=empty(torch.float32))
@@ -1073,6 +1309,8 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if open_loop is None:
         outs.update(branch_done=empty(torch.int32, n_b),
                     branch_delayed=empty(torch.int32, n_b))
+        if tiers is not None:
+            outs["delayed_tier"] = empty(torch.float32, tiers.max_held)
     else:
         ia_mean, bmiss, burst = open_loop
         a.ia_mean, a.bmiss = ptr(ia_mean), ptr(bmiss.to(torch.int32))
@@ -1090,11 +1328,11 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         setattr(a, name, t.data_ptr())
     a.lanes, a.n_k, a.n_b, a.n_l, a.mpl = n_l, n_k, n_b, n_r, n_jobs
     a.n_requests, a.warmup = n_requests, warmup
-    a.n_flows, a.n_lead = n_flows, max(n_disks, 1) * n_flows
+    a.n_flows, a.n_lead = n_flows, n_lead
     lib = _build.load_library()
     _check_shared(lib.event_sim_ext_shared_bytes(ctypes.byref(a)),
                   f"n={n_jobs}, K={n_k}, B={n_b}, L={n_r}, "
-                  f"flows={a.n_lead}, open={a.open}")
+                  f"flows={a.n_lead}, open={a.open}, tiers={a.tiers}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.event_sim_ext_launch(ctypes.byref(a), stream)
@@ -1102,7 +1340,8 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if open_loop is None:
         return LaneOutputs(outs["x"], outs["completed"], outs["events"],
                            outs["tmeas"], None, outs["delayed_frac"],
-                           outs["branch_done"], outs["branch_delayed"])
+                           outs["branch_done"], outs["branch_delayed"],
+                           outs.get("delayed_tier"))
     return OpenLaneOutputs(outs["x"], outs["completed"], outs["events"],
                            outs["tmeas"], outs["delayed_frac"],
                            outs["dropped"], outs["soj"], outs["cls"])
@@ -1121,7 +1360,7 @@ def branch_miss(spec: SimSpec) -> np.ndarray:
 def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
                warmup_frac: float, device: torch.device, trace: int = 0,
                coalesce_flows: int = 0, coalesce_theta: float = 0.0,
-               budget_visits: int = 2):
+               budget_visits: int = 2, tiers=None):
     """The (seed x p_hit) lane grid of a network, lane = s * P + p.
 
     Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`: the
@@ -1132,7 +1371,9 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
     (:func:`branch_miss` of the first p_hit's network, the same for every
     lane); with ``coalesce_flows > 0`` the coalescing arguments, with
     ``n_disks`` taken from the first network's disk ranks, as the
-    reference does.
+    reference does, and with ``tiers`` (the network's
+    :class:`~repro_torch.core.simspec.MshrSpec`) also its
+    :class:`LaneTiers`.
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
     n_p = len(specs)
@@ -1151,6 +1392,9 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
                       flow_theta=float(coalesce_theta),
                       n_disks=_n_disks(specs[0]),
                       disk_rank=disk_rank.to(torch.int32))
+        if tiers is not None:
+            kwargs["tiers"] = lane_tiers([tiers] * len(seed_v),
+                                         *lane_spec.visits.shape[1:], device)
     return lane_spec, seed_t, kwargs
 
 
@@ -1215,7 +1459,7 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
                   seeds: Sequence[int] = (0, 1, 2),
                   warmup_frac: float = 0.25, trace: int = 0,
                   coalesce_flows: int = 0, coalesce_theta: float = 0.0,
-                  count_branches: bool = False,
+                  count_branches: bool = False, tiers=None,
                   device: str = "cuda") -> SimResult:
     """Closed-loop (p_hit x seed) grid on the counter-RNG event engine.
 
@@ -1235,7 +1479,10 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
     code runs, ``delayed_frac`` is zero and the branch columns are None,
     unless ``count_branches``: then the counting kernel fills them (the
     reference's threefry engine fills them on every closed run; the
-    cluster prong asks for them).
+    cluster prong asks for them).  ``tiers`` (an
+    :class:`~repro_torch.core.simspec.MshrSpec`, with ``F > 0``) runs the
+    tiered tables in place of the disk groups and also fills
+    ``delayed_tier_frac``.
     """
     dev = resolve_device(device)
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
@@ -1244,7 +1491,8 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
     spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
                                       warmup_frac, dev, trace=trace,
                                       coalesce_flows=int(coalesce_flows),
-                                      coalesce_theta=float(coalesce_theta))
+                                      coalesce_theta=float(coalesce_theta),
+                                      tiers=tiers)
     out = sim_lanes(spec, seed_v, count_branches=count_branches, **kwargs)
     return _grid_result(out, p_hits, n_s, len(net.branches), n_requests,
                        visits=spec.visits[0] if trace else None)
@@ -1256,8 +1504,9 @@ def _grid_result(out: LaneOutputs, p_hits: np.ndarray, n_s: int, n_b: int,
     ``s * P + p`` of ``n_s`` seeds): the mean throughput and CI95 across
     seeds; with per-branch counts on ``out``, the delayed fraction and the
     per-branch rates of the network's ``n_b`` branches, each lane's
-    counts over its measured window, averaged over seeds; with
-    ``visits``, the lanes' rings decoded onto ``traces``."""
+    counts over its measured window, averaged over seeds (and with
+    per-level counts the delayed fractions per level); with ``visits``,
+    the lanes' rings decoded onto ``traces``."""
     n_p = len(p_hits)
     traces = None
     if visits is not None:
@@ -1276,6 +1525,9 @@ def _grid_result(out: LaneOutputs, p_hits: np.ndarray, n_s: int, n_b: int,
                 n_s, n_p).mean(axis=0),
             branch_throughput=per_branch[0].mean(axis=0),
             branch_delayed=per_branch[1].mean(axis=0))
+    if out.delayed_tier is not None:
+        extra["delayed_tier_frac"] = out.delayed_tier.cpu().numpy().reshape(
+            n_s, n_p, -1).mean(axis=0)
     return SimResult(p_hit=p_hits, throughput=mean, ci95=ci,
                      n_requests=n_requests, traces=traces, **extra)
 

@@ -30,10 +30,10 @@ reproduces it.
 
 Not ported yet, and raising ``NotImplementedError``: mamba2 and its
 hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
-``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11)
-and the hierarchy forecast ``tiers > 0`` (item 10).  The cluster forecast
-``n_shards > 1`` composes the cluster as the reference does
-(:mod:`repro_torch.cluster`).
+``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11).
+The cluster forecast ``n_shards > 1`` and the hierarchy forecast
+``tiers > 0`` compose their networks as the reference does
+(:mod:`repro_torch.cluster`, :mod:`repro_torch.hierarchy`).
 """
 
 from __future__ import annotations
@@ -438,19 +438,23 @@ class Engine:
         a perfectly balanced homogeneous cluster.  ``coalesce_flows`` and
         ``n_shards > 1`` compose: the cluster network is built first and
         :func:`repro_torch.core.queueing.coalesced_network` then solves one
-        shard-local sigma_k per ``sK:disk``.  ``tiers > 0``
-        (``tier_profile``) raises: the hierarchy prong is not ported yet
-        (ROADMAP queue 1 item 10).
+        shard-local sigma_k per ``sK:disk``.
+
+        ``tiers > 0`` composes a two-tier hierarchy of this pod's network
+        via :func:`repro_torch.hierarchy.compose_tiers`: ``tiers`` L1
+        client instances in front of ``max(n_shards, 1)`` L2 shards, the
+        prefill recompute as the origin, MPL ``replicas * cores * tiers``.
+        ``tier_profile`` (a :class:`repro_torch.hierarchy.TieredProfile`)
+        maps the global knob to the tiers' hit ratios; the default is a
+        constant L2 hit ratio of 0.5 on balanced shards.  With
+        ``coalesce_flows`` the cross-tier transform
+        :func:`repro_torch.hierarchy.coalesced_hierarchy` is returned.
         """
         from repro_torch.core.harness import PAPER_SERVICES, ServiceTimes
         from repro_torch.core.queueing import (QUEUE, THINK, Branch,
                                                ClosedNetwork, Station,
                                                coalesced_network, disk_station)
 
-        if tiers or tier_profile is not None:
-            raise NotImplementedError(
-                "forecast_network(tiers > 0): the hierarchy prong is not "
-                "ported yet (ROADMAP queue 1 item 10)")
         hit_ops, miss_ops = self.prefix.mean_ops_per_chunk()
         svc = PAPER_SERVICES.get(self.serve.policy, ServiceTimes())
         mpl = int(replicas) * int(self.serve.cores if cores is None else cores)
@@ -480,6 +484,23 @@ class Engine:
         net = ClosedNetwork(f"serving-{self.serve.policy}", tuple(stations),
                             tuple(branches), mpl)
         n_shards = self.serve.n_shards if n_shards is None else int(n_shards)
+        if tiers:
+            from repro_torch.hierarchy import (TieredProfile, TierSpec,
+                                               coalesced_hierarchy,
+                                               compose_tiers)
+
+            profile = tier_profile or TieredProfile.constant(
+                0.5, n_shards=max(n_shards, 1))
+            hm = compose_tiers(
+                TierSpec(net=net, n_instances=int(tiers), name="l1"),
+                TierSpec(net=net, n_instances=max(n_shards, 1), name="l2"),
+                profile=profile, disk_us=prefill_us,
+                disk_servers=self.serve.disk_servers,
+                mpl=mpl * int(tiers))
+            if coalesce_flows:
+                return coalesced_hierarchy(hm, flows=coalesce_flows,
+                                           window_us=prefill_us)
+            return hm.network
         if n_shards > 1:
             from repro_torch.cluster import compose_cluster, uniform_profile
 

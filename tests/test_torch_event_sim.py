@@ -127,13 +127,26 @@ def test_lru_network_statistics_match():
     assert t.throughput[2] < t.throughput[1]
 
 
+def _no_marks(net):
+    """An MshrSpec of ``net`` that acquires and releases nothing."""
+    from repro_torch.core.simspec import MshrSpec
+
+    shape = tuple(tcompile(net, 0.5, device="cpu").visits.shape)
+    none = np.full(shape, -1, np.int32)
+    return MshrSpec(none, none, none, n_groups=1, max_held=1)
+
+
 def test_options_outside_the_slice_raise():
     net = tpm.lru_network()
-    for kw in ({"tiers": object()}, {"sketch_cap": 16},
-               {"coalesce_flows": 4, "trace": 8},
+    for kw in ({"tiers": _no_marks(net), "coalesce_flows": 4, "trace": 8},
+               {"sketch_cap": 16}, {"coalesce_flows": 4, "trace": 8},
                {"arrival_rate": 0.1, "trace": 8}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             simulate_network(net, [0.5], device="cpu", **kw)
+    # the tiered tables run the closed loop only, as in the reference
+    with pytest.raises(ValueError, match="closed loop"):
+        simulate_network(net, [0.5], device="cpu", tiers=_no_marks(net),
+                         coalesce_flows=4, arrival_rate=0.1)
     # tracing is ported; the sketches that may ride along are not
     with pytest.raises(NotImplementedError, match="sketch_cap.*ROADMAP"):
         simulate_network(net, [0.5], device="cpu", sketch_cap=16, trace=8)
@@ -156,7 +169,8 @@ def test_reference_keywords_accepted():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tiers": object()}, "item 6.4"),
+    ({"tiers": _no_marks(tpm.lru_network()), "coalesce_flows": 4,
+      "trace": 8}, "item 8"),
     ({"coalesce_flows": 4, "trace": 8}, "item 8"),
     ({"window_us": 5.0}, "item 8"),
 ])

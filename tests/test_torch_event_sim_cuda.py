@@ -28,6 +28,17 @@ coalescing instantiations (``CLUSTER_CASES``: 4 shards at mpl 48, 8
 shards at mpl 96, 16 shards at mpl 192 and 8 shards at the cluster's
 default mpl, 576 jobs in shared memory); both lists run in
 ``chip_smoke.py`` too.
+
+The tiered instantiation (``tiers``: cross-tier leader tables and
+cascading fills) is held on lanes of composed hierarchies
+(``TIERS_CASES``, which ``chip_smoke.py``'s ``tiers_vs_plain`` runs): 2
+clients and 2 shards at mpl 16, 48, 72, 192 and 300 (1, 2, 4, 8 register
+slots and shared memory), F 2 and 4, uniform and Zipf flows,
+``benchmarks/fig_hierarchy.py``'s 3 clients x 2 shards at mpl 96 and F 4,
+and one job whose fill and re-acquire hit the same entry in one event.
+Integers (completions, events, per-branch counts) are identical, and on
+deterministic service every output, the per-level delayed fractions
+included.
 """
 
 import dataclasses
@@ -236,6 +247,81 @@ CLUSTER_CASES = [
 ]
 
 
+def hierarchy_model(kind, mpl=16):
+    """The hierarchies of the tiered cases: ``"small"`` is
+    ``tests/test_hierarchy.py``'s (2 LRU clients, 2 LRU shards, a 50 us
+    origin, constant p2 0.5), ``"fig"`` ``benchmarks/fig_hierarchy.py``'s
+    LRU-client model (3 clients, 2 shards, its Che profile, a 100 us
+    origin), ``"refill"`` one job whose route fills an entry at position 1
+    and acquires it again at position 2."""
+    from repro_torch.cluster import zipf_key_probs
+    from repro_torch.core.simspec import MshrSpec
+    from repro_torch.hierarchy import hierarchy_network, tiered_profile
+
+    if kind == "small":
+        return hierarchy_network("lru", "lru", n_clients=2, n_shards=2,
+                                 mpl=mpl, disk_us=50.0)
+    if kind == "fig":
+        prof = tiered_profile(zipf_key_probs(256, 0.8, seed=0),
+                              np.array([4, 8, 16, 32, 64, 96, 128, 176, 224]),
+                              l2_cap=32, assign=np.arange(256) % 2,
+                              n_shards=2)
+        return hierarchy_network("lru", "lru", n_clients=3, n_shards=2,
+                                 profile=prof, disk_us=100.0, mpl=mpl)
+    net = ClosedNetwork(
+        "refill", (Station("think", THINK, 1.0), Station("a", QUEUE, 0.3),
+                   Station("disk", THINK, 0.2)),
+        (Branch("x", lambda p: 1.0, ("think", "a", "disk")),), mpl=1)
+    tables = [np.array([[-1, 0, 0]], np.int32)] * 3
+    return dataclasses.make_dataclass("Refill", ["network", "mshr"])(
+        net, MshrSpec(*tables, n_groups=1, max_held=1))
+
+
+# (id, hierarchy, mpl, F, theta, p_hits, deterministic service): mpl 16,
+# 48, 72, 192 and 300 run 1, 2, 4, 8 register slots and shared memory;
+# 0.8393 is the p of the reference's failing tiered-twins case
+TIERS_CASES = [
+    ("small-mpl16-F2", "small", 16, 2, 0.0, (0.2, 0.5, 0.8393), True),
+    ("small-mpl16-F4", "small", 16, 4, 0.0, (0.35, 0.8), True),
+    ("small-exp-mpl16-F2", "small", 16, 2, 0.0, (0.35, 0.8393), False),
+    ("small-mpl48-F4-zipf", "small", 48, 4, 0.99, (0.3, 0.7), True),
+    ("small-mpl72-F2", "small", 72, 2, 0.0, (0.4,), True),
+    ("small-mpl192-F8", "small", 192, 8, 0.0, (0.5,), True),
+    ("small-mpl300-F4", "small", 300, 4, 0.0, (0.5,), True),
+    ("fig-mpl96-F4", "fig", 96, 4, 0.0, (0.3, 0.55, 0.8), False),
+    ("fig-det-mpl96-F4", "fig", 96, 4, 0.0, (0.55,), True),
+    ("refill-mpl1-F1", "refill", 1, 1, 0.0, (0.5,), True),
+]
+
+
+def tiers_pair(case, device, n_requests=300, seeds=(0, 1)):
+    """Kernel and plain outputs of a ``TIERS_CASES`` case: its p_hits x
+    ``seeds``, at least ``n_requests`` requests and enough for two
+    measured completions per job."""
+    _, kind, mpl, flows, theta, ps, det = case
+    model = hierarchy_model(kind, mpl)
+    net = det_network(model.network) if det else model.network
+    n_requests = max(n_requests, math.ceil(2 * net.mpl / 0.75))
+    spec, seed_t, kw = tes.grid_lanes(net, np.array(ps), n_requests, seeds,
+                                      0.25, device, coalesce_flows=flows,
+                                      coalesce_theta=theta, tiers=model.mshr)
+    return (tes.sim_lanes(spec, seed_t, **kw),
+            tes.sim_lanes_plain(spec, seed_t, **kw))
+
+
+def hold_tiered(kern, plain, exact) -> float:
+    """As :func:`hold_coalesced`, and the per-level delayed fractions
+    identical on deterministic service, else within RTOL.  Returns max
+    |dx|."""
+    err = hold_coalesced(kern, plain, exact)
+    a, b = kern.delayed_tier.cpu(), plain.delayed_tier.cpu()
+    if exact:
+        assert torch.equal(a, b)
+    else:
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL)
+    return err
+
+
 def count_pair(case, device, n_requests=400):
     """Counting kernel, its plain version and the closed kernel on a
     ``COUNT_CASES`` case: two p_hits x two seeds."""
@@ -395,3 +481,27 @@ def test_traced_counting_takes_two_launches(cuda_device):
     assert (tes.sim_lanes.traced_launches, tes.sim_lanes.count_launches) == \
         (before[0] + 1, before[1] + 1)
     hold_traced_count(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TIERS_CASES, ids=[c[0] for c in TIERS_CASES])
+def test_tiered_kernel_matches_plain(cuda_device, case):
+    before = tes.sim_lanes.tiers_launches
+    kern, plain = tiers_pair(case, cuda_device)
+    assert tes.sim_lanes.tiers_launches == before + 1
+    hold_tiered(kern, plain, exact=case[-1])
+    if case[1] == "refill":  # the job never parks behind its own fill
+        assert float(kern.delayed_frac.max()) == 0.0
+    else:
+        assert float(kern.delayed_tier[:, 0].max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_tiered_kernel_refuses_too_many_levels(cuda_device):
+    model = hierarchy_model("small")
+    spec, seeds, kw = tes.grid_lanes(model.network, np.array([0.5]), 50, (0,),
+                                     0.25, cuda_device, coalesce_flows=2,
+                                     tiers=model.mshr)
+    kw["tiers"] = kw["tiers"]._replace(max_held=tes.MAX_HELD + 1)
+    with pytest.raises(ValueError, match="MAX_HELD"):
+        tes.sim_lanes(spec, seeds, **kw)

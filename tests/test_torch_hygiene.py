@@ -15,6 +15,7 @@ from repro_torch.cluster import cluster_network, simulate_cluster
 from repro_torch.configs.registry import get_config
 from repro_torch.core import policy_models
 from repro_torch.core.simulator import simulate_network
+from repro_torch.hierarchy import hierarchy_network, simulate_hierarchy
 from repro_torch.launch import serve
 from repro_torch.models import transformer
 from repro_torch.serving import Engine, ServeConfig
@@ -45,7 +46,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.internlm2_1_8b", "cache.py_ref", "serving.kv_pages",
                  "serving.prefix_cache", "serving.engine", "training.data",
                  "launch.serve", "cluster", "cluster.hashing",
-                 "cluster.model", "cluster.sim", "core.py_sim"):
+                 "cluster.model", "cluster.sim", "core.py_sim", "hierarchy",
+                 "hierarchy.model", "hierarchy.sim"):
         assert f"repro_torch.{name}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -93,6 +95,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_cluster(cm, [0.5], n_requests=10, seeds=(0,),
                          coalesce_flows=4)
+    hm = hierarchy_network("lru", "lru", n_clients=2, n_shards=2, mpl=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_hierarchy(hm, [0.5], n_requests=10, seeds=(0,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_hierarchy(hm, [0.5], n_requests=10, seeds=(0,),
+                           coalesce_flows=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         transformer.forward(params, [[1, 2, 3]], cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

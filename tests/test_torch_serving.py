@@ -222,7 +222,7 @@ def test_pool_pages_hold_the_prefix_kv(models):
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def _net_summary(net, grid=(0.0, 0.3, 0.7, 0.95)):
+def _net_summary(net, grid=(0.0, 0.3, 0.7, 0.95), pstar_grid=2001):
     return {
         "name": net.name, "mpl": net.mpl,
         "stations": [(s.name, s.kind, s.servers, s.dist, s.bound,
@@ -231,7 +231,7 @@ def _net_summary(net, grid=(0.0, 0.3, 0.7, 0.95)):
         "branches": [(b.name, b.visits, [b.probability(p) for p in grid])
                      for b in net.branches],
         "upper": net.throughput_upper(np.asarray(grid)).tolist(),
-        "p_star": net.p_star(grid=2001),
+        "p_star": net.p_star(grid=pstar_grid),
     }
 
 
@@ -301,10 +301,71 @@ def test_unported_modes_raise(models):
         Engine(get_config("whisper-tiny", reduced=True), tp, ServeConfig(),
                device="cpu")
     eng = Engine(cfg, tp, ServeConfig(max_new_tokens=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the hierarchy forecast is ported: with no measured fill ops the miss
+    # route ends at the origin, which compose_tiers refuses, as the
+    # reference does (test_hierarchy_forecast_equals_the_reference)
+    with pytest.raises(ValueError, match="post-disk fill station"):
         eng.forecast_network(6000.0, 40.0, tiers=2)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.observed_profile()
+
+
+def _tier_profile(pkg):
+    """A Che tier profile (Zipf 0.9 over 128 keys, 3 shards), built by
+    ``pkg`` (the reference's ``repro.hierarchy`` or the port's)."""
+    from repro.cluster import zipf_key_probs
+
+    probs = zipf_key_probs(128, 0.9, seed=0)
+    return pkg.tiered_profile(probs, np.array([2, 8, 32, 96]), l2_cap=16,
+                              assign=np.arange(128) % 3, n_shards=3)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tiers=2),
+    dict(tiers=2, coalesce_flows=8),
+    dict(tiers=3, n_shards=3, profile=True),
+    dict(tiers=3, n_shards=3, profile=True, coalesce_flows=4, cores=16),
+])
+def test_hierarchy_forecast_equals_the_reference(models, kw):
+    """``forecast_network(tiers > 0)``: the composed hierarchy of this
+    pod's measured network (and, with ``coalesce_flows``, its cross-tier
+    coalescing transform) is the reference's — stations, branches and their
+    probabilities, bounds and p* to rtol 1e-12 — with the default constant
+    tier profile and with a Che profile (the reference's type for the
+    reference, the port's for the port, from the same keys)."""
+    import repro.hierarchy as jhier
+    import repro_torch.hierarchy as thier
+
+    reqs = zipf_request_stream(10, n_prefixes=4, prefix_len=16,
+                               vocab=models[1].vocab, seed=4, new_tokens=4)
+    jeng, teng, _, _ = _serve_both(models, reqs, max_seqs=2,
+                                   max_new_tokens=4, disk_servers=4)
+    kw = dict(kw)
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.pop("profile", False):
+        jkw.pop("profile")
+        tkw.pop("profile")
+        jkw["tier_profile"] = _tier_profile(jhier)
+        tkw["tier_profile"] = _tier_profile(thier)
+    want = jeng.forecast_network(step_us=6000.0, prefill_us=40.0, **jkw)
+    got = teng.forecast_network(step_us=6000.0, prefill_us=40.0, **tkw)
+    got.validate()
+    # the coalesced transform solves a fixed point per p: fewer points
+    grid = (0.0, 0.3, 0.7, 0.95) if "coalesce_flows" not in kw else (0.6,)
+    pstar = 2001 if "coalesce_flows" not in kw else 21
+    a = _net_summary(got, grid=grid, pstar_grid=pstar)
+    b = _net_summary(want, grid=grid, pstar_grid=pstar)
+    assert a.pop("p_star") == pytest.approx(b.pop("p_star"), rel=1e-12,
+                                            abs=1e-15)
+    np.testing.assert_allclose(a.pop("upper"), b.pop("upper"), rtol=1e-12)
+    for (sa, *ra), (sb, *rb) in zip(a.pop("stations"), b.pop("stations")):
+        assert [sa] + ra[:-1] == [sb] + rb[:-1]
+        np.testing.assert_allclose(ra[-1], rb[-1], rtol=1e-12)
+    for (na, va, pa), (nb, vb, pb) in zip(a.pop("branches"),
+                                          b.pop("branches")):
+        assert (na, va) == (nb, vb)
+        np.testing.assert_allclose(pa, pb, rtol=1e-12, atol=1e-15)
+    assert a == b
 
 
 def test_cluster_forecast_equals_the_reference(models):
