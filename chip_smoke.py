@@ -11,7 +11,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
     and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
    spills of each of the event-sim kernel's 35 instantiations (closed,
    traced, traced for long routes, coalescing, open loop, counting,
-   tiered), of
+   tiered; each must keep its registers of ``EVENT_SIM_REGISTERS``), of
+   their 35 sketched twins (``event_sim_sketch.cu``), of the sketch_trace
+   kernel, of
    the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
    widths) and of the split-TF32 flash kernel's ten (float32 at d_head
@@ -19,9 +21,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    ``cuobjdump --dump-sass`` of the library: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions and
    every split-TF32 one HMMA (``mma.sync``);
-   then the checks of 3, 4, 5, 6d, 6e, 6f and 6g, which time nothing, run
-   at once in four worker processes (``parallel_checks``), longest first,
-   each check's seconds printed; 6, 6b and 6c after them;
+   then the checks of 3, 4, 5, 6d, 6e, 6f, 6g, 6h and 6i, which time
+   nothing, run at once in six worker processes (``parallel_checks``),
+   longest first, each check's seconds printed; 6, 6b and 6c after them;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
    pad 3300, window 8) on a 5000-request trace that fills every size;
@@ -93,6 +95,21 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 6g. ``tiers_long_vs_plain``: the same on fig_hierarchy's network with
    deterministic service at fig_hierarchy's 8 000 requests, 3 p x 2
    seeds: every output identical;
+6h. ``sketch_vs_plain`` and ``sketch_ext_vs_plain``: the sketched
+   instantiations (the streaming estimators in the launch) against their
+   plain versions (``SKETCH_CASES``: closed, traced closed with a route
+   over 32 visits, counting; then coalescing, open loop with bursts,
+   tiered; register slots and shared memory; deterministic service):
+   every field of the sketch state identical, the EWMAs bit for bit, and
+   every simulation output identical to the unsketched kernel's;
+6i. ``sketch_trace_vs_plain``: the sketch_trace kernel against its plain
+   version on the card and the exact twin ``sketch_trace_py`` on
+   fig_drift A's stream (24 000 keys over 512, theta 0.9, sketch_cap 96):
+   the state identical, every windowed counter the twin's; and
+   ``sketch_trace_bc_vs_plain``, the same at the other shapes fig_drift
+   launches it at: B's seed-1 stream at sketch_cap 256 (8 SpaceSaving
+   slots per thread) and C's two 12 000-key phases at 512 (16 slots; one
+   two-lane launch) and its second phase at 256;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -117,9 +134,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    Che tier profile, the LRU-client inversion at the tier-aware p*, FIFO
    monotone, the MVA forecast, the tiered kernel against the oracle over
    16 seeds a side, starvation, the
-   convoy effect and sigma1) through the port at the benchmarks' sizes,
+   convoy effect and sigma1) and ``fig_drift.py`` (the sketch_trace
+   kernel against the exact twin, the online profile sizing p*, drift
+   detection after a popularity churn, the residual monitor and the
+   burst detector on the sketched closed and open loops, D over
+   FD_SEEDS simulation seeds) through the port at the benchmarks' sizes,
    each figure's and section's wall time printed; the coalescing,
-   open-loop and tiered kernels' launches are counted here; the
+   open-loop, tiered, sketched and sketch_trace kernels' launches are
+   counted here; the
    delayed-hits sweep classifies every size in one pass, held bit for bit
    to each size classified alone;
 8c. the hierarchy path (``hierarchy_differential``): tests/test_hierarchy.py's
@@ -200,7 +222,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    fig_cluster C's 8-shard network, beside the closed and coalescing
    kernels on the same lane (ns per event at 8 shards); the tiered
    instantiation on one lane of fig_hierarchy's network (mpl 96, F 4),
-   beside the closed, counting and coalescing kernels on the same lane.
+   beside the closed, counting and coalescing kernels on the same lane;
+   each mode's lane again with the sketch (ns per event on and off); the
+   sketched closed kernel on fig_drift D's lane and the sketch_trace
+   kernel on fig_drift A's stream beside their plain versions.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  The
@@ -371,6 +396,30 @@ HD_TWIN_REQUESTS = 10_000
 # oracle on the same) to the bands (the test's own draw:
 # tools/tiered_twins.py --seeds 2 --first-seed seed)
 HD_TWIN_SEEDS = 8
+# sketch_vs_plain: requests per lane of SKETCH_CASES of
+# tests/test_torch_event_sim_cuda.py (at least; two measured completions per
+# job), as the other *_vs_plain checks run their lanes
+SKETCH_PLAIN_REQUESTS = 300
+# benchmarks/fig_drift.py's sizes: key space, skew, A's sketch_cap, the
+# stream, the windows (one event per us), D's hit ratios and run lengths
+FD_KEYS, FD_THETA, FD_CAP = 512, 0.9, 96
+FD_STREAM, FD_WINDOW_US = 24_000, 500.0
+FD_P = (0.55, 0.85)
+FD_CLOSED_REQUESTS, FD_OPEN_REQUESTS = 48_000, 24_000
+# fig_drift D draws its windows from the counter engine, whose numbers are
+# not the reference's: D is held on these simulation seeds (the script's
+# own, seed 0, first), every one of them
+FD_SEEDS = (0, 1, 2, 3)
+# event_sim_ptxas: the registers of event_sim.cu's 35 instantiations as
+# ptxas reported them for commit 38b57a4 (sm_90a, the library's flags);
+# the sketched instantiations live in event_sim_sketch.cu, and these must
+# keep their registers
+EVENT_SIM_REGISTERS = {
+    "coalescing": (79, 71, 87, 96, 121), "counting": (64, 64, 64, 76, 92),
+    "open loop": (83, 70, 79, 87, 128), "tiered": (71, 83, 93, 109, 157),
+    "traced": (61, 57, 60, 75, 94),
+    "traced, routes over 32": (64, 64, 64, 80, 96),
+    "untraced": (55, 53, 57, 67, 90)}  # R = 0, 1, 2, 4, 8
 # the main path's throughputs (requests/us) as the event-sim kernel of
 # commit ca3464b (one lane per network, state in shared memory) computed
 # them on an NVIDIA H100 80GB HBM3 at 700.00 W: same arithmetic, so the
@@ -411,8 +460,9 @@ TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
 # the kernels' checks against their plain versions that time nothing run
 # at once, in CHECK_WORKERS processes of their own (each its own CUDA
 # context), longest first: the plain versions are bound by the host's
-# launches, so the processes overlap on one card
-CHECK_WORKERS = 4
+# launches, so the processes overlap on one card (six of the machine's
+# eight cores: ten checks)
+CHECK_WORKERS = 6
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
 LRU_PATH = (1 << 22, 4096, 64)  # slots, ids per batch, batches
@@ -603,9 +653,11 @@ def sass_counts(rec):
 
 
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``, ``csrc/replay.cu``,
-    ``csrc/linear_scan.cu`` and ``csrc/flash_attention.cu`` with the
-    library's flags, started beside the library's own build."""
+    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``,
+    ``csrc/event_sim_sketch.cu``, ``csrc/sketch_trace.cu``,
+    ``csrc/replay.cu``, ``csrc/linear_scan.cu`` and
+    ``csrc/flash_attention.cu`` with the library's flags, started beside
+    the library's own build."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ptxas"
@@ -614,7 +666,8 @@ def start_ptxas():
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          str(_build.CSRC / f"{name}.cu"), "-o", str(out / f"{name}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("event_sim", "replay", "linear_scan", "flash_attention")}
+        for name in ("event_sim", "event_sim_sketch", "sketch_trace", "replay",
+                     "linear_scan", "flash_attention")}
 
 
 def ptxas_info(proc, pattern, name_of):
@@ -649,17 +702,45 @@ def event_sim_ptxas(procs, rec):
     """Registers, stack frame and spills of each event-sim instantiation
     (untraced, traced, traced for routes over 32 visits, coalescing, open
     loop, counting, tiered; R register slots per thread, R = 0: shared
-    memory), as ptxas reports them; raises unless all 35 compiled."""
+    memory), as ptxas reports them, without the sketch (``event_sim.cu``)
+    and with it (``event_sim_sketch.cu``), and of the sketch_trace
+    kernel; raises unless all 35 + 35 + 1 compiled, or if an
+    instantiation without the sketch lost its registers of
+    ``EVENT_SIM_REGISTERS``."""
     modes = ("untraced", "traced", "traced, routes over 32")
-    info = ptxas_info(
-        procs["event_sim"], r"sim_kernelILi([012])ELi(\d+)ELi([01234])E",
-        lambda m: ((modes[int(m.group(1))], "coalescing", "open loop",
-                    "counting", "tiered")[int(m.group(3))] + f" R={m.group(2)}"))
-    if len(info) != 35 or not all(len(v) == 4 for v in info.values()):
-        raise AssertionError(f"ptxas reported {info}")
+    pattern = r"sim_kernelILi([012])ELi(\d+)ELi([01234])E"
+
+    def name(m):
+        return ((modes[int(m.group(1))], "coalescing", "open loop",
+                 "counting", "tiered")[int(m.group(3))] + f" R={m.group(2)}")
+
+    info = ptxas_info(procs["event_sim"], pattern, name)
+    sketched = ptxas_info(procs["event_sim_sketch"], pattern, name)
+    trace_k = ptxas_info(procs["sketch_trace"], r"sketch_trace_kernel",
+                         lambda m: "sketch_trace")
+    for got in (info, sketched):
+        if len(got) != 35 or not all(len(v) == 4 for v in got.values()):
+            raise AssertionError(f"ptxas reported {got}")
+    if len(trace_k) != 1:
+        raise AssertionError(f"ptxas reported {trace_k}")
+    want = {f"{mode} R={r}": n for mode, regs in EVENT_SIM_REGISTERS.items()
+            for r, n in zip((0, 1, 2, 4, 8), regs)}
+    moved = {fn: (v["registers"], want[fn]) for fn, v in info.items()
+             if v["registers"] != want[fn]}
+    if moved:
+        raise AssertionError(f"event-sim instantiations without the sketch "
+                             f"changed registers (now, before): {moved}")
     for fn, v in sorted(info.items()):
         print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
+    for fn, v in sorted(sketched.items()):
+        print(f"ptxas event_sim sketched {fn}: {json.dumps(v)}", flush=True)
+    print(f"ptxas sketch_trace: {json.dumps(trace_k['sketch_trace'])}",
+          flush=True)
+    print("ptxas event_sim: the 35 instantiations without the sketch keep "
+          "their registers", flush=True)
     rec["event_sim_ptxas"] = info
+    rec["event_sim_sketch_ptxas"] = sketched
+    rec["sketch_trace_ptxas"] = trace_k["sketch_trace"]
 
 
 def replay_ptxas(procs, rec):
@@ -1005,6 +1086,121 @@ def check_cluster(rec):
     rec["event_sim_count_max_abs_err"] = err["count"]
     rec["event_sim_coalesced_max_abs_err"] = max(
         rec.get("event_sim_coalesced_max_abs_err", 0.0), err["coalesced"])
+
+
+def check_sketch(rec, modes=("closed", "count")):
+    """``sketch_vs_plain``: the sketched instantiations against their plain
+    versions on the card (``SKETCH_CASES`` of
+    ``tests/test_torch_event_sim_cuda.py`` of ``modes``: the closed loop
+    untraced and traced, a route over 32 visits among them, and the
+    counting mode; ``sketch_ext_vs_plain`` the coalescing, open-loop with
+    bursts and tiered modes; register slots and shared memory,
+    deterministic service): every field of the sketch state identical,
+    the EWMAs bit for bit, and every simulation output identical to the
+    unsketched kernel's.  Two checks, so that two workers share the
+    cases."""
+    import torch
+    from test_torch_event_sim_cuda import (SKETCH_CASES, hold_sketched,
+                                           sketch_pair)
+
+    err = 0.0
+    for case in [c for c in SKETCH_CASES if c[1] in modes]:
+        kern, plain, bare = sketch_pair(case, torch.device("cuda"),
+                                        SKETCH_PLAIN_REQUESTS)
+        torch.cuda.synchronize()
+        done = hold_sketched(kern, plain, bare)
+        err = max(err, float((kern.sketch.ewma_hit_frac
+                              - plain.sketch.ewma_hit_frac).abs().max()))
+        print(f"sketch {case[0]}: state == plain (every field), outputs == "
+              f"the unsketched kernel's; {done} completions, keys "
+              f"{kern.sketch.key_count.cpu().tolist()}", flush=True)
+    rec["event_sim_sketch_max_abs_err"] = err
+
+
+def check_sketch_ext(rec):
+    """``sketch_ext_vs_plain``: :func:`check_sketch` on the coalescing,
+    open-loop and tiered cases."""
+    check_sketch(rec, modes=("flows", "open", "tiers"))
+
+
+def fig_drift_stream(device):
+    """fig_drift A's stream on ``device``: 24 000 Zipf(0.9) keys over 512
+    (seed 0), one event per us, and the hits of an LRU cache of 64 on it,
+    as (1, n) int32, float32 and int32 tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.cache.replay import lru_sweep
+    from repro_torch.core.harness import zipf_trace
+
+    trace = zipf_trace(FD_STREAM, FD_KEYS, FD_THETA, seed=0)
+    hits = np.asarray(lru_sweep(trace, [64])[0][0], np.int32)
+    return tuple(torch.from_numpy(a)[None].to(device) for a in (
+        trace.astype(np.int32), np.arange(FD_STREAM, dtype=np.float32), hits))
+
+
+def hold_sketch_trace_case(name, keys, t, hits, cap, rec):
+    """The sketch_trace kernel on the (L, n) streams against its plain
+    version (the torch loop, on the card) and the exact twin
+    ``sketch_trace_py`` (500-us windows): every field of the state
+    identical to the plain version's, every windowed counter to the
+    twin's, count-min never under its counts."""
+    import torch
+    from repro_torch.kernels import sketch as ksk
+    from test_torch_event_sim_cuda import hold_sketch_trace
+
+    kern = ksk.sketch_trace_lanes(keys, t, hits, sketch_cap=cap,
+                                  window_us=FD_WINDOW_US)
+    plain = ksk.sketch_trace_plain(keys, t, hits, sketch_cap=cap,
+                                   window_us=FD_WINDOW_US)
+    torch.cuda.synchronize()
+    hold_sketch_trace(kern, plain, keys, t, hits, cap, FD_WINDOW_US)
+    print(f"sketch_trace {name} (sketch_cap {cap}, {keys.shape[0]} x "
+          f"{keys.shape[1]} keys): state == plain (every field), windows == "
+          f"sketch_trace_py; key_count {kern.key_count.tolist()}", flush=True)
+    rec["sketch_trace_max_abs_err"] = max(
+        rec.get("sketch_trace_max_abs_err", 0.0),
+        float((kern.ewma_hit_frac - plain.ewma_hit_frac).abs().max()))
+
+
+def check_sketch_trace(rec):
+    """``sketch_trace_vs_plain``: :func:`hold_sketch_trace_case` on
+    fig_drift A's stream (24 000 keys over 512, theta 0.9, sketch_cap 96,
+    with an LRU cache's hits)."""
+    import torch
+
+    keys, t, hits = fig_drift_stream(torch.device("cuda"))
+    hold_sketch_trace_case("fig_drift A", keys, t, hits, FD_CAP, rec)
+
+
+def check_sketch_trace_bc(rec):
+    """``sketch_trace_bc_vs_plain``: :func:`hold_sketch_trace_case` at
+    the other shapes :func:`fig_drift` launches the kernel at, on its
+    streams (no hits, as there): B's 24 000 keys (seed 1) at sketch_cap
+    256; C's two 12 000-key phases (seed 2; seed 3 at theta 0.55, shifted
+    by half the key space) at 512, as one two-lane launch; C's second
+    phase at 256 (its undersized table)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.harness import zipf_trace
+
+    dev = torch.device("cuda")
+
+    def lanes(*traces):
+        keys = torch.from_numpy(np.stack(traces).astype(np.int32)).to(dev)
+        t = torch.arange(keys.shape[1], dtype=torch.float32,
+                         device=dev).expand_as(keys).contiguous()
+        return keys, t, torch.zeros_like(keys)
+
+    half = FD_STREAM // 2
+    t1 = zipf_trace(half, FD_KEYS, FD_THETA, seed=2)
+    t2 = (zipf_trace(half, FD_KEYS, 0.55, seed=3) + FD_KEYS // 2) % FD_KEYS
+    hold_sketch_trace_case(
+        "fig_drift B", *lanes(zipf_trace(FD_STREAM, FD_KEYS, FD_THETA,
+                                         seed=1)), 256, rec)
+    hold_sketch_trace_case("fig_drift C phases", *lanes(t1, t2), FD_KEYS,
+                           rec)
+    hold_sketch_trace_case("fig_drift C phase 2, undersized", *lanes(t2),
+                           FD_KEYS // 2, rec)
 
 
 def check_tiers(rec):
@@ -1526,18 +1722,225 @@ def fig_hierarchy(device):
     return out
 
 
+def _windowed_hit_frac(hits, window):
+    """Mean hit indicator per tumbling window (whole windows only)."""
+    import numpy as np
+
+    n = (len(hits) // window) * window
+    return np.asarray(hits[:n], np.float64).reshape(-1, window).mean(axis=1)
+
+
+def fig_drift_residuals(device, seed):
+    """fig_drift D on simulation seed ``seed``: the windowed hit ratio and
+    completion rate of the closed loop at FD_P (48 000 requests, 8-key
+    sketch, 1 ms windows; the ramp and the last window trimmed), the
+    residual monitor's alarms over them (stationary, live and stale
+    profiles) and the windowed arrival rates of the open loop, Poisson
+    and ON-OFF (24 000 requests, 2 ms windows) with their Page-Hinkley
+    alarms."""
+    import numpy as np
+    from repro_torch.core import build
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.obs.drift import page_hinkley_scan
+    from repro_torch.obs.residuals import ResidualMonitor
+
+    net = build("lru", disk_us=100.0)
+    lo_hi = []
+    for p in FD_P:
+        est = simulate_network(net, [p], n_requests=FD_CLOSED_REQUESTS,
+                               seeds=(seed,), sketch_cap=8, window_us=1_000.0,
+                               device=device).sketches[0][0]
+        keep = np.flatnonzero(est.win_done_count > 0)[1:-1]
+        lo_hi.append((est.win_hit_frac[keep], est.win_done_rate[keep]))
+    (hit_lo, x_lo), (hit_hi, x_hi) = lo_hi
+    quiet = ResidualMonitor(net, mode="closed").run(
+        np.arange(len(hit_lo)), hit_lo, x_lo)
+    hit_series = np.concatenate([hit_lo, hit_hi])
+    x_series = np.concatenate([x_lo, x_hi])
+    ids = np.arange(len(hit_series))
+    live = ResidualMonitor(net, mode="closed").run(ids, hit_series, x_series)
+    stale = ResidualMonitor(net, mode="closed").run(
+        ids, np.full_like(hit_series, float(np.mean(hit_lo))), x_series)
+    live_md = [a for a in live if a.kind == "model-drift"]
+    stale_md = [a for a in stale if a.kind == "model-drift"]
+
+    def arrival_series(burst):
+        est = simulate_network(net, [0.7], n_requests=FD_OPEN_REQUESTS,
+                               seeds=(seed,), arrival_rate=0.04,
+                               max_in_system=512, burst=burst, sketch_cap=8,
+                               window_us=2_000.0, device=device).sketches[0][0]
+        return est.win_arrival_rate[est.win_done_count > 0]
+
+    arr_p, arr_b = arrival_series(None), arrival_series((0.4, 10_000.0))
+    ph_kw = dict(delta_slack=0.002, lam_threshold=0.02)
+    return {
+        "seed": seed,
+        "quiet_alarm_kinds": sorted({a.kind for a in quiet}),
+        "live_model_drift": len(live_md),
+        "stale_model_drift": len(stale_md),
+        "stale_lag_windows": (int(stale_md[0].window_id) - len(hit_lo)
+                              if stale_md else None),
+        "poisson_arrival_cv": float(arr_p.std() / arr_p.mean()),
+        "burst_arrival_cv": float(arr_b.std() / arr_b.mean()),
+        "poisson_alarms": len(page_hinkley_scan(arr_p, **ph_kw)),
+        "burst_alarms": len(page_hinkley_scan(arr_b, **ph_kw)),
+        "windows": [len(hit_lo), len(hit_hi), len(arr_p), len(arr_b)],
+    }
+
+
+def fig_drift_d_holds(d) -> bool:
+    """fig_drift D's criteria on one seed's :func:`fig_drift_residuals`."""
+    lag = d["stale_lag_windows"]
+    return ("model-drift" not in d["quiet_alarm_kinds"]
+            and d["stale_model_drift"] > 0 and d["live_model_drift"] == 0
+            and lag is not None and 0 <= lag <= 16
+            and d["burst_alarms"] > 0
+            and d["burst_arrival_cv"] > d["poisson_arrival_cv"])
+
+
+def fig_drift(device):
+    """``benchmarks/fig_drift.py`` through the port, at its sizes and
+    criteria: (A) the sketch_trace kernel against the exact twin on a
+    24 000-key Zipf stream (windowed counters identical, count-min never
+    under, top-16 recall >= 0.9 at sketch_cap 96); (B) the online profile
+    sizing p* within 0.05 of the re-swept Mattson truth; (C) Page-Hinkley
+    silent before a popularity churn and firing within 8 windows after it,
+    each phase's online p* sizing within 0.05, and the undersized table
+    reading saturated; (D) the residual monitor on the sketched closed
+    loop (silent on live profiles, a model-drift alarm within 16 windows
+    on a stale one) and Page-Hinkley on the sketched open loop's windowed
+    arrival rate (ON-OFF alarms and is burstier than Poisson).  D runs on
+    the counter engine, which draws other numbers than the reference's:
+    it is held on FD_SEEDS simulation seeds, the script's seed 0 first,
+    and must hold on every one of them."""
+    import numpy as np
+    from repro_torch.cache.replay import lru_sweep
+    from repro_torch.core import build
+    from repro_torch.core.harness import zipf_trace
+    from repro_torch.latency import slo_forecast
+    from repro_torch.obs.drift import page_hinkley_scan
+    from repro_torch.obs.profile import observed_profile
+    from repro_torch.obs.streaming import sketch_trace, sketch_trace_py
+
+    out, seconds = {}, {}
+    ks, th, win = FD_KEYS, FD_THETA, FD_WINDOW_US
+
+    t0 = time.perf_counter()
+    trace = zipf_trace(FD_STREAM, ks, th, seed=0)
+    hits = np.asarray(lru_sweep(trace, [64])[0][0], np.int64)
+    fast = sketch_trace(trace, hits=hits, sketch_cap=FD_CAP, window_us=win,
+                        device=device)
+    oracle = sketch_trace_py(trace, hits=hits, sketch_cap=FD_CAP,
+                             window_us=win)
+    probe = np.arange(ks)
+    cm, truth = fast.cm_estimate(probe), oracle.cm_estimate(probe)
+    true_top = set(probe[np.argsort(truth)[::-1][:16]].tolist())
+    recall = len(true_top & set(fast.topk(16)[0].tolist())) / 16
+    out["sketch_twin"] = {"recall_top16": recall,
+                          "cm_underestimates": int((cm < truth).sum()),
+                          "cm_overestimate_frac": float((cm > truth).mean()),
+                          "saturation_frac": fast.saturation_frac(),
+                          "ewma_hit_frac": fast.ewma_hit_frac}
+    if not (np.array_equal(fast.window_id, oracle.window_id)
+            and np.array_equal(fast.win_done_count, oracle.win_done_count)
+            and np.array_equal(fast.win_arrival_rate, oracle.win_arrival_rate)
+            and np.allclose(fast.win_hit_frac, oracle.win_hit_frac,
+                            equal_nan=True)
+            and abs(fast.ewma_hit_frac - oracle.ewma_hit_frac) < 1e-5
+            and int((cm < truth).sum()) == 0 and recall >= 0.9):
+        raise AssertionError(f"fig_drift A: {out['sketch_twin']}")
+    seconds["A"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    trace = zipf_trace(FD_STREAM, ks, th, seed=1)
+    prof = observed_profile(sketch_trace(trace, sketch_cap=256, window_us=win,
+                                         device=device), key_space=ks)
+    net = build("lru", disk_us=100.0)
+    p_star = net.p_star(grid=4001)
+    cap_hat = prof.cap_of_p(p_star)
+    warm = FD_STREAM // 4
+    cap_grid = np.unique(np.clip(np.round(
+        [cap_hat, prof.cap_of_p(0.5), prof.cap_of_p(0.7)]), 1, ks)).astype(int)
+    sweep, _ = lru_sweep(trace, cap_grid)
+    true_p = {int(c): float(np.asarray(sweep[i][warm:]).mean())
+              for i, c in enumerate(cap_grid)}
+    err_star = abs(true_p[int(round(np.clip(cap_hat, 1, ks)))] - p_star)
+    max_err = max(abs(prof.p_of_cap(c) - p) for c, p in true_p.items())
+    fc = slo_forecast(net, arrival_rate=0.05, slo_us=400.0, profile=prof)
+    out["profile"] = {"p_star": p_star, "cap_hat": cap_hat,
+                      "err_at_p_star": err_star, "hit_curve_max_err": max_err,
+                      "slo_p_star_slo": fc.p_star_slo,
+                      "caps_checked": cap_grid.tolist()}
+    if not (err_star <= 0.05 and max_err <= 0.05 and fc.cap_grid is not None
+            and len(fc.cap_grid) == len(fc.p_grid)):
+        raise AssertionError(f"fig_drift B: {out['profile']}")
+    seconds["B"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    half = FD_STREAM // 2
+    t1 = zipf_trace(half, ks, th, seed=2)
+    t2 = (zipf_trace(half, ks, 0.55, seed=3) + ks // 2) % ks
+    series = _windowed_hit_frac(
+        np.asarray(lru_sweep(np.concatenate([t1, t2]), [64])[0][0]), 500)
+    churn_win, warm_w = half // 500, 4
+    alarms = np.asarray(page_hinkley_scan(series[warm_w:], delta_slack=0.01,
+                                          lam_threshold=0.25)) + warm_w
+    pre, post = alarms[alarms < churn_win], alarms[alarms >= churn_win]
+    phase_err = {}
+    for name, tr in (("phase1", t1), ("phase2", t2)):
+        prof = observed_profile(sketch_trace(tr, sketch_cap=ks, window_us=win,
+                                             device=device), key_space=ks)
+        cap = int(round(np.clip(prof.cap_of_p(p_star), 1, ks)))
+        h = lru_sweep(tr, [cap])[0][0]
+        phase_err[name] = abs(float(np.asarray(h[len(tr) // 4:]).mean())
+                              - p_star)
+    sat_small = sketch_trace(t2, sketch_cap=ks // 2, window_us=win,
+                             device=device).saturation_frac()
+    sat_full = sketch_trace(t2, sketch_cap=ks, window_us=win,
+                            device=device).saturation_frac()
+    lag = int(post[0] - churn_win) if len(post) else None
+    out["churn"] = {"n_windows": len(series), "churn_window": churn_win,
+                    "false_alarms": len(pre), "lag_windows": lag,
+                    "p_star_err_phase1": phase_err["phase1"],
+                    "p_star_err_phase2": phase_err["phase2"],
+                    "saturation_undersized": sat_small,
+                    "saturation_full": sat_full}
+    if not (len(pre) == 0 and lag is not None and lag <= 8
+            and max(phase_err.values()) <= 0.05 and sat_small > 5 * sat_full):
+        raise AssertionError(f"fig_drift C: {out['churn']}")
+    seconds["C"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs = [fig_drift_residuals(device, s) for s in FD_SEEDS]
+    held = [fig_drift_d_holds(d) for d in runs]
+    out["residual"] = {"seeds": list(FD_SEEDS), "held": held, "runs": runs}
+    print(f"fig_drift D: criteria hold on seeds "
+          f"{[s for s, h in zip(FD_SEEDS, held) if h]} of {list(FD_SEEDS)} "
+          f"(the script's seed 0: {held[0]}); stale lags "
+          f"{[d['stale_lag_windows'] for d in runs]}, burst cv "
+          f"{[round(d['burst_arrival_cv'], 3) for d in runs]} vs Poisson "
+          f"{[round(d['poisson_arrival_cv'], 3) for d in runs]}", flush=True)
+    if not all(held):
+        raise AssertionError(f"fig_drift D: {out['residual']}")
+    seconds["D"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
 def figures_path(rec, device="cuda"):
-    """The delayed-hits, latency and cluster path: the qualitative
-    assertions of ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py``,
-    ``fig_latency.py``, ``fig_cluster.py`` and ``fig_hierarchy.py`` through
-    the port (the machine with the card has no jax), at the benchmarks'
-    sizes; each figure's wall seconds."""
+    """The delayed-hits, latency, cluster, hierarchy and streaming path:
+    the qualitative assertions of ``benchmarks/table2_classify.py``,
+    ``fig_delayed_hits.py``, ``fig_latency.py``, ``fig_cluster.py``,
+    ``fig_hierarchy.py`` and ``fig_drift.py`` through the port (the
+    machine with the card has no jax), at the benchmarks' sizes; each
+    figure's wall seconds."""
     out, seconds = {}, {}
     for name, fn in (("table2_classify", table2_classify),
                      ("fig_delayed_hits", fig_delayed_hits),
                      ("fig_latency", fig_latency),
                      ("fig_cluster", fig_cluster),
-                     ("fig_hierarchy", fig_hierarchy)):
+                     ("fig_hierarchy", fig_hierarchy),
+                     ("fig_drift", fig_drift)):
         t0 = time.perf_counter()
         out[name] = fn(device)
         seconds[name] = time.perf_counter() - t0
@@ -1926,6 +2329,96 @@ def ext_timing(rec):
                           * (int(tkern.completed[0]) - tkw["warmup"])))
     ti_ops = ti_events * (5 * tkw["mpl"] + 81) + 40 * n_delayed
     tb, tby = work_bound(ti_bytes, ti_ops)
+
+    # the sketch's cost per event: each mode's lane above launched with the
+    # sketch (sketch_cap 16, 1 ms windows) beside it without; the closed
+    # loop (untraced and traced) on fig_drift D's lane (sketch_cap 8), whose
+    # sketched launch is also held against its plain version
+    def sk(kw):
+        return dict(kw, sketch_cap=16, window_us=1_000.0)
+
+    sketch_rows = {}
+
+    def sketch_row(mode, fn, kw, off_ms, events):
+        on_ms = cuda_ms(lambda: fn(**sk(kw)), reps=5)
+        sketch_rows[mode] = {
+            "off_ms": off_ms, "on_ms": on_ms, "events": events,
+            "off_ns_per_event": off_ms * 1e6 / events,
+            "on_ns_per_event": on_ms * 1e6 / events}
+
+    sketch_row("counting, 8 shards",
+               lambda **k: es.sim_lanes(cspec, cseeds, count_branches=True,
+                                        **k),
+               es.grid_lanes(cm.network, np.array([CL_SIM_P[1]]),
+                             EXT_TIMING_REQUESTS, (0,), 0.25, dev,
+                             sketch=True)[2], cnt_ms, cnt_events)
+    sketch_row("coalescing", lambda **k: es.sim_lanes(spec, seeds, **k),
+               es.grid_lanes(net_b, np.array([0.5]), EXT_TIMING_REQUESTS,
+                             (0,), 0.25, dev, coalesce_flows=16,
+                             sketch=True)[2], co_ms, co_events)
+    sketch_row("open loop", lambda **k: es.sim_open_lanes(ospec, oseeds, **k),
+               okw, open_ms, open_events)
+    sketch_row("tiered", lambda **k: es.sim_lanes(tspec, tseeds, **k),
+               es.grid_lanes(hm.network, hp, EXT_TIMING_REQUESTS, (0,), 0.25,
+                             dev, coalesce_flows=4, tiers=hm.mshr,
+                             sketch=True)[2], ti_ms, ti_events)
+    dnet = build("lru", disk_us=100.0)
+    dspec, dseeds, dkw = es.grid_lanes(dnet, np.array([FD_P[0]]),
+                                       EXT_TIMING_REQUESTS, (0,), 0.25, dev,
+                                       sketch=True)
+    d_kw = dict(dkw, sketch_cap=8, window_us=1_000.0)
+    d_off_ms = cuda_ms(lambda: es.sim_lanes(dspec, dseeds, **dkw), reps=5)
+    d_ms = cuda_ms(lambda: es.sim_lanes(dspec, dseeds, **d_kw), reps=5)
+    dkern = es.sim_lanes(dspec, dseeds, **d_kw)
+    dplain, d_plain_ms = timed_plain(
+        lambda: es.sim_lanes_plain(dspec, dseeds, **d_kw))
+    hold_sim("sketched closed, fig_drift D's lane", dkern, dplain)
+    # exponential service: the window boundaries may fall a last ulp apart,
+    # so the totals are held (sketch_vs_plain holds every field on
+    # deterministic service)
+    for f in ("win_done_count", "win_hit_count", "key_count"):
+        if int(getattr(dkern.sketch, f).sum()) != int(
+                getattr(dplain.sketch, f).sum()):
+            raise AssertionError(f"sketched closed kernel != plain: {f}")
+    rec["event_sim_sketch_max_abs_err"] = max(
+        rec.get("event_sim_sketch_max_abs_err", 0.0),
+        float((dkern.x - dplain.x).abs().max()))
+    d_events = int(dkern.events.long().sum())
+    sketch_rows["closed"] = {
+        "off_ms": d_off_ms, "on_ms": d_ms, "events": d_events,
+        "off_ns_per_event": d_off_ms * 1e6 / d_events,
+        "on_ns_per_event": d_ms * 1e6 / d_events}
+    tr_kw = dict(dkw, trace_cap=64)
+    tr_off_ms = cuda_ms(lambda: es.sim_lanes(dspec, dseeds, **tr_kw), reps=5)
+    sketch_row("traced closed", lambda **k: es.sim_lanes(dspec, dseeds, **k),
+               tr_kw, tr_off_ms, d_events)
+    state_bytes = sum(t.numel() * t.element_size() for t in dkern.sketch)
+    d_bytes = spec_bytes(dspec, dseeds, dkw) + 16 + state_bytes
+    # per event: the closed loop's work (as kCount) and the sketch's tick,
+    # window counts and EWMA steps
+    d_ops = d_events * (5 * dkw["mpl"] + 61 + 30)
+    db, dby = work_bound(d_bytes, d_ops)
+
+    # the sketch_trace kernel on fig_drift A's stream, beside the plain
+    # torch loop on the card
+    from repro_torch.kernels import sketch as ksk
+
+    fkeys, ft, fhits = fig_drift_stream(dev)
+    st_kw = dict(sketch_cap=FD_CAP, window_us=FD_WINDOW_US)
+    st_ms = cuda_ms(lambda: ksk.sketch_trace_lanes(fkeys, ft, fhits, **st_kw),
+                    reps=5)
+    st_kern = ksk.sketch_trace_lanes(fkeys, ft, fhits, **st_kw)
+    st_plain, st_plain_ms = timed_plain(
+        lambda: ksk.sketch_trace_plain(fkeys, ft, fhits, **st_kw))
+    for f in st_kern._fields:
+        if not torch.equal(getattr(st_kern, f), getattr(st_plain, f)):
+            raise AssertionError(f"sketch_trace kernel != plain: {f}")
+    st_bytes = 12 * FD_STREAM + sum(t.numel() * t.element_size()
+                                    for t in st_kern)
+    # per key: the SpaceSaving search (a compare of each slot's key and
+    # count), four count-min hashes, the tick and the EWMA steps
+    st_ops = FD_STREAM * (2 * FD_CAP + 60)
+    sb, sby = work_bound(st_bytes, st_ops)
     out = {
         "count_8_shards": {
             "ms": cnt_ms, "plain_ms": cnt_plain_ms, "events": cnt_events,
@@ -1959,7 +2452,14 @@ def ext_timing(rec):
                   "coalesced_ns_per_event": h_flows_ms * 1e6 / h_flows_events,
                   "stations": int(tspec.svc_ns.shape[1]), "mpl": tkw["mpl"],
                   "bytes": ti_bytes, "ops": ti_ops, "bound_ms": tb,
-                  "requests": EXT_TIMING_REQUESTS}}
+                  "requests": EXT_TIMING_REQUESTS},
+        "sketch": {"ms": d_ms, "plain_ms": d_plain_ms, "bytes": d_bytes,
+                   "ops": d_ops, "bound_ms": db, "per_mode": sketch_rows,
+                   "requests": EXT_TIMING_REQUESTS},
+        "sketch_trace": {"ms": st_ms, "plain_ms": st_plain_ms,
+                         "keys": FD_STREAM, "sketch_cap": FD_CAP,
+                         "ns_per_key": st_ms * 1e6 / FD_STREAM,
+                         "bytes": st_bytes, "ops": st_ops, "bound_ms": sb}}
     c8 = out["count_8_shards"]
     print(f"event_sim count, {CL_SHARDS} shards (K {n_k}, mpl {ckw['mpl']}): "
           f"{cnt_ms:.3f} ms per 1-lane launch ({c8['ns_per_event']:.1f} ns per "
@@ -1983,6 +2483,16 @@ def ext_timing(rec):
           f"({out['open']['ns_per_event']:.1f} ns per event), plain "
           f"{open_plain_ms:.1f} ms, bound {ob:.5f} ms; fig_latency B's "
           f"launch {open_fig_ms:.3f} ms", flush=True)
+    for mode, r in sketch_rows.items():
+        print(f"event_sim sketch, {mode}: {r['off_ns_per_event']:.1f} ns per "
+              f"event without the sketch, {r['on_ns_per_event']:.1f} with it "
+              f"({r['events']} events)", flush=True)
+    print(f"event_sim sketched closed, fig_drift D's lane: {d_ms:.3f} ms per "
+          f"1-lane launch, plain {d_plain_ms:.1f} ms, bound {db:.5f} ms",
+          flush=True)
+    print(f"sketch_trace, fig_drift A's stream: {st_ms:.3f} ms per launch "
+          f"({out['sketch_trace']['ns_per_key']:.1f} ns per key), plain "
+          f"{st_plain_ms:.1f} ms, bound {sb:.5f} ms", flush=True)
     rec["ext_timing"] = out
     return [
         {"name": "event_sim_coalesced", "route": "cuda",
@@ -2005,6 +2515,16 @@ def ext_timing(rec):
          "replaces": "src/repro/core/simulator.py:483",
          "ms": ti_ms, "plain_ms": ti_plain_ms, "bound_ms": tb,
          "bound_by": tby, "library_ms": None},
+        {"name": "event_sim_sketch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim_sketch.cu",
+         "replaces": "src/repro/core/simulator.py:162",
+         "ms": d_ms, "plain_ms": d_plain_ms, "bound_ms": db,
+         "bound_by": dby, "library_ms": None},
+        {"name": "sketch_trace", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sketch_trace.cu",
+         "replaces": "src/repro/obs/streaming.py:408",
+         "ms": st_ms, "plain_ms": st_plain_ms, "bound_ms": sb,
+         "bound_by": sby, "library_ms": None},
     ]
 
 
@@ -3733,14 +4253,18 @@ def attention_timing():
 # the checks that time nothing, by name, in the order they are handed to
 # the workers (longest first)
 PARALLEL_CHECKS = {
+    "sketch_ext_vs_plain": check_sketch_ext,
+    "sketch_vs_plain": check_sketch,
     "tiers_long_vs_plain": check_tiers_long,
     "replay_vs_plain": check_replay,
     "event_sim_vs_plain": check_event_sim,
     "cluster_vs_plain": check_cluster,
     "tiers_vs_plain": check_tiers,
+    "sketch_trace_bc_vs_plain": check_sketch_trace_bc,
     "open_vs_plain": check_open,
     "trace_vs_plain": check_trace,
     "coalesce_vs_plain": check_coalesce,
+    "sketch_trace_vs_plain": check_sketch_trace,
 }
 
 
@@ -3805,6 +4329,7 @@ def main() -> int:
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import paged_attention as pg
     from repro_torch.kernels import replay as kr
+    from repro_torch.kernels import sketch as ksk
     from repro_torch.models import transformer
 
     phases = Phases()
@@ -3840,9 +4365,14 @@ def main() -> int:
     es.sim_lanes.flows_launches = 0
     es.sim_open_lanes.launches = 0
     es.sim_lanes.tiers_launches = 0
+    es.sim_lanes.sketch_launches = 0
+    ksk.sketch_trace_lanes.launches = 0
     phases.run("figures_path", figures_path, rec)
     launches["event_sim_coalesced"] = es.sim_lanes.flows_launches
     launches["event_sim_open"] = es.sim_open_lanes.launches
+    # the sketched instantiations and the sketch_trace kernel: fig_drift
+    launches["event_sim_sketch"] = es.sim_lanes.sketch_launches
+    launches["sketch_trace"] = ksk.sketch_trace_lanes.launches
     # the tiered kernel's path: fig_hierarchy (in figures_path) and the
     # hierarchy's differential
     phases.run("hierarchy_differential", hierarchy_differential, rec)

@@ -30,3 +30,25 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r} (want cuda or cpu)")
     return dev
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    The reference's ``elapsed_us + t * 1e-3`` and its streaming EWMA steps
+    (``s * decay + a``) are compiled by XLA's CPU backend into fused
+    multiply-adds, and the CUDA kernels compute them with ``__fmaf_rn``.
+    Here the product of two float32 values is exact in float64; the
+    float64 sum is made round-to-odd (its error, from TwoSum, picks the odd
+    neighbour), which then rounds to the same float32 as the exact
+    ``a * b + c``.
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & (bits & 1 == 0), bits + toward, bits)
+    return bits.view(torch.float64).to(torch.float32)

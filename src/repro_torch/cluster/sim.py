@@ -28,9 +28,11 @@ Both run the same closed loop (``mpl`` clients that immediately start a
 new request on completion); open-loop cluster runs go straight through
 ``simulate_network(model.network, arrival_rate=...)``.
 
-Not ported yet, raising :class:`NotImplementedError`: the streaming
-sketches (``sketch_cap``, ``window_us``) and tracing together with
-coalescing (ROADMAP queue 1, item 8).
+``sketch_cap > 0`` runs the streaming estimators on both: the simulator's
+observe the coalescing flows (``simulate_network``'s sketch), the oracle's
+exact twin counts the routed keys themselves.  Not ported yet, raising
+:class:`NotImplementedError`: tracing together with coalescing (ROADMAP
+queue 1, item 8, its trace half).
 """
 
 from __future__ import annotations
@@ -46,10 +48,11 @@ from repro_torch.cluster.model import ClusterModel
 from repro_torch.core.py_sim import _flow_sampler
 from repro_torch.core.simspec import compile_network
 from repro_torch.kernels.event_sim import simulate_grid
+from repro_torch.obs.streaming import PyStreamSketch
 
 __all__ = ["ClusterSimResult", "simulate_cluster", "simulate_cluster_py"]
 
-_ITEM_8 = "ROADMAP queue 1, item 8 (streaming sketches; tracing with coalescing)"
+_ITEM_8 = "ROADMAP queue 1, item 8 (its trace half: tracing with coalescing)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +75,9 @@ class ClusterSimResult:
     # [seed][p] per-request TraceRecords when trace=K was requested (the
     # record's branch id resolves to a shard via model.branch_shard).
     traces: list | None = None
-    # streaming-sketch estimates: None until the port has the sketches
-    # (ROADMAP queue 1, item 8).
+    # [seed][p] SketchEstimates when sketch_cap=K was requested (flow keys
+    # on the simulator's side; shard heat via SketchEstimates.shard_heat +
+    # model.branch_shard).
     sketches: list | None = None
 
 
@@ -91,13 +95,14 @@ def simulate_cluster(model: ClusterModel, p_hits, n_requests: int = 40_000,
     without coalescing only).  Everything else matches
     :func:`repro_torch.core.simulator.simulate_network`, whose grid this
     runs (:func:`repro_torch.kernels.event_sim.simulate_grid`, with the
-    per-branch counts).  ``sketch_cap``/``window_us``, and ``trace`` with
-    coalescing, raise :class:`NotImplementedError`.
+    per-branch counts).  ``sketch_cap=K`` threads the streaming estimators
+    (:mod:`repro_torch.obs.streaming`, windowed every ``window_us``
+    simulated µs) onto ``sketches``.  ``trace`` with coalescing raises
+    :class:`NotImplementedError`.
     """
-    if sketch_cap or window_us:
-        raise NotImplementedError(
-            f"simulate_cluster(sketch_cap=..., window_us=...) is not ported "
-            f"yet: {_ITEM_8}")
+    if sketch_cap and window_us <= 0.0:
+        raise ValueError("sketch_cap > 0 requires window_us > 0 (the "
+                         "tumbling-window width in simulated µs)")
     if trace and coalesce_flows:
         raise NotImplementedError(
             f"simulate_cluster(trace=...) with coalesce_flows is not ported "
@@ -106,6 +111,7 @@ def simulate_cluster(model: ClusterModel, p_hits, n_requests: int = 40_000,
                         seeds=seeds, warmup_frac=warmup_frac, trace=trace,
                         coalesce_flows=coalesce_flows,
                         coalesce_theta=coalesce_theta, count_branches=True,
+                        sketch_cap=sketch_cap, window_us=window_us,
                         device=device)
     return _shard_result(model, res)
 
@@ -135,7 +141,7 @@ def _shard_result(model: ClusterModel, res) -> ClusterSimResult:
         p_hit=res.p_hit, throughput=res.throughput, ci95=res.ci95,
         shard_throughput=sx, shard_hit_ratio=shit, shard_delayed_frac=sdel,
         delayed_frac=res.delayed_frac, n_requests=res.n_requests,
-        traces=res.traces,
+        traces=res.traces, sketches=res.sketches,
     )
 
 
@@ -160,13 +166,17 @@ def simulate_cluster_py(model: ClusterModel, key_probs, assign,
     ``shard_hit_ratio`` / ``shard_delayed_frac``, measured ``shard_share``
     (the emergent routing weights), and ``delayed_frac``.
 
-    ``sketch_cap > 0`` (the reference's exact-counting estimator twin)
-    raises :class:`NotImplementedError`; the result's ``"sketch"`` entry
-    is None.
+    ``sketch_cap > 0`` attaches the exact-counting estimator twin
+    (:class:`repro_torch.obs.streaming.PyStreamSketch`): because this
+    oracle is the one engine that sees *true workload keys* (not
+    coalescing flows), its sketch counts the routed key stream itself —
+    the decoded estimates under ``"sketch"`` feed
+    :func:`repro_torch.obs.profile.observed_profile` /
+    ``observed_shard_profile`` directly.  Branch lanes in its windowed
+    per-branch counters are ``shard * B + base_branch`` (so
+    ``SketchEstimates.shard_heat`` recovers per-shard completion heat
+    with an ``assign`` of ``lane // B``).
     """
-    if sketch_cap:
-        raise NotImplementedError(
-            f"simulate_cluster_py(sketch_cap=...) is not ported yet: {_ITEM_8}")
     rng = random.Random(seed)
     base = model.base
     pk = model.profile.shard_p(p_hit)
@@ -184,10 +194,13 @@ def simulate_cluster_py(model: ClusterModel, key_probs, assign,
     svc = np.stack([s.svc_ns.numpy() for s in specs]) / 1e3  # (N, K) µs
     dist = specs[0].dist_id.numpy()
     cum = np.stack([s.branch_cum.numpy() for s in specs])  # (N, B)
+    B = cum.shape[1]
     hit_branch = ~(((disk_rank[np.maximum(visits[0], 0)] >= 0)
                     & (visits[0] >= 0)).any(axis=1))
     sample_flow = (_flow_sampler(rng, coalesce_flows, coalesce_theta)
                    if coalesce_flows else None)
+    sk = (PyStreamSketch(sketch_cap, n_branches=N * B, window_us=window_us)
+          if sketch_cap else None)
 
     def sample(sh: int, k: int) -> float:
         if dist[k] == 1:
@@ -198,6 +211,8 @@ def simulate_cluster_py(model: ClusterModel, key_probs, assign,
         key = int(np.searchsorted(key_cum, rng.random()))
         sh = int(assign[key])
         b = int(np.searchsorted(cum[sh], rng.random()))
+        if sk is not None:  # the true routed key, pre-hash
+            sk.key(key)
         return sh, b
 
     M = model.network.mpl
@@ -222,6 +237,9 @@ def simulate_cluster_py(model: ClusterModel, key_probs, assign,
     def complete(j: int, now: float, was_delayed: bool = False) -> None:
         nonlocal done, delayed, warm
         sh, b = job_shard[j], job_branch[j]
+        if sk is not None:  # delayed hits count as misses (miss branches)
+            sk.done(now, sh * B + b, is_hit=bool(hit_branch[b]),
+                    delayed=was_delayed)
         done += 1
         sh_done[sh] += 1
         if hit_branch[b]:
@@ -301,5 +319,5 @@ def simulate_cluster_py(model: ClusterModel, key_probs, assign,
         "shard_hit_ratio": hit_ratio,
         "shard_delayed_frac": del_frac,
         "delayed_frac": (delayed - w_del) / n_meas,
-        "sketch": None,
+        "sketch": sk.estimates() if sk is not None else None,
     }

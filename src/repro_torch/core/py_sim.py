@@ -23,8 +23,9 @@ per-request sojourns and true-hit / true-miss / delayed-hit classes
 recorded per completion — the differential twin of
 ``simulate_network(arrival_rate=...)``.
 
-The reference's streaming-sketch hook (``sketch_cap > 0``) is not copied:
-it raises :class:`NotImplementedError` (ROADMAP queue 1, item 8).
+With ``sketch_cap > 0`` each mode runs the exact-counting streaming
+estimator twin (:class:`repro_torch.obs.streaming.PyStreamSketch`) at the
+reference's sites, as the reference does.
 """
 
 from __future__ import annotations
@@ -36,11 +37,9 @@ import numpy as np
 
 from repro_torch.core.queueing import ClosedNetwork, zipf_flow_weights
 from repro_torch.core.simspec import compile_network
+from repro_torch.obs.streaming import PyStreamSketch
 from repro_torch.obs.trace import (CLS_DELAYED, CLS_HIT, CLS_MISS,
                                    PyTraceCollector)
-
-SKETCH_LATER = ("sketch_cap > 0 (the streaming-sketch twin) is not ported "
-                "yet: ROADMAP queue 1, item 8")
 
 
 def _flow_sampler(rng: random.Random, flows: int, theta: float):
@@ -115,12 +114,14 @@ def simulate_py(
     trace twin contract.  Closed/tiered modes require ``full=True``
     (the bare-float return has nowhere to put the trace).
 
-    ``sketch_cap > 0`` (the reference's streaming-estimator twin) raises
-    :class:`NotImplementedError`; ``window_us`` is its window and is
-    unused here.  The result's ``"sketch"`` entry is None.
+    ``sketch_cap > 0`` runs the exact-counting streaming-estimator twin
+    (:class:`repro_torch.obs.streaming.PyStreamSketch`, windowed every
+    ``window_us`` simulated µs) over the same event stream the simulators
+    feed their sketches, returning its decoded
+    :class:`~repro_torch.obs.streaming.SketchEstimates` under
+    ``"sketch"`` — the oracle side of the sketch twin contract.  Same
+    ``full=True`` requirement as tracing in closed/tiered modes.
     """
-    if sketch_cap:
-        raise NotImplementedError(SKETCH_LATER)
     rng = random.Random(seed)
     spec = compile_network(net, p_hit, device="cpu")
     is_q = spec.is_queue.numpy()
@@ -153,6 +154,13 @@ def simulate_py(
     if trace and arrival_rate is None and not full:
         raise ValueError("trace > 0 requires full=True in closed/tiered "
                          "modes (the bare-float return drops the records)")
+    if sketch_cap:
+        if window_us <= 0.0:
+            raise ValueError("sketch_cap > 0 requires window_us > 0")
+        if arrival_rate is None and not full:
+            raise ValueError("sketch_cap > 0 requires full=True in "
+                             "closed/tiered modes (the bare-float return "
+                             "drops the estimates)")
     if tiers is not None and coalesce_flows:
         if arrival_rate is not None or burst is not None:
             raise ValueError("tiered MSHR coalescing runs the closed loop "
@@ -163,14 +171,14 @@ def simulate_py(
         return _simulate_py_tiered(
             rng, is_q, visits, servers, sample, new_branch, sample_flow,
             tiers, coalesce_flows, net.mpl, n_requests, warmup_frac, full,
-            branch_is_miss, trace,
+            branch_is_miss, trace, sketch_cap, window_us,
         )
     if arrival_rate is not None:
         return _simulate_py_open(
             rng, is_q, svc, dist, cum, visits, servers, disk_rank, sample,
             new_branch, sample_flow, n_requests, warmup_frac,
             coalesce_flows, float(arrival_rate), max_in_system, burst,
-            trace,
+            trace, sketch_cap, window_us,
         )
     if burst is not None:
         raise ValueError("burst arrivals require arrival_rate "
@@ -178,6 +186,8 @@ def simulate_py(
 
     N = net.mpl
     tr = PyTraceCollector(trace, N, visits.shape[1]) if trace else None
+    sk = (PyStreamSketch(sketch_cap, n_branches=B, window_us=window_us)
+          if sketch_cap else None)
     heap: list = []
     queues = {k: [] for k in range(K) if is_q[k]}
     # busy count per queue station: jobs in service, <= servers[k] (matches
@@ -225,6 +235,10 @@ def simulate_py(
                          else CLS_HIT)
             tr.complete(j, job_branch[j], cls_j, job_pos[j] + 1, parked_us)
             tr.start(j, now)  # the fresh request enters its think station
+        if sk is not None:  # delayed hits count as misses (miss branches)
+            sk.done(now, job_branch[j],
+                    is_hit=not branch_has_disk[job_branch[j]],
+                    delayed=was_delayed)
         done += 1
         if warm_c is None and done >= warm_target:
             warm_c, warm_t, warm_d = done, now, delayed
@@ -270,6 +284,8 @@ def simulate_py(
             # flows are local to the disk (shard) the miss arrives at
             f = int(disk_rank[k2]) * F + sample_flow()
             job_flow[j] = f
+            if sk is not None:  # every disk arrival, park or lead
+                sk.key(f)
             if f in leader:  # fetch already in flight: park, no new I/O
                 parked.setdefault(f, []).append(j)
                 continue
@@ -294,14 +310,15 @@ def simulate_py(
         "t_measured": t - warm_t,
         "warm_done": warm_c,
         "trace": tr.finish(visits) if tr is not None else None,
-        "sketch": None,
+        "sketch": sk.estimates() if sk is not None else None,
     }
 
 
 def _simulate_py_tiered(
     rng, is_q, visits, servers, sample, new_branch, sample_flow,
     tiers, coalesce_flows, mpl, n_requests, warmup_frac, full,
-    branch_is_miss=None, trace: int = 0,
+    branch_is_miss=None, trace: int = 0, sketch_cap: int = 0,
+    window_us: float = 0.0,
 ):
     """Closed-loop heapq twin of simulator._simulate_tiered: cross-tier
     MSHR acquire/park/release driven by the MshrSpec annotation arrays,
@@ -326,6 +343,8 @@ def _simulate_py_tiered(
     job_branch = [0] * N
     job_pos = [0] * N
     tr = PyTraceCollector(trace, N, visits.shape[1]) if trace else None
+    sk = (PyStreamSketch(sketch_cap, n_branches=B, window_us=window_us)
+          if sketch_cap else None)
     for j in range(N):
         b = new_branch()
         job_branch[j] = b
@@ -363,6 +382,10 @@ def _simulate_py_tiered(
                          else CLS_HIT)
             tr.complete(j, job_branch[j], cls_j, job_pos[j] + 1, parked_us)
             tr.start(j, now)
+        if sk is not None:  # delayed hits count as misses (miss branches)
+            sk.done(now, job_branch[j],
+                    is_hit=not branch_is_miss[job_branch[j]],
+                    delayed=was_delayed)
         done += 1
         if warm_c is None and done >= warm_target:
             warm_c, warm_t, warm_d = done, now, delayed
@@ -424,6 +447,8 @@ def _simulate_py_tiered(
         if g >= 0:
             if job_flow[j] < 0:
                 job_flow[j] = sample_flow()
+                if sk is not None:  # first (shallowest) acquire only
+                    sk.key(job_flow[j])
             slot = g * F + job_flow[j]
             if slot in leader:  # fetch in flight: park across the tier
                 parked.setdefault(slot, []).append(
@@ -453,7 +478,7 @@ def _simulate_py_tiered(
         "t_measured": t - warm_t,
         "warm_done": warm_c,
         "trace": tr.finish(visits) if tr is not None else None,
-        "sketch": None,
+        "sketch": sk.estimates() if sk is not None else None,
     }
 
 
@@ -461,6 +486,7 @@ def _simulate_py_open(
     rng, is_q, svc, dist, cum, visits, servers, disk_rank, sample,
     new_branch, sample_flow, n_requests, warmup_frac, coalesce_flows,
     arrival_rate, max_in_system, burst=None, trace: int = 0,
+    sketch_cap: int = 0, window_us: float = 0.0,
 ):
     """Open-loop heapq twin of simulator._simulate_open (same semantics:
     Poisson — or ON-OFF burst — arrivals into a bounded slot pool,
@@ -493,6 +519,8 @@ def _simulate_py_open(
     arrive_t = [0.0] * N
     free = list(range(N))
     tr = PyTraceCollector(trace, N, visits.shape[1]) if trace else None
+    sk = (PyStreamSketch(sketch_cap, n_branches=len(cum),
+                         window_us=window_us) if sketch_cap else None)
 
     records: list = []  # (sojourn, class) in completion order
     done = 0
@@ -510,6 +538,9 @@ def _simulate_py_open(
             else:
                 parked_us = 0.0
             tr.complete(j, job_branch[j], c, job_pos[j] + 1, parked_us)
+        if sk is not None:  # delayed hits count as misses (miss branches)
+            sk.done(now, job_branch[j], is_hit=(c == CLS_HIT),
+                    delayed=(c == CLS_DELAYED))
         done += 1
         records.append((now - arrive_t[j], c))
         free.append(j)
@@ -548,6 +579,8 @@ def _simulate_py_open(
             else:
                 heapq.heappush(heap, (t + rng.expovariate(arrival_rate),
                                       -1, -1))
+            if sk is not None:  # every offered arrival, admitted or not
+                sk.arrival(t)
             if not free:
                 dropped += 1
                 continue
@@ -593,6 +626,8 @@ def _simulate_py_open(
         if coalesce_flows and disk_rank[k2] >= 0:
             f = int(disk_rank[k2]) * F + sample_flow()
             job_flow[j] = f
+            if sk is not None:  # every disk arrival, park or lead
+                sk.key(f)
             if f in leader:
                 parked.setdefault(f, []).append(j)
                 continue
@@ -624,5 +659,5 @@ def _simulate_py_open(
         "drop_frac": dropped / max(done + dropped, 1),
         "warm_done": warm_c,
         "trace": tr.finish(visits) if tr is not None else None,
-        "sketch": None,
+        "sketch": sk.estimates() if sk is not None else None,
     }

@@ -258,3 +258,7 @@ class SimResult:
     # repro_torch.obs.trace.TraceRecords); None unless the run asked for
     # tracing (simulate_network(trace=K)).
     traces: list | None = None
+    # decoded per-lane streaming estimators ([seed][p]
+    # repro_torch.obs.streaming.SketchEstimates), None unless
+    # simulate_network(sketch_cap=K) requested them.
+    sketches: list | None = None

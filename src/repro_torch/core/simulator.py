@@ -26,6 +26,12 @@ pallas engine on deterministic service.  The reference runs coalescing,
 the tiered tables and the open loop only on its threefry engine; the
 port runs them on its counter engine, so they agree with the reference
 statistically.
+
+In every mode ``sketch_cap > 0`` runs the streaming estimators
+(:mod:`repro_torch.obs.streaming`) inside the launch, the sketched
+instantiation of the kernel, and decodes them onto the result's
+``sketches``; the sketch draws no random numbers, so every other output is
+the unsketched run's bit for bit.
 """
 
 from __future__ import annotations
@@ -40,19 +46,12 @@ from repro_torch.core.queueing import ClosedNetwork
 from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
 from repro_torch.kernels.event_sim import open_grid, simulate_grid
+from repro_torch.obs.streaming import decode_sketch_grid
 from repro_torch.obs.trace import CLS_DELAYED, CLS_HIT, CLS_MISS
 
 __all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "OpenSimResult",
            "CLS_MISS", "CLS_HIT", "CLS_DELAYED", "compile_network",
            "stack_specs", "simulate_network"]
-
-# Options of the reference that the port does not carry yet, each with
-# the ROADMAP item that ports it.  Each is refused when it differs from
-# the reference's default (second).
-_LATER = {
-    "sketch_cap": ("ROADMAP queue 1, item 8 (streaming sketches)", 0),
-    "window_us": ("ROADMAP queue 1, item 8 (streaming sketch windows)", 0.0),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +83,9 @@ class OpenSimResult:
     # (deep overload): their statistics cover fewer completions than asked.
     truncated: np.ndarray
     n_requests: int
-    # trace records and streaming estimators: None until the port traces
-    # the open loop (ROADMAP queue 1, item 8).
+    # trace records: None until the port traces the open loop (ROADMAP
+    # queue 1, item 8, its trace half); decoded per-lane streaming
+    # estimators ([seed][p] SketchEstimates) when sketch_cap=K was asked.
     traces: list | None = None
     sketches: list | None = None
 
@@ -152,13 +152,22 @@ def simulate_network(
     tier level parked at (column 0: client-local L1 table; later:
     shard-local origin tables).
 
+    ``sketch_cap > 0`` threads the streaming estimators
+    (:mod:`repro_torch.obs.streaming`) through every lane, in every mode:
+    tumbling-window hit/arrival counters, EWMA smoothers, and a count-min
+    + SpaceSaving key-popularity sketch sized for ``sketch_cap`` tracked
+    keys, sampled every ``window_us`` µs of simulated time (required > 0).
+    The decoded ``[seed][p]``
+    :class:`~repro_torch.obs.streaming.SketchEstimates` land on the
+    result's ``sketches`` field; ``sketch_cap=0`` (default) runs no sketch
+    code at all, and the estimators draw no random numbers.
+
     The keywords are the reference's.  ``backend`` names the engine: the
     port has one, the reference's counter-RNG ``"pallas"`` engine, so that
     is its default and ``"jax"`` (the reference's threefry engine) raises
-    :class:`ValueError`.  ``sketch_cap`` and ``window_us``, and ``trace``
-    together with coalescing (tiered or not) or the open loop, belong to
-    later slices of the port: they raise :class:`NotImplementedError`
-    naming their ROADMAP item.
+    :class:`ValueError`.  ``trace`` together with coalescing (tiered or
+    not) or the open loop belongs to a later slice of the port: it raises
+    :class:`NotImplementedError` naming its ROADMAP item.
     """
     if backend not in ("jax", "pallas"):
         raise ValueError(f"unknown backend {backend!r} (want 'jax' or "
@@ -175,18 +184,13 @@ def simulate_network(
     if tiers is not None:
         tiers.validate(compile_network(net, float(np.atleast_1d(p_hits)[0]),
                                        device="cpu").visits.numpy())
-    given = {"sketch_cap": sketch_cap, "window_us": window_us}
-    for name, value in given.items():
-        item, default = _LATER[name]
-        if value is default or (default is not None and value == default):
-            continue
-        raise NotImplementedError(
-            f"simulate_network({name}=...) is not ported yet: {item}")
+    if sketch_cap and window_us <= 0.0:
+        raise ValueError("sketch_cap > 0 requires window_us > 0 (the "
+                         "tumbling-window width in simulated µs)")
     if trace and (coalesce_flows or arrival_rate is not None):
         raise NotImplementedError(
             "simulate_network(trace=...) with coalesce_flows or arrival_rate "
-            "is not ported yet: ROADMAP queue 1, item 8 (tracing in those "
-            "modes comes with the streaming sketches)")
+            "is not ported yet: ROADMAP queue 1, item 8 (its trace half)")
     if arrival_rate is None:
         if burst is not None:
             raise ValueError("burst arrivals require arrival_rate "
@@ -195,15 +199,17 @@ def simulate_network(
                              warmup_frac=warmup_frac, trace=trace,
                              coalesce_flows=coalesce_flows,
                              coalesce_theta=coalesce_theta, tiers=tiers,
+                             sketch_cap=sketch_cap, window_us=window_us,
                              device=device)
     return _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                           warmup_frac, max_in_system, burst, coalesce_flows,
-                          coalesce_theta, device)
+                          coalesce_theta, sketch_cap, window_us, device)
 
 
 def _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                    warmup_frac, max_in_system, burst, coalesce_flows,
-                   coalesce_theta, device) -> OpenSimResult:
+                   coalesce_theta, sketch_cap, window_us,
+                   device) -> OpenSimResult:
     """The open-loop grid and the reference's reduction of its records."""
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
     n_p, n_s = len(p_hits), len(seeds)
@@ -219,9 +225,15 @@ def _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
     out = open_grid(net, p_hits, lam, n_requests, seeds, warmup_frac,
                     max_in_system, burst=burst,
                     coalesce_flows=int(coalesce_flows),
-                    coalesce_theta=float(coalesce_theta), device=device)
-    return open_result(out, p_hits, lam, n_requests, n_s,
-                       int(n_requests * warmup_frac))
+                    coalesce_theta=float(coalesce_theta),
+                    sketch_cap=int(sketch_cap), window_us=float(window_us),
+                    device=device)
+    res = open_result(out, p_hits, lam, n_requests, n_s,
+                      int(n_requests * warmup_frac))
+    if out.sketch is None:
+        return res
+    return dataclasses.replace(res, sketches=decode_sketch_grid(
+        out.sketch, n_s, len(p_hits), float(window_us)))
 
 
 def open_result(out, p_hits, lam, n_requests: int, n_s: int,

@@ -13,10 +13,11 @@
   the same way.
 
 The reference runs the tiered loop on its threefry engine and the port
-on its counter engine, so the two agree statistically.  Not ported yet,
-raising :class:`NotImplementedError`: the streaming sketches
-(``sketch_cap``, ``window_us``) and tracing together with coalescing
-(ROADMAP queue 1, item 8).
+on its counter engine, so the two agree statistically.  ``sketch_cap > 0``
+runs the streaming estimators on both twins (the sketched instantiation of
+the kernel; the oracle's exact twin).  Not ported yet, raising
+:class:`NotImplementedError`: tracing together with coalescing (ROADMAP
+queue 1, item 8, its trace half).
 """
 
 from __future__ import annotations
@@ -32,10 +33,6 @@ from repro_torch.kernels.event_sim import simulate_grid
 
 __all__ = ["HierarchySimResult", "simulate_hierarchy",
            "simulate_hierarchy_py"]
-
-_ITEM_8 = ("ROADMAP queue 1, item 8 (streaming sketches; tracing with "
-           "coalescing)")
-
 
 @dataclasses.dataclass(frozen=True)
 class HierarchySimResult:
@@ -62,8 +59,9 @@ class HierarchySimResult:
     # simulator, a single TraceRecords from the heapq oracle.  None
     # otherwise.
     traces: object = None
-    # streaming-estimator decodes: None until the port has the sketches
-    # (ROADMAP queue 1, item 8).
+    # streaming-estimator decodes when the run asked for them
+    # (``sketch_cap=K``): [seed][p] SketchEstimates from the simulator, a
+    # single SketchEstimates from the heapq oracle.  None otherwise.
     sketches: object = None
 
 
@@ -107,30 +105,34 @@ def simulate_hierarchy(model: HierarchyModel, p_hits,
     ``trace=K`` (without coalescing) keeps the last K per-request trace
     records per (seed, p) lane on the result's ``traces`` — the branch id
     in each record resolves a request to its client / shard / serving
-    level through ``model.branch_client`` & friends.  ``sketch_cap``,
-    ``window_us``, and ``trace`` with coalescing raise
+    level through ``model.branch_client`` & friends.  ``sketch_cap=K``
+    threads the streaming estimators (:mod:`repro_torch.obs.streaming`,
+    sampled every ``window_us`` simulated µs) and decodes them onto
+    ``sketches``.  ``trace`` with coalescing raises
     :class:`NotImplementedError`.  Wraps
     :func:`repro_torch.core.simulator.simulate_network`.
     """
-    if sketch_cap or window_us:
-        raise NotImplementedError(
-            f"simulate_hierarchy(sketch_cap=..., window_us=...) is not "
-            f"ported yet: {_ITEM_8}")
+    if sketch_cap and window_us <= 0.0:
+        raise ValueError("sketch_cap > 0 requires window_us > 0 (the "
+                         "tumbling-window width in simulated µs)")
     if coalesce_flows:
         res = simulate_network(
             model.network, p_hits, n_requests=n_requests, seeds=seeds,
             warmup_frac=warmup_frac, coalesce_flows=coalesce_flows,
             coalesce_theta=coalesce_theta, tiers=model.mshr, trace=trace,
-            device=device)
+            sketch_cap=sketch_cap, window_us=window_us, device=device)
     else:
         # simulate_network leaves the per-branch rates None without
         # coalescing; the counting instantiation takes them
         res = simulate_grid(model.network, p_hits, n_requests=n_requests,
                             seeds=seeds, warmup_frac=warmup_frac,
-                            trace=trace, count_branches=True, device=device)
+                            trace=trace, count_branches=True,
+                            sketch_cap=sketch_cap, window_us=window_us,
+                            device=device)
     return _fold(model, res.p_hit, res.throughput, res.ci95,
                  res.branch_throughput, res.delayed_frac,
-                 res.delayed_tier_frac, n_requests, traces=res.traces)
+                 res.delayed_tier_frac, n_requests, traces=res.traces,
+                 sketches=res.sketches)
 
 
 def simulate_hierarchy_py(model: HierarchyModel, p_hit: float,
@@ -142,7 +144,7 @@ def simulate_hierarchy_py(model: HierarchyModel, p_hit: float,
                           sketch_cap: int = 0,
                           window_us: float = 0.0) -> HierarchySimResult:
     """Heapq-oracle twin of :func:`simulate_hierarchy` at one global p
-    (on the host; ``sketch_cap > 0`` raises naming item 8)."""
+    (on the host)."""
     out = simulate_py(
         model.network, float(p_hit), n_requests=n_requests, seed=seed,
         warmup_frac=warmup_frac, coalesce_flows=coalesce_flows,

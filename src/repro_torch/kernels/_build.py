@@ -35,12 +35,10 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "replay_launch": ([_I, _I] + [_P] * 10 + [_LL] + [_I] * 4 + [_P], _I),
     "replay_bytes": ([_I, _LL, _LL, _I, _I], _LL),
-    "event_sim_launch": ([_P] * 13 + [_I] * 7 + [_P], _I),
-    "event_sim_traced_launch": ([_P] * 22 + [_I] * 8 + [_P], _I),
-    "event_sim_shared_bytes": ([_I] * 5, _I),
     "event_sim_slots": ([_I], _I),
-    "event_sim_ext_launch": ([_P, _P], _I),
-    "event_sim_ext_shared_bytes": ([_P], _I),
+    "event_sim_ext_launch": ([_P] * 3, _I),
+    "event_sim_ext_shared_bytes": ([_P, _I], _I),
+    "sketch_trace_launch": ([_P] * 4 + [_I] * 2 + [_P], _I),
     "lru_update_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "lru_update_blocks": ([_I], _I),
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),

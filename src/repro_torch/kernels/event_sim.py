@@ -71,11 +71,16 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import fma_f32, resolve_device
 from repro_torch.core.queueing import zipf_flow_weights
 from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
 from repro_torch.kernels import _build
+from repro_torch.kernels.sketch import sketch_args
+from repro_torch.obs.streaming import (SketchState, decode_sketch_grid,
+                                       pow_table, sketch_init, stream_arrival,
+                                       stream_done, stream_done_many,
+                                       stream_key, stream_tick)
 from repro_torch.obs.trace import (CLS_DELAYED, CLS_HIT, CLS_MISS, TraceRings,
                                    decode_trace_grid, init_rings)
 
@@ -120,27 +125,6 @@ def u01(base: torch.Tensor, ctr: torch.Tensor) -> torch.Tensor:
     z = _mix((base + (ctr.long() & _M32) * _GOLDEN) & _M32)
     u = (z >> 8).to(torch.float32) * _f32(_INV24, z)
     return torch.clamp(u, min=_f32(_U_LO, z), max=_f32(_U_HI, z))
-
-
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
-
-    The reference's ``elapsed_us + t * 1e-3`` is compiled by XLA's CPU
-    backend into one fused multiply-add, and the CUDA kernel computes it
-    with ``__fmaf_rn``.  Here the product of two float32 values is exact in
-    float64; the float64 sum is made round-to-odd (its error, from
-    TwoSum, picks the odd neighbour), which then rounds to the same float32
-    as the exact ``a * b + c``.
-    """
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - c
-    err = (c - (s - bb)) + (p - bb)
-    bits = s.view(torch.int64)
-    toward = torch.where((err > 0) == (s > 0), 1, -1)
-    bits = torch.where((err != 0) & (bits & 1 == 0), bits + toward, bits)
-    return bits.view(torch.float64).to(torch.float32)
 
 
 class _LaneSpec(NamedTuple):
@@ -205,6 +189,8 @@ class LaneOutputs(NamedTuple):
     # filled with tiers: the measured delayed hits by the held level the
     # job parked at, (L, max_held) f32 fractions of measured completions
     delayed_tier: Optional[torch.Tensor] = None
+    # filled when sketch_cap > 0: the lanes' streaming estimators
+    sketch: Optional[SketchState] = None
 
 
 class LaneTiers(NamedTuple):
@@ -287,7 +273,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                     flow_theta: float = 0.0, n_disks: int = 1,
                     disk_rank: Optional[torch.Tensor] = None,
                     count_branches: bool = False,
-                    tiers: Optional[LaneTiers] = None) -> LaneOutputs:
+                    tiers: Optional[LaneTiers] = None, sketch_cap: int = 0,
+                    window_us: float = 0.0) -> LaneOutputs:
     """The kernel's plain PyTorch version, every lane batched, on the
     inputs' device (``is_queue`` may be bool or int32, as for the kernel).
 
@@ -334,6 +321,19 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     the leader of entry ``acq_group * F + flow``, or leads it and holds
     it at level ``acq_slot``; the warmup snapshot, which also takes the
     per-level counts.
+
+    With ``sketch_cap > 0`` the streaming estimators (a
+    :class:`~repro_torch.obs.streaming.SketchState` of the L lanes,
+    returned on ``sketch``) run at the reference's sites (``_simulate``
+    and ``_simulate_tiered``), in its order: every event ticks the ring
+    at the new clock (windows of
+    ``window_us``); the jobs a fill wakes complete as one batch of delayed
+    hits under the branch they parked on; a completing request is a hit
+    unless ``bmiss`` ((L, B), needed) marks its branch a miss; and a miss
+    arriving at a disk observes its flow ``rank * F + f`` as a key (the
+    tiered tables: a request's flow ``f``, at its first acquire).  The
+    sketch draws no random numbers, so the outputs are the unsketched
+    run's bit for bit.
 
     The event loop of the reference ``_sim_lane``; a lane stops (its state
     is frozen by the active mask) once it completes ``n_requests`` or
@@ -397,6 +397,12 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                         n_b)
     elif count_branches:
         co = _BranchCounts(n_l, n_b, dev)
+    sketch = sketch_init(sketch_cap, n_b, n_l, device=dev)
+    if sketch is not None:
+        decay = pow_table(mpl, device=dev)
+        hit_b = ~bmiss.bool()
+        if co is not None:
+            co.sketch = sketch
 
     e = 0
     while True:
@@ -420,6 +426,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                             ready - t[:, None], ready)
         elapsed = torch.where(active, fma_f32(t.to(torch.float32), ns_to_us,
                                               elapsed), elapsed)
+        if sketch is not None:
+            slot = stream_tick(sketch, elapsed, window_us, active)
         k_cur = station[lane, j]
 
         if tiers is not None:
@@ -428,6 +436,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             woken = co.cascade(active, j, branch, pos)
             if woken is not None:
                 co.count(woken, branch)
+                if sketch is not None:
+                    stream_done_many(sketch, slot, branch, woken, decay)
                 co.count_levels(woken)
                 wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
                 ready = torch.where(woken, wsvc, ready)
@@ -442,6 +452,8 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             woken, fill, f_cur = co.fill(active, j, k_cur)
             if bool(woken.any()):
                 co.count(woken, branch)
+                if sketch is not None:
+                    stream_done_many(sketch, slot, branch, woken, decay)
                 wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
                 ready = torch.where(woken, wsvc, ready)
                 station = torch.where(woken, wst, station)
@@ -473,6 +485,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
             _trace_event(rings, enter_s, leave_s, lane, j, pos[lane, j],
                          torch.where(done, 0, nxt), b_j, miss, elapsed,
                          completed, active, active & done, trace_cap)
+        if sketch is not None:
+            stream_done(sketch, slot, b_j, hit_b[lane, b_j.clamp(max=n_b - 1)],
+                        False, active & done)
         completed = torch.where(active, completed + done.long(), completed)
 
         # place j at k_next: it starts, waits, or (coalescing) parks
@@ -511,7 +526,7 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     t_meas = torch.clamp(elapsed - warm_elapsed, min=_f32(_T_MIN, elapsed))
     x = (completed - warm_completed).to(torch.float32) / t_meas
     out = LaneOutputs(x, completed.to(torch.int32), events.to(torch.int32),
-                      t_meas, rings)
+                      t_meas, rings, sketch=sketch)
     if co is not None:
         out = out._replace(**co.results(completed - warm_completed))
     return out
@@ -571,6 +586,7 @@ class _Coalescer(_BranchCounts):
                                device=dev)
         self.leader = torch.full((n_l, max(n_disks, 1) * n_flows), -1,
                                  dtype=torch.int64, device=dev)
+        self.sketch: Optional[SketchState] = None  # observes the flows
 
     def block(self, e) -> int:
         """First counter of event ``e``'s block of the second stream."""
@@ -631,6 +647,8 @@ class _Coalescer(_BranchCounts):
             at_disk = at_disk & at
         f_new = (rank.clamp(min=0) * self.n_flows
                  + flow_index(self.flows_u[:, c], self.n_flows, self.cdf))
+        if self.sketch is not None:
+            stream_key(self.sketch, f_new, at_disk)
         parks = at_disk & (self.leader[lane, f_new] >= 0)
         lead = at_disk & ~parks
         self.leader[lane, f_new] = torch.where(lead, j, self.leader[lane, f_new])
@@ -721,6 +739,9 @@ class _TieredCoalescer(_Coalescer):
         f_own = self.flow[lane, j]
         f_req = torch.where(f_own >= 0, f_own,
                             flow_index(self.flows_u[:, c], n_f, self.cdf))
+        if self.sketch is not None:
+            # a request's flow is observed once, at its first acquire
+            stream_key(self.sketch, f_req, at & (f_own < 0))
         slot = g.clamp(min=0) * n_f + f_req
         parks = at & (self.leader[lane, slot] >= 0)
         leads = at & ~parks
@@ -759,6 +780,7 @@ class OpenLaneOutputs(NamedTuple):
     dropped: torch.Tensor       # (L,) i32 arrivals that found no free slot
     sojourn_us: torch.Tensor    # (L, n_requests + N) f32, by completion
     cls: torch.Tensor           # (L, n_requests + N) i8 CLS_MISS/HIT/DELAYED
+    sketch: Optional[SketchState] = None  # filled when sketch_cap > 0
 
 
 def exp_ns(u: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
@@ -774,8 +796,9 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
                          max_events: torch.Tensor, ia_mean: torch.Tensor,
                          bmiss: torch.Tensor, burst=None, n_flows: int = 0,
                          flow_theta: float = 0.0, n_disks: int = 1,
-                         disk_rank: Optional[torch.Tensor] = None
-                         ) -> OpenLaneOutputs:
+                         disk_rank: Optional[torch.Tensor] = None,
+                         sketch_cap: int = 0,
+                         window_us: float = 0.0) -> OpenLaneOutputs:
     """The open-loop kernel's plain PyTorch version, every lane batched
     (the reference ``_simulate_open`` on the counter streams).
 
@@ -801,6 +824,12 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
     a departure its release and placement draws (``+ {0, 1}``); the
     interarrival and toggle draws are the second stream's
     (:func:`lane_base2`).
+
+    ``sketch_cap > 0`` runs the streaming estimators as
+    :func:`sim_lanes_plain` does, at the sites of the reference's
+    ``_simulate_open``: every event ticks, every offered arrival (dropped
+    ones too) is counted, and a departure's fill, completion and disk
+    arrival feed the sketch.
     """
     dev = seeds.device
     n_l, n = seeds.shape[0], n_slots
@@ -851,9 +880,13 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
                              for v in burst)
         phase_on = torch.ones(n_l, dtype=torch.bool, device=dev)
         phase_to = exp_ns(u01(base2, 2 * n + 3), on_mean).expand(n_l).clone()
+    sketch = sketch_init(sketch_cap, n_b, n_l, device=dev)
     if n_flows:
         co = _Coalescer(seeds, n, n_flows, flow_theta, n_disks, disk_rank,
                         n_b)
+        co.sketch = sketch
+    if sketch is not None:
+        decay = pow_table(n, device=dev)
     slot_idx = torch.arange(n, device=dev)[None, :]
 
     def record(at: torch.Tensor, value, c) -> None:
@@ -903,6 +936,9 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
             phase_to = torch.where(active, phase_to - t, phase_to)
         dt = t.to(torch.float32) * ns_to_us
         elapsed = torch.where(active, elapsed + dt, elapsed)
+        if sketch is not None:
+            w_slot = stream_tick(sketch, elapsed, window_us, active)
+            stream_arrival(sketch, w_slot, arr)
         age = torch.where(active[:, None] & (station >= 0),
                           age + dt[:, None], age)
 
@@ -937,6 +973,8 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
             # parked delayed hits complete at the fill, in slot order
             woken, fill, f_cur = co.fill(dep, j, k_cur)
             if bool(woken.any()):
+                if sketch is not None:
+                    stream_done_many(sketch, w_slot, branch, woken, decay)
                 widx = completed[:, None] + woken.long().cumsum(dim=1) - 1
                 record(torch.where(woken, widx, n_rec), age,
                        torch.full_like(widx, CLS_DELAYED))
@@ -961,9 +999,11 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
         route_next = torch.where(nxt < route_len,
                                  visit(b_j, nxt % route_len), -1)
         done = dep & (route_next < 0)
+        j_miss = miss[lane, b_j.clamp(max=n_b - 1)]
         record(torch.where(done, completed, n_rec), age[lane, j],
-               torch.where(miss[lane, b_j.clamp(max=n_b - 1)], CLS_MISS,
-                           CLS_HIT))
+               torch.where(j_miss, CLS_MISS, CLS_HIT))
+        if sketch is not None:
+            stream_done(sketch, w_slot, b_j, ~j_miss, False, done)
         completed = completed + done.long()
 
         k_next = route_next.clamp(min=0)
@@ -997,7 +1037,7 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
     return OpenLaneOutputs(x, completed.to(torch.int32),
                            events.to(torch.int32), t_meas, frac,
                            dropped.to(torch.int32), soj[:, :n_rec],
-                           cls[:, :n_rec])
+                           cls[:, :n_rec], sketch)
 
 
 def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
@@ -1027,8 +1067,8 @@ def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
 
 
 class _ExtArgs(ctypes.Structure):
-    """``ExtArgs`` of ``csrc/event_sim.cu``: the coalescing and open-loop
-    launches' inputs and outputs (device pointers, then sizes)."""
+    """``ExtArgs`` of ``csrc/event_sim.cuh``: every launch's inputs and
+    outputs (device pointers, then sizes)."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "isq", "svc", "did", "dpar", "bcum", "visits", "servers", "seeds",
@@ -1040,7 +1080,11 @@ class _ExtArgs(ctypes.Structure):
             "lanes", "n_k", "n_b", "n_l", "mpl", "n_requests", "warmup",
             "n_flows", "n_lead", "open", "burst", "rec_len", "tiers",
             "max_held")]
-        + [("on_mean", ctypes.c_float), ("off_mean", ctypes.c_float)])
+        + [("on_mean", ctypes.c_float), ("off_mean", ctypes.c_float)]
+        + [("closed", ctypes.c_int), ("cap", ctypes.c_int)]
+        + [(n, ctypes.c_void_p) for n in (
+            "n_count", "req", "rbranch", "rcls", "nvis", "parked", "enter",
+            "leave")])
 
 # the tiered kernel's limits: held levels per job (registers), and leader
 # groups and levels in its int8 tables
@@ -1088,7 +1132,8 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
               flow_theta: float = 0.0, n_disks: int = 1,
               disk_rank: Optional[torch.Tensor] = None,
               count_branches: bool = False,
-              tiers: Optional[LaneTiers] = None) -> LaneOutputs:
+              tiers: Optional[LaneTiers] = None, sketch_cap: int = 0,
+              window_us: float = 0.0) -> LaneOutputs:
     """Simulate ``(L,)`` lanes: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
@@ -1109,9 +1154,16 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     kernel (``kTiers``, see :func:`sim_lanes_plain`) in place of the
     coalescing one; the result carries the per-branch counts and the
     delayed fraction per held level.
+    ``sketch_cap > 0`` runs the streaming estimators (windows of
+    ``window_us``) in the launch, the sketched instantiation of its mode,
+    and needs ``bmiss`` (the miss routes: a completion on any other branch
+    is a hit); the result carries the lanes' state on ``sketch``, and its
+    other outputs are the unsketched launch's bit for bit.  Traced with
+    the per-branch counts as well, the sketch rides the traced launch.
     Untraced, traced, coalescing, counting and tiered launches are counted
     apart (``sim_lanes.launches``, ``.traced_launches``,
-    ``.flows_launches``, ``.count_launches``, ``.tiers_launches``).
+    ``.flows_launches``, ``.count_launches``, ``.tiers_launches``), and
+    every sketched launch, of any mode, in ``.sketch_launches``.
     """
     if trace_cap < 0:
         raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
@@ -1136,9 +1188,15 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         if n_flows:
             raise NotImplementedError(
                 "tracing with coalescing is not ported yet: ROADMAP queue 1, "
-                "item 8 (it comes with the streaming sketches)")
+                "item 8 (its trace half)")
         if bmiss is None:
             raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
+    if sketch_cap:
+        if bmiss is None:
+            raise ValueError("sketch_cap > 0 needs the (L, B) bmiss table")
+        if window_us <= 0:
+            raise ValueError("sketch_cap > 0 requires window_us > 0")
+    if trace_cap or sketch_cap:
         extra["bmiss"] = bmiss
     if n_flows and tiers is None:
         if disk_rank is None:
@@ -1151,12 +1209,20 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         return sim_lanes_plain(spec, seeds, n_requests=n_requests,
                                warmup=warmup, mpl=mpl, max_events=max_events,
                                trace_cap=trace_cap, bmiss=bmiss,
-                               count_branches=count_branches, **flows)
+                               count_branches=count_branches,
+                               sketch_cap=sketch_cap, window_us=window_us,
+                               **flows)
+    sk = sketch_init(sketch_cap, spec.visits.shape[1], seeds.shape[0],
+                     device=seeds.device)
+    sketched = None if sk is None else (sk, window_us)
     count = {}
     if n_flows or count_branches:
         out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
-                          n_jobs=mpl, max_events=max_events, **flows)
-        if tiers is not None:
+                          n_jobs=mpl, max_events=max_events, bmiss=bmiss,
+                          sketch=None if trace_cap else sketched, **flows)
+        if sketched is not None and not trace_cap:
+            sim_lanes.sketch_launches += 1
+        elif tiers is not None:
             sim_lanes.tiers_launches += 1
         elif n_flows:
             sim_lanes.flows_launches += 1
@@ -1168,42 +1234,18 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         count = dict(delayed_frac=out.delayed_frac,
                      branch_done=out.branch_done,
                      branch_delayed=out.branch_delayed)
-    n_l = seeds.shape[0]
-    n_k = spec.is_queue.shape[1]
-    n_b, n_r = spec.visits.shape[1], spec.visits.shape[2]
-    lib = _build.load_library()
-    nbytes = lib.event_sim_shared_bytes(n_k, n_b, n_r, mpl,
-                                        int(trace_cap > 0))
-    _check_shared(nbytes, f"mpl={mpl}, K={n_k}, B={n_b}, L={n_r}, "
-                  f"traced={trace_cap > 0}")
-    ins = [a.contiguous() for a in spec._replace(
-        is_queue=spec.is_queue.to(torch.int32))] + [
-            seeds.contiguous(), max_events.contiguous()]
-    dev = seeds.device
-    outs = [torch.empty(n_l, dtype=dt, device=dev) for dt in
-            (torch.float32, torch.int32, torch.int32, torch.float32)]
-    rings = None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if trace_cap:
-            rings = init_rings(n_l, trace_cap, n_r, dev)
-            err = lib.event_sim_traced_launch(
-                *(a.data_ptr() for a in ins),
-                bmiss.to(torch.int32).contiguous().data_ptr(),
-                *(a.data_ptr() for a in outs),
-                *(a.data_ptr() for a in rings),
-                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, trace_cap,
-                stream)
-        else:
-            err = lib.event_sim_launch(
-                *(a.data_ptr() for a in ins), *(a.data_ptr() for a in outs),
-                n_l, n_k, n_b, n_r, mpl, n_requests, warmup, stream)
-    _build.check(err, "event-sim kernel launch")
-    if trace_cap:
+    # the closed loop, traced or not, with the sketch or not
+    out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
+                      n_jobs=mpl, max_events=max_events, n_flows=0,
+                      flow_theta=0.0, n_disks=1, disk_rank=None, closed=True,
+                      trace_cap=trace_cap, bmiss=bmiss, sketch=sketched)
+    if sketched is not None:
+        sim_lanes.sketch_launches += 1
+    elif trace_cap:
         sim_lanes.traced_launches += 1
     else:
         sim_lanes.launches += 1
-    return LaneOutputs(*outs, rings, **count)
+    return out._replace(**count)
 
 
 sim_lanes.launches = 0  # untraced kernel launches (CUDA path only)
@@ -1211,6 +1253,8 @@ sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
 sim_lanes.flows_launches = 0  # coalescing kernel launches (CUDA path only)
 sim_lanes.count_launches = 0  # counting kernel launches (CUDA path only)
 sim_lanes.tiers_launches = 0  # tiered kernel launches (CUDA path only)
+# sketched launches of any mode, sim_open_lanes' too (CUDA path only)
+sim_lanes.sketch_launches = 0
 
 
 def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
@@ -1218,14 +1262,19 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                    ia_mean: torch.Tensor, bmiss: torch.Tensor, burst=None,
                    n_flows: int = 0, flow_theta: float = 0.0,
                    n_disks: int = 1,
-                   disk_rank: Optional[torch.Tensor] = None
+                   disk_rank: Optional[torch.Tensor] = None,
+                   sketch_cap: int = 0, window_us: float = 0.0
                    ) -> OpenLaneOutputs:
     """Simulate ``(L,)`` open-loop lanes (see :func:`sim_open_lanes_plain`
     for the arguments): the CUDA kernel's open-loop instantiation for
     CUDA tensors, the plain version for CPU tensors.  ``ia_mean`` is the
     (L,) float32 mean interarrival in ns, ``bmiss`` the (L, B) per-branch
     miss class, ``burst`` None or the float32 ON and OFF phase means in
-    ns.  Launches are counted in ``sim_open_lanes.launches``.
+    ns.  ``sketch_cap > 0`` runs the streaming estimators (the sketched
+    open-loop instantiation; see :func:`sim_lanes`) and returns their
+    state on ``sketch``.  Launches are counted in
+    ``sim_open_lanes.launches``, sketched ones in
+    ``sim_lanes.sketch_launches``.
     """
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -1236,6 +1285,8 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
         if disk_rank is None:
             raise ValueError("n_flows > 0 needs the (L, K) disk_rank table")
         extra["disk_rank"] = disk_rank
+    if sketch_cap and window_us <= 0:
+        raise ValueError("sketch_cap > 0 requires window_us > 0")
     _check_inputs(spec, seeds, extra)
     kw = dict(n_requests=n_requests, warmup=warmup, max_events=max_events,
               n_flows=n_flows, flow_theta=flow_theta, n_disks=n_disks,
@@ -1243,10 +1294,17 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     if seeds.device.type == "cpu":
         return sim_open_lanes_plain(spec, seeds, n_slots=n_slots,
                                     ia_mean=ia_mean, bmiss=bmiss, burst=burst,
-                                    **kw)
-    out = _launch_ext(spec, seeds, n_jobs=n_slots, open_loop=(ia_mean, bmiss,
-                                                              burst), **kw)
-    sim_open_lanes.launches += 1
+                                    sketch_cap=sketch_cap,
+                                    window_us=window_us, **kw)
+    sk = sketch_init(sketch_cap, spec.visits.shape[1], seeds.shape[0],
+                     device=seeds.device)
+    out = _launch_ext(spec, seeds, n_jobs=n_slots, open_loop=(ia_mean, burst),
+                      bmiss=bmiss,
+                      sketch=None if sk is None else (sk, window_us), **kw)
+    if sk is None:
+        sim_open_lanes.launches += 1
+    else:
+        sim_lanes.sketch_launches += 1
     return out
 
 
@@ -1264,10 +1322,16 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 warmup: int, n_jobs: int, max_events: torch.Tensor,
                 n_flows: int, flow_theta: float, n_disks: int,
                 disk_rank: Optional[torch.Tensor], open_loop=None,
-                tiers: Optional[LaneTiers] = None):
-    """One launch of the coalescing (``open_loop`` None, ``n_flows > 0``),
-    counting (``open_loop`` None, ``n_flows = 0``), tiered (``tiers``) or
-    open-loop (``open_loop = (ia_mean, bmiss, burst)``) instantiation."""
+                tiers: Optional[LaneTiers] = None, closed: bool = False,
+                trace_cap: int = 0, bmiss: Optional[torch.Tensor] = None,
+                sketch=None):
+    """One launch of the closed-loop (``closed``; traced when ``trace_cap >
+    0``: the rings come back on the result), coalescing (``open_loop``
+    None, ``n_flows > 0``), counting (``open_loop`` None, ``n_flows = 0``),
+    tiered (``tiers``) or open-loop (``open_loop = (ia_mean, burst)``)
+    instantiation; with ``sketch = (state, window_us)`` its sketched
+    instantiation.  ``bmiss``, the (L, B) miss routes, feeds the rings,
+    the open loop and the sketch."""
     dev = seeds.device
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
@@ -1306,13 +1370,15 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 events=empty(torch.int32), tmeas=empty(torch.float32),
                 delayed_frac=empty(torch.float32))
     n_rec = n_requests + n_jobs
-    if open_loop is None:
+    if closed:
+        a.closed = 1
+    elif open_loop is None:
         outs.update(branch_done=empty(torch.int32, n_b),
                     branch_delayed=empty(torch.int32, n_b))
         if tiers is not None:
             outs["delayed_tier"] = empty(torch.float32, tiers.max_held)
     else:
-        ia_mean, bmiss, burst = open_loop
+        ia_mean, burst = open_loop
         a.ia_mean, a.bmiss = ptr(ia_mean), ptr(bmiss.to(torch.int32))
         outs.update(dropped=empty(torch.int32),
                     soj=torch.zeros((n_l, n_rec), dtype=torch.float32,
@@ -1329,22 +1395,45 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     a.lanes, a.n_k, a.n_b, a.n_l, a.mpl = n_l, n_k, n_b, n_r, n_jobs
     a.n_requests, a.warmup = n_requests, warmup
     a.n_flows, a.n_lead = n_flows, n_lead
+    rings = None
+    if closed and trace_cap:
+        rings = init_rings(n_l, trace_cap, n_r, dev)
+        keep.append(rings)
+        a.cap, a.bmiss = trace_cap, ptr(bmiss.to(torch.int32))
+        for name, t in zip(("n_count", "req", "rbranch", "rcls", "nvis",
+                            "parked", "enter", "leave"), rings):
+            setattr(a, name, t.data_ptr())
+    s_args = None
+    if sketch is not None:
+        state, window_us = sketch
+        decay = pow_table(n_jobs, device=dev)
+        keep.append(decay)
+        s_args = sketch_args(state, window_us, decay)
+        s_args.bmiss = ptr(bmiss.to(torch.int32))
     lib = _build.load_library()
-    _check_shared(lib.event_sim_ext_shared_bytes(ctypes.byref(a)),
-                  f"n={n_jobs}, K={n_k}, B={n_b}, L={n_r}, "
-                  f"flows={a.n_lead}, open={a.open}, tiers={a.tiers}")
+    nbytes = lib.event_sim_ext_shared_bytes(ctypes.byref(a),
+                                            int(sketch is not None))
+    _check_shared(nbytes, f"n={n_jobs}, K={n_k}, B={n_b}, L={n_r}, "
+                  f"flows={a.n_lead}, open={a.open}, tiers={a.tiers}, "
+                  f"traced={trace_cap > 0}, sketch={sketch is not None}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.event_sim_ext_launch(ctypes.byref(a), stream)
+        err = lib.event_sim_ext_launch(
+            ctypes.byref(a), None if s_args is None else ctypes.byref(s_args),
+            stream)
     _build.check(err, "event-sim kernel launch")
+    sk = None if sketch is None else sketch[0]
+    if closed:
+        return LaneOutputs(outs["x"], outs["completed"], outs["events"],
+                           outs["tmeas"], rings, sketch=sk)
     if open_loop is None:
         return LaneOutputs(outs["x"], outs["completed"], outs["events"],
                            outs["tmeas"], None, outs["delayed_frac"],
                            outs["branch_done"], outs["branch_delayed"],
-                           outs.get("delayed_tier"))
+                           outs.get("delayed_tier"), sketch=sk)
     return OpenLaneOutputs(outs["x"], outs["completed"], outs["events"],
                            outs["tmeas"], outs["delayed_frac"],
-                           outs["dropped"], outs["soj"], outs["cls"])
+                           outs["dropped"], outs["soj"], outs["cls"], sk)
 
 
 def branch_miss(spec: SimSpec) -> np.ndarray:
@@ -1360,7 +1449,7 @@ def branch_miss(spec: SimSpec) -> np.ndarray:
 def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
                warmup_frac: float, device: torch.device, trace: int = 0,
                coalesce_flows: int = 0, coalesce_theta: float = 0.0,
-               budget_visits: int = 2, tiers=None):
+               budget_visits: int = 2, tiers=None, sketch: bool = False):
     """The (seed x p_hit) lane grid of a network, lane = s * P + p.
 
     Returns ``(spec, seeds, kwargs)`` ready for :func:`sim_lanes`: the
@@ -1373,7 +1462,8 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
     ``n_disks`` taken from the first network's disk ranks, as the
     reference does, and with ``tiers`` (the network's
     :class:`~repro_torch.core.simspec.MshrSpec`) also its
-    :class:`LaneTiers`.
+    :class:`LaneTiers`.  ``sketch`` adds the ``bmiss`` table the sketch
+    reads (a tiered network's acquiring branches are miss routes too).
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
     n_p = len(specs)
@@ -1386,6 +1476,9 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
     if trace:
         kwargs.update(trace_cap=int(trace), bmiss=_bmiss(specs[0],
                                                          len(seed_v), device))
+    if sketch:
+        kwargs["bmiss"] = _bmiss(specs[0], len(seed_v), device,
+                                 tiers if coalesce_flows else None)
     if coalesce_flows:
         disk_rank = torch.stack([s.disk_rank for s in specs] * len(seeds))
         kwargs.update(n_flows=int(coalesce_flows),
@@ -1403,8 +1496,14 @@ def _n_disks(spec: SimSpec) -> int:
     return max(1, int(spec.disk_rank.max()) + 1)
 
 
-def _bmiss(spec: SimSpec, n_lanes: int, device) -> torch.Tensor:
-    bmiss = np.broadcast_to(branch_miss(spec), (n_lanes, spec.visits.shape[0]))
+def _bmiss(spec: SimSpec, n_lanes: int, device, tiers=None) -> torch.Tensor:
+    """The (L, B) miss routes: :func:`branch_miss`, and with ``tiers`` every
+    branch that acquires an MSHR entry (the reference's
+    ``branch_is_miss``)."""
+    miss = branch_miss(spec)
+    if tiers is not None:
+        miss = miss | (np.asarray(tiers.acq_group) >= 0).any(axis=1)
+    bmiss = np.broadcast_to(miss, (n_lanes, spec.visits.shape[0]))
     return torch.from_numpy(bmiss.astype(np.int32)).to(device)
 
 
@@ -1460,6 +1559,7 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
                   warmup_frac: float = 0.25, trace: int = 0,
                   coalesce_flows: int = 0, coalesce_theta: float = 0.0,
                   count_branches: bool = False, tiers=None,
+                  sketch_cap: int = 0, window_us: float = 0.0,
                   device: str = "cuda") -> SimResult:
     """Closed-loop (p_hit x seed) grid on the counter-RNG event engine.
 
@@ -1482,7 +1582,11 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
     cluster prong asks for them).  ``tiers`` (an
     :class:`~repro_torch.core.simspec.MshrSpec`, with ``F > 0``) runs the
     tiered tables in place of the disk groups and also fills
-    ``delayed_tier_frac``.
+    ``delayed_tier_frac``.  ``sketch_cap > 0`` runs the streaming
+    estimators in the launch (windows of ``window_us``) and decodes them
+    onto ``sketches`` (``[seed][p]``
+    :class:`~repro_torch.obs.streaming.SketchEstimates`); every other field
+    is the unsketched run's bit for bit.
     """
     dev = resolve_device(device)
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
@@ -1492,25 +1596,33 @@ def simulate_grid(net, p_hits, n_requests: int = 40_000,
                                       warmup_frac, dev, trace=trace,
                                       coalesce_flows=int(coalesce_flows),
                                       coalesce_theta=float(coalesce_theta),
-                                      tiers=tiers)
-    out = sim_lanes(spec, seed_v, count_branches=count_branches, **kwargs)
+                                      tiers=tiers, sketch=sketch_cap > 0)
+    out = sim_lanes(spec, seed_v, count_branches=count_branches,
+                    sketch_cap=int(sketch_cap), window_us=float(window_us),
+                    **kwargs)
     return _grid_result(out, p_hits, n_s, len(net.branches), n_requests,
-                       visits=spec.visits[0] if trace else None)
+                       visits=spec.visits[0] if trace else None,
+                       window_us=float(window_us))
 
 
 def _grid_result(out: LaneOutputs, p_hits: np.ndarray, n_s: int, n_b: int,
-                n_requests: int, visits=None) -> SimResult:
+                n_requests: int, visits=None,
+                window_us: float = 0.0) -> SimResult:
     """The reference's summary of a closed-loop grid's lanes ``out`` (lane
     ``s * P + p`` of ``n_s`` seeds): the mean throughput and CI95 across
     seeds; with per-branch counts on ``out``, the delayed fraction and the
     per-branch rates of the network's ``n_b`` branches, each lane's
     counts over its measured window, averaged over seeds (and with
     per-level counts the delayed fractions per level); with ``visits``,
-    the lanes' rings decoded onto ``traces``."""
+    the lanes' rings decoded onto ``traces``; with a sketch on ``out``,
+    its lanes decoded onto ``sketches`` (windows of ``window_us``)."""
     n_p = len(p_hits)
     traces = None
     if visits is not None:
         traces = decode_trace_grid(out.rings, visits, n_s, n_p)
+    sketches = None
+    if out.sketch is not None:
+        sketches = decode_sketch_grid(out.sketch, n_s, n_p, window_us)
     xs = out.x.cpu().numpy().reshape(n_s, n_p)
     mean = xs.mean(axis=0)
     ci = (1.96 * xs.std(axis=0, ddof=1) / math.sqrt(n_s) if n_s > 1
@@ -1529,13 +1641,15 @@ def _grid_result(out: LaneOutputs, p_hits: np.ndarray, n_s: int, n_b: int,
         extra["delayed_tier_frac"] = out.delayed_tier.cpu().numpy().reshape(
             n_s, n_p, -1).mean(axis=0)
     return SimResult(p_hit=p_hits, throughput=mean, ci95=ci,
-                     n_requests=n_requests, traces=traces, **extra)
+                     n_requests=n_requests, traces=traces, sketches=sketches,
+                     **extra)
 
 
 def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
                seeds: Sequence[int], warmup_frac: float, max_in_system: int,
                burst=None, coalesce_flows: int = 0,
-               coalesce_theta: float = 0.0, device: str = "cuda"):
+               coalesce_theta: float = 0.0, sketch_cap: int = 0,
+               window_us: float = 0.0, device: str = "cuda"):
     """The open-loop (seed x p_hit) lane grid (lane = s * P + p, lane seeds
     as :func:`grid_lanes`) at the (P,) arrival ``rates`` (requests/µs).
 
@@ -1544,7 +1658,8 @@ def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
     under ``burst = (duty, mean_on_us)``, whose ON and OFF phases have
     means ``mean_on_us * 1e3`` and ``mean_on_us * 1e3 * (1 - duty) /
     duty`` ns (float32, as the reference's); the event budget
-    ``n_requests * (Lr + 3) * 3``, as the reference's.
+    ``n_requests * (Lr + 3) * 3``, as the reference's; ``sketch_cap`` and
+    ``window_us`` as :func:`sim_open_lanes` takes them.
     """
     dev = resolve_device(device)
     spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
@@ -1564,18 +1679,21 @@ def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
     kwargs.pop("mpl")
     kwargs.update(n_slots=int(max_in_system),
                   ia_mean=torch.from_numpy(mean_ns).to(dev),
-                  bmiss=_bmiss(first, len(seed_v), dev), burst=phases)
+                  bmiss=_bmiss(first, len(seed_v), dev), burst=phases,
+                  sketch_cap=int(sketch_cap), window_us=float(window_us))
     return spec, seed_v, kwargs
 
 
 def open_grid(net, p_hits, rates: np.ndarray, n_requests: int,
               seeds: Sequence[int], warmup_frac: float, max_in_system: int,
               burst=None, coalesce_flows: int = 0,
-              coalesce_theta: float = 0.0,
+              coalesce_theta: float = 0.0, sketch_cap: int = 0,
+              window_us: float = 0.0,
               device: str = "cuda") -> OpenLaneOutputs:
     """The open-loop grid of :func:`open_lanes` in ONE launch (the plain
     version on the CPU); returns the lanes' raw outputs."""
     spec, seed_v, kwargs = open_lanes(net, p_hits, rates, n_requests, seeds,
                                       warmup_frac, max_in_system, burst,
-                                      coalesce_flows, coalesce_theta, device)
+                                      coalesce_flows, coalesce_theta,
+                                      sketch_cap, window_us, device)
     return sim_open_lanes(spec, seed_v, **kwargs)

@@ -28,12 +28,16 @@ prompt up to its last *full* page, but holds the state after
 the tail restores another prompt's tail (ROADMAP queue 3).  The port
 reproduces it.
 
+``ServeConfig.sketch_cap > 0`` feeds the admission stream, one event per
+looked-up chunk, to an exact-counting
+:class:`~repro_torch.obs.streaming.PyStreamSketch`, as the reference does:
+:meth:`Engine.telemetry` then carries its summary and alarms, and
+:meth:`Engine.observed_profile` recovers a measured profile from it.
+
 Not ported yet, and raising ``NotImplementedError``: mamba2 and its
-hybrids (ROADMAP queue 1 item 13), the admission-stream sketch
-``sketch_cap > 0`` (queue 1 item 8) with ``observed_profile`` (item 11).
-The cluster forecast ``n_shards > 1`` and the hierarchy forecast
-``tiers > 0`` compose their networks as the reference does
-(:mod:`repro_torch.cluster`, :mod:`repro_torch.hierarchy`).
+hybrids (ROADMAP queue 1 item 13).  The cluster forecast ``n_shards > 1``
+and the hierarchy forecast ``tiers > 0`` compose their networks as the
+reference does (:mod:`repro_torch.cluster`, :mod:`repro_torch.hierarchy`).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import Metrics
+from repro_torch.obs.streaming import PyStreamSketch
 from repro_torch.serving import kv_pages
 from repro_torch.serving.kv_pages import KVPool, PageAllocator
 from repro_torch.serving.prefix_cache import PrefixCache, chunk_hashes
@@ -75,7 +80,13 @@ class ServeConfig:
     cores: int = 72
     disk_servers: int = 0
     n_shards: int = 1
-    # The admission-stream sketch (sketch_cap > 0) is not ported yet.
+    # Streaming-observability knobs (repro_torch.obs.streaming):
+    # sketch_cap > 0 threads the exact-counting PyStreamSketch through
+    # admission — every looked-up chunk hash feeds the popularity estimator
+    # and its hit / miss outcome feeds the windowed + EWMA hit estimators,
+    # with ``sketch_window_ticks`` engine ticks per tumbling window (the
+    # engine's clock is ticks, so decoded rates are per tick).  0 keeps
+    # admission sketch-free.
     sketch_cap: int = 0
     sketch_window_ticks: int = 64
 
@@ -98,10 +109,6 @@ class Engine:
         self.device = resolve_device(device)
         if cfg.encdec:
             raise ValueError("enc-dec archs are served via examples/, not Engine")
-        if serve.sketch_cap:
-            raise NotImplementedError(
-                "ServeConfig.sketch_cap > 0: the admission-stream sketch is "
-                "not ported yet (ROADMAP queue 1 item 8)")
         transformer.check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -123,6 +130,12 @@ class Engine:
         self.ticks = 0
         self.decode_steps = 0
         self.metrics = Metrics()
+        self._sketch = None
+        if serve.sketch_cap:
+            # branch 0 = chunk hit, branch 1 = chunk miss
+            self._sketch = PyStreamSketch(
+                serve.sketch_cap, n_branches=2,
+                window_us=float(serve.sketch_window_ticks))
 
     def _forward(self, tokens, caches, cache_len):
         logits, caches, _ = transformer.forward(
@@ -207,6 +220,18 @@ class Engine:
                     page = self.prefix.insert(hashes[i], self._rng.random())
                     if page is not None:
                         self._store_chunk(cache1, i * ps, page)
+
+        if self._sketch is not None and hashes:
+            # one stream event per looked-up chunk: the hash is the
+            # popularity key, skipped tokens mark it a hit (bypassed
+            # requests never reach the controller, so never the stream)
+            t = float(self.ticks)
+            n_hit_chunks = r.prefill_tokens_skipped // ps
+            for i, h in enumerate(hashes):
+                self._sketch.arrival(t)
+                self._sketch.key(h)
+                self._sketch.done(t, 0 if i < n_hit_chunks else 1,
+                                  is_hit=i < n_hit_chunks)
 
         self._install(cache1, slot)
         self.lengths[slot] = len(r.tokens)
@@ -365,16 +390,76 @@ class Engine:
         }
 
     def telemetry(self) -> dict:
-        """Observability snapshot: the per-tick metric registry (counters /
-        gauges / distribution sketches, unit-suffixed names — see
-        :mod:`repro_torch.obs.metrics`) alongside :meth:`stats`."""
-        return {"metrics": self.metrics.snapshot(), "stats": self.stats()}
+        """Full observability snapshot: the per-tick metric registry
+        (counters / gauges / distribution sketches, unit-suffixed names —
+        see :mod:`repro_torch.obs.metrics`) alongside :meth:`stats`.  With
+        ``ServeConfig.sketch_cap > 0`` the snapshot additionally carries
+        a ``"streaming"`` summary of the admission-stream estimators and
+        a ``"alarms"`` list (phase-change drift on the windowed chunk
+        hit fraction, sketch-saturation pressure)."""
+        out = {"metrics": self.metrics.snapshot(), "stats": self.stats()}
+        if self._sketch is not None:
+            est = self._sketch.estimates()
+            keys, counts, _ = est.topk(8)
+            out["streaming"] = {
+                "window_ticks": self._sketch.window_us,
+                "window_id": est.window_id.tolist(),
+                "win_hit_frac": est.win_hit_frac.tolist(),
+                "win_done_rate_per_tick": est.win_done_rate.tolist(),
+                "win_arrival_rate_per_tick": est.win_arrival_rate.tolist(),
+                "ewma_hit_frac": est.ewma_hit_frac,
+                "ewma_delayed_frac": est.ewma_delayed_frac,
+                "key_count": est.key_count,
+                "saturation_frac": est.saturation_frac(),
+                "topk_key": keys.tolist(),
+                "topk_count": counts.tolist(),
+            }
+            out["alarms"] = self._stream_alarms(est)
+        return out
+
+    def _stream_alarms(self, est) -> list:
+        """Drift alarms over the decoded admission-stream estimates:
+        a Page-Hinkley scan over the windowed chunk hit fraction flags
+        phase changes; SpaceSaving pressure past 5% flags saturation."""
+        from repro_torch.obs.drift import page_hinkley_scan
+
+        alarms = []
+        ok = np.isfinite(est.win_hit_frac)
+        hit, wid = est.win_hit_frac[ok], est.window_id[ok]
+        for i in page_hinkley_scan(hit, warmup=4):
+            alarms.append({
+                "kind": "phase-change", "window_id": int(wid[i]),
+                "measured": float(hit[i]),
+                "detail": "windowed chunk hit fraction drifted",
+            })
+        sat = est.saturation_frac()
+        if sat > 0.05:
+            alarms.append({
+                "kind": "sketch-saturation",
+                "window_id": int(est.window_id[-1])
+                if len(est.window_id) else -1,
+                "measured": sat,
+                "detail": "SpaceSaving table thrashing; raise sketch_cap",
+            })
+        return alarms
 
     def observed_profile(self, caps=None):
-        raise NotImplementedError(
-            "observed_profile is not ported yet: it needs the admission-"
-            "stream sketch (ROADMAP queue 1 item 8) and obs/profile.py "
-            "(ROADMAP queue 1 item 11)")
+        """Online measured profile of this engine's chunk stream,
+        recovered with no Mattson sweep.  Returns a
+        :class:`repro_torch.obs.profile.ObservedProfile`: estimated chunk-
+        popularity masses (over the observed chunk hashes) fed through
+        the Che approximation into a cap → hit-ratio curve, alongside
+        the measured EWMA hit / delayed fractions.  ``caps`` overrides
+        the capacity grid (pages); pass ``ServeConfig.prefix_capacity``
+        neighbourhoods to ask "would a bigger prefix cache pay off".
+        Requires ``ServeConfig.sketch_cap > 0``."""
+        if self._sketch is None:
+            raise ValueError(
+                "observed_profile needs ServeConfig.sketch_cap > 0")
+        from repro_torch.obs.profile import observed_profile
+
+        return observed_profile(self._sketch.estimates(), key_space=None,
+                                caps=caps)
 
     def forecast_slo(self, step_us: float, prefill_us: float,
                      arrival_rate: float, slo_us: float,
@@ -392,15 +477,17 @@ class Engine:
         the offered rate, and SLO-capacity-optimal p* (argmax of the
         largest arrival rate whose tail still meets ``slo_us``).
 
-        ``profile`` restricts the sweep to a measured achievable hit-ratio
-        range and annotates each grid point with the prefix-cache capacity
-        achieving it.  The reference defaults it to the engine's
-        :meth:`observed_profile` when the admission sketch is on; the port
-        has no sketch yet (``ServeConfig.sketch_cap > 0`` raises), so it
-        stays None unless given.
+        ``profile`` (default: this engine's :meth:`observed_profile` when
+        ``ServeConfig.sketch_cap > 0`` and the sketch holds keys)
+        restricts the sweep to the measured achievable hit-ratio range and
+        annotates each grid point with the prefix-cache capacity achieving
+        it.
         """
         from repro_torch.latency import slo_forecast
 
+        if profile is None and self._sketch is not None \
+                and self._sketch.key_count > 0:
+            profile = self.observed_profile()
         net = self.forecast_network(step_us, prefill_us, **net_kwargs)
         return slo_forecast(net, arrival_rate, slo_us,
                             percentile=percentile, p_grid=p_grid,

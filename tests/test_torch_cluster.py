@@ -384,17 +384,32 @@ def test_counts_sum_to_the_measured_completions():
 
 
 def test_unported_options_raise():
-    tm = _models("lru", 2)[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.simulate_cluster(tm, [0.5], n_requests=50, sketch_cap=8,
-                           window_us=5.0, device="cpu")
+    """Tracing with coalescing still raises (ROADMAP item 8's trace half);
+    the sketches run: on the simulator with every output as without them,
+    on the oracle equal to the reference oracle's."""
+    tm, jm, probs, assign = _models("lru", 2)
     with pytest.raises(NotImplementedError, match="item 8"):
         T.simulate_cluster(tm, [0.5], n_requests=50, coalesce_flows=4,
                            trace=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.simulate_cluster_py(tm, np.full(KEY_SPACE, 1.0 / KEY_SPACE),
-                              np.zeros(KEY_SPACE, np.int64), 0.5,
-                              n_requests=50, sketch_cap=4)
+    with pytest.raises(ValueError, match="window_us"):
+        T.simulate_cluster(tm, [0.5], n_requests=50, sketch_cap=8,
+                           device="cpu")
+    kw = dict(n_requests=200, seeds=(0,), device="cpu")
+    on = T.simulate_cluster(tm, [0.5], sketch_cap=8, window_us=50.0, **kw)
+    bare = T.simulate_cluster(tm, [0.5], **kw)
+    np.testing.assert_array_equal(on.shard_throughput, bare.shard_throughput)
+    assert bare.sketches is None and on.sketches[0][0].win_done_count.sum() \
+        == 200
+    args = dict(n_requests=300, sketch_cap=4, window_us=5.0)
+    port = T.simulate_cluster_py(tm, np.full(KEY_SPACE, 1.0 / KEY_SPACE),
+                                 np.zeros(KEY_SPACE, np.int64), 0.5,
+                                 **args)["sketch"]
+    ref = J.simulate_cluster_py(jm, np.full(KEY_SPACE, 1.0 / KEY_SPACE),
+                                np.zeros(KEY_SPACE, np.int64), 0.5,
+                                **args)["sketch"]
+    assert port.key_count == ref.key_count >= 300
+    assert np.array_equal(port.topk_key, ref.topk_key)
+    assert np.array_equal(port.win_branch_rate, ref.win_branch_rate)
 
 
 def test_traced_cluster_keeps_its_counts():

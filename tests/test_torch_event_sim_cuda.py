@@ -39,6 +39,17 @@ and one job whose fill and re-acquire hit the same entry in one event.
 Integers (completions, events, per-branch counts) are identical, and on
 deterministic service every output, the per-level delayed fractions
 included.
+
+The sketched instantiations (``sketch_cap > 0``: the streaming
+estimators in the launch) are held on ``SKETCH_CASES``, which
+``chip_smoke.py``'s ``sketch_vs_plain`` runs: the closed loop (untraced
+and traced, a route longer than a warp among them), the counting,
+coalescing, open-loop (with a burst) and tiered modes, each at register
+slots and in shared memory, on deterministic service.  Every field of the
+sketch state is identical to the plain version's, the float32 EWMAs
+included, and every simulation output is identical to the unsketched
+kernel's.  The ``sketch_trace`` kernel is held against its plain version
+and against the exact twin ``sketch_trace_py`` (``SKETCH_TRACE_CASES``).
 """
 
 import dataclasses
@@ -52,6 +63,8 @@ from repro_torch.core import policy_models as tpm
 from repro_torch.core.queueing import QUEUE, THINK, Branch, ClosedNetwork, Station
 from repro_torch.core.simspec import compile_network
 from repro_torch.kernels import event_sim as tes
+from repro_torch.kernels import sketch as tsk
+from repro_torch.obs import streaming as tst
 
 RTOL = 1e-6
 
@@ -505,3 +518,179 @@ def test_tiered_kernel_refuses_too_many_levels(cuda_device):
     kw["tiers"] = kw["tiers"]._replace(max_held=tes.MAX_HELD + 1)
     with pytest.raises(ValueError, match="MAX_HELD"):
         tes.sim_lanes(spec, seeds, **kw)
+
+
+# (id, mode, lanes): the sketched instantiations, each mode at register
+# slots and in shared memory (mpl or slots 300), on deterministic service;
+# "trace" 64 runs the traced closed kernel (the long route: its
+# instantiation for routes over 32 visits)
+SKETCH_CASES = [
+    ("closed-mpl24", "closed", dict(net=lambda: _lru(24, True), cap=16,
+                                    window=20.0)),
+    ("closed-mpl144", "closed", dict(net=lambda: _lru(144, True), cap=8,
+                                     window=50.0)),
+    ("closed-mpl300", "closed", dict(net=lambda: _lru(300, True), cap=8,
+                                     window=50.0)),
+    ("traced-mpl48", "closed", dict(net=lambda: _lru(48, True), trace=64,
+                                    cap=16, window=20.0)),
+    ("traced-long-mpl24", "closed", dict(
+        net=lambda: det_network(long_route_network(24)), trace=64, cap=16,
+        window=20.0)),
+    ("count-mpl48", "count", dict(net=lambda: _lru(48, True), cap=16,
+                                  window=20.0)),
+    ("count-4shard-mpl48", "count", dict(
+        net=lambda: det_network(cluster_model(4, 48).network), cap=16,
+        window=50.0)),
+    ("flows-mpl72-F64-zipf", "flows", dict(net=lambda: _lru(72, True),
+                                           flows=64, theta=0.99, cap=16,
+                                           window=20.0)),
+    ("flows-2disk-mpl144-F16", "flows", dict(net=lambda: _two(144, True),
+                                             flows=16, cap=32, window=20.0)),
+    ("flows-mpl300-F16", "flows", dict(net=lambda: _lru(300, True), flows=16,
+                                       cap=8, window=50.0)),
+    ("open-N128-F16-burst", "open", dict(net=lambda: _lru(1, True, 8),
+                                         slots=128, flows=16,
+                                         burst=(0.6, 200.0), cap=16,
+                                         window=20.0)),
+    ("open-N300-F16", "open", dict(net=lambda: _lru(1, True, 8), slots=300,
+                                   flows=16, cap=16, window=20.0)),
+    ("open-N64-burst", "open", dict(net=lambda: _two(1, True), slots=64,
+                                    burst=(0.6, 200.0), cap=8, window=20.0)),
+    ("tiers-small-mpl16-F2", "tiers", dict(kind="small", mpl=16, flows=2,
+                                           ps=(0.2, 0.8393), cap=8,
+                                           window=20.0)),
+    ("tiers-fig-mpl96-F4", "tiers", dict(kind="fig", mpl=96, flows=4,
+                                         ps=(0.55,), cap=16, window=50.0)),
+    ("tiers-small-mpl300-F4", "tiers", dict(kind="small", mpl=300, flows=4,
+                                            ps=(0.5,), cap=8, window=50.0)),
+]
+
+
+def sketch_lanes(case, device, n_requests=300):
+    """``(kernel wrapper, plain version, spec, seeds, kwargs)`` of a
+    ``SKETCH_CASES`` case: its networks at two p_hits x two seeds (the
+    tiered cases at their own p_hits), at least ``n_requests`` requests and
+    enough for two measured completions per job."""
+    _, mode, c = case
+    if mode == "open":
+        spec, seeds, kw = tes.open_lanes(c["net"](), np.array([0.5, 0.8]),
+                                         OPEN_RATES, n_requests, (0, 1), 0.25,
+                                         c["slots"], burst=c.get("burst"),
+                                         coalesce_flows=c.get("flows", 0),
+                                         device=device)
+        return tes.sim_open_lanes, tes.sim_open_lanes_plain, spec, seeds, kw
+    tiers, ps = None, np.array([0.3, 0.7])
+    if mode == "tiers":
+        model = hierarchy_model(c["kind"], c["mpl"])
+        net, tiers, ps = det_network(model.network), model.mshr, np.array(c["ps"])
+    else:
+        net = c["net"]()
+    n_requests = max(n_requests, math.ceil(2 * net.mpl / 0.75))
+    spec, seeds, kw = tes.grid_lanes(net, ps, n_requests, (0, 1), 0.25, device,
+                                     trace=c.get("trace", 0),
+                                     coalesce_flows=c.get("flows", 0),
+                                     coalesce_theta=c.get("theta", 0.0),
+                                     tiers=tiers, sketch=True)
+    if mode == "count":
+        kw["count_branches"] = True
+    return tes.sim_lanes, tes.sim_lanes_plain, spec, seeds, kw
+
+
+def sketch_pair(case, device, n_requests=300):
+    """The sketched kernel, the sketched plain version and the unsketched
+    kernel on a ``SKETCH_CASES`` case."""
+    kern_fn, plain_fn, spec, seeds, kw = sketch_lanes(case, device, n_requests)
+    sk = dict(kw, sketch_cap=case[2]["cap"], window_us=case[2]["window"])
+    return (kern_fn(spec, seeds, **sk), plain_fn(spec, seeds, **sk),
+            kern_fn(spec, seeds, **kw))
+
+
+def hold_sketched(kern, plain, bare) -> int:
+    """Every field of the kernel's sketch state identical to the plain
+    version's, and every other output identical to the unsketched
+    kernel's.  Returns the completions the sketch counted."""
+    for f in tst.SketchState._fields:
+        assert torch.equal(getattr(kern.sketch, f).cpu(),
+                           getattr(plain.sketch, f).cpu()), f
+    assert bare.sketch is None
+    for f, a in kern._asdict().items():
+        b = getattr(bare, f)
+        if f == "sketch" or (a is None and b is None):
+            continue
+        if f == "rings":
+            for fa, fb in zip(a, b):
+                assert torch.equal(fa, fb), f
+        else:
+            assert torch.equal(a, b), f
+    done = int(kern.sketch.win_done_count.sum())
+    assert done > 0
+    return done
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SKETCH_CASES, ids=[c[0] for c in SKETCH_CASES])
+def test_sketched_kernel_matches_plain(cuda_device, case):
+    before = tes.sim_lanes.sketch_launches
+    kern, plain, bare = sketch_pair(case, cuda_device)
+    assert tes.sim_lanes.sketch_launches == before + 1
+    hold_sketched(kern, plain, bare)
+    if case[1] in ("flows", "tiers") or case[2].get("flows"):
+        assert int(kern.sketch.key_count.min()) > 0
+
+
+# (id, stream length, key space, theta, sketch_cap, window_us, hits): the
+# sketch_trace kernel's lanes
+SKETCH_TRACE_CASES = [
+    ("zipf-cap64", 3000, 256, 0.9, 64, 500.0, True),
+    ("zipf-cap512-nohits", 2000, 512, 0.55, 512, 100.0, False),
+    ("uniform-cap5", 1500, 64, 0.0, 5, 7.0, True),
+]
+
+
+def sketch_trace_inputs(case, device, n_lanes=2):
+    """(L, n) keys, times and hits of a ``SKETCH_TRACE_CASES`` case: a
+    Zipf (or uniform) key stream per lane from numpy seeds, one event per
+    µs, random hits."""
+    _, n, key_space, theta, _, _, hits = case
+    rng = np.random.default_rng(7)
+    w = (np.arange(1, key_space + 1, dtype=np.float64) ** -theta)
+    keys = rng.choice(key_space, size=(n_lanes, n), p=w / w.sum())
+    t = np.tile(np.arange(n, dtype=np.float32), (n_lanes, 1))
+    h = (rng.random((n_lanes, n)) < 0.6) if hits else np.zeros((n_lanes, n))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (keys.astype(np.int32), t, h.astype(np.int32)))
+
+
+def hold_sketch_trace(kern, plain, keys, t, hits, cap, window) -> None:
+    """The kernel's state identical to the plain version's in every field,
+    and its decode equal to the exact twin's in every windowed counter."""
+    for f in tst.SketchState._fields:
+        assert torch.equal(getattr(kern, f).cpu(), getattr(plain, f).cpu()), f
+    for lane in range(keys.shape[0]):
+        est = tst.decode_sketch_grid(kern, keys.shape[0], 1, window)[lane][0]
+        py = tst.sketch_trace_py(keys[lane].cpu().numpy(),
+                                 t_us=t[lane].cpu().numpy(),
+                                 hits=hits[lane].cpu().numpy(),
+                                 sketch_cap=cap, window_us=window)
+        assert np.array_equal(est.window_id, py.window_id)
+        assert np.array_equal(est.win_done_count, py.win_done_count)
+        assert np.array_equal(est.win_arrival_rate, py.win_arrival_rate)
+        assert np.allclose(est.win_hit_frac, py.win_hit_frac, equal_nan=True)
+        assert est.key_count == py.key_count
+        probe = np.arange(int(keys.max()) + 1)
+        assert np.all(est.cm_estimate(probe) >= py.cm_estimate(probe))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SKETCH_TRACE_CASES,
+                         ids=[c[0] for c in SKETCH_TRACE_CASES])
+def test_sketch_trace_kernel_matches_plain(cuda_device, case):
+    keys, t, hits = sketch_trace_inputs(case, cuda_device)
+    cap, window = case[4], case[5]
+    before = tsk.sketch_trace_lanes.launches
+    kern = tsk.sketch_trace_lanes(keys, t, hits, sketch_cap=cap,
+                                  window_us=window)
+    assert tsk.sketch_trace_lanes.launches == before + 1
+    plain = tsk.sketch_trace_plain(keys.cpu(), t.cpu(), hits.cpu(),
+                                   sketch_cap=cap, window_us=window)
+    hold_sketch_trace(kern, plain, keys, t, hits, cap, window)

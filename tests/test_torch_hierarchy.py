@@ -456,9 +456,9 @@ def test_simulate_network_refusals():
         simulate_network(m.network, [0.5], n_requests=500,
                          tiers=_mshr([[-1]], [[-1]], [[-1]]),
                          coalesce_flows=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="window_us"):
         T.simulate_hierarchy(m, [0.5], n_requests=50, sketch_cap=8,
-                             window_us=5.0, device="cpu")
+                             device="cpu")
     with pytest.raises(ValueError, match="n_flows > 0"):
         spec, seeds, kw = tes.grid_lanes(m.network, [0.5], 50, (0,), 0.25,
                                          torch.device("cpu"))

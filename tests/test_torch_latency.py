@@ -242,7 +242,8 @@ def _run_cells(cells, n_requests, burst=None):
     res = {}
     for name, (start, p_hits, rate, n_s) in spans.items():
         sl = slice(start, start + n_s * len(p_hits))
-        lanes = tes.OpenLaneOutputs(*(a[sl] for a in out))
+        lanes = tes.OpenLaneOutputs(*(a[sl] if isinstance(a, torch.Tensor)
+                                      else a for a in out))
         res[name] = open_result(lanes, np.asarray(p_hits, float),
                                 np.full(len(p_hits), rate), n_requests, n_s,
                                 kw["warmup"])

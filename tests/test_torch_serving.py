@@ -7,8 +7,10 @@ must serve the same tokens and end with the same ``stats()`` as the JAX
 ``Engine`` on the same request stream (both in float32).
 ``forecast_network`` — one pod, and a hash-routed cluster of pods
 (``n_shards > 1``) — must be the reference's network, and
-``forecast_slo`` its SLO forecast.  Modes not ported yet raise, naming
-their ROADMAP item.
+``forecast_slo`` its SLO forecast.  With the admission-stream sketch
+(``ServeConfig.sketch_cap``) the telemetry's streaming summary, the
+observed profile and the forecast it feeds equal the reference's.  Modes
+not ported yet raise, naming their ROADMAP item.
 """
 
 import dataclasses
@@ -292,8 +294,10 @@ def test_forecast_slo_takes_the_reference_parameters():
 
 def test_unported_modes_raise(models):
     _, cfg, _, tp = models
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(cfg, tp, ServeConfig(sketch_cap=64), device="cpu")
+    # the admission sketch is ported: an engine takes it, and without it
+    # observed_profile refuses, as the reference's
+    assert Engine(cfg, tp, ServeConfig(sketch_cap=64), device="cpu"
+                  ).telemetry()["streaming"]["key_count"] == 0
     with pytest.raises(NotImplementedError, match="queue 1 item 13"):
         Engine(get_config("zamba2-1.2b", reduced=True), tp, ServeConfig(),
                device="cpu")
@@ -306,7 +310,9 @@ def test_unported_modes_raise(models):
     # reference does (test_hierarchy_forecast_equals_the_reference)
     with pytest.raises(ValueError, match="post-disk fill station"):
         eng.forecast_network(6000.0, 40.0, tiers=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # observed_profile is ported; without the sketch it refuses, as the
+    # reference's does
+    with pytest.raises(ValueError, match="sketch_cap"):
         eng.observed_profile()
 
 
@@ -404,3 +410,34 @@ def test_cluster_forecast_equals_the_reference(models):
         assert (na, va) == (nb, vb)
         np.testing.assert_allclose(pa, pb, rtol=1e-12, atol=1e-15)
     assert a == b
+
+
+def test_admission_sketch_equals_the_reference(models):
+    """``ServeConfig(sketch_cap=64)`` on ``launch/serve.py``'s stream (24
+    requests over 4 prefixes of 24 tokens): the same tokens and stats as
+    the JAX ``Engine``, and the same admission-stream sketch — the
+    telemetry's streaming summary and alarms, ``observed_profile`` (rtol
+    1e-12) and the SLO forecast it feeds by default."""
+    reqs = zipf_request_stream(24, 4, 24, models[1].vocab, seed=0,
+                               new_tokens=6)
+    jeng, teng, jrs, trs = _serve_both(
+        models, reqs, max_seqs=4, max_seq_len=256, page_size=8, n_pages=128,
+        prefix_capacity=64, max_new_tokens=8, sketch_cap=64)
+    assert [r.out for r in trs] == [r.out for r in jrs]
+    assert teng.stats() == jeng.stats()
+    tel, jtel = teng.telemetry(), jeng.telemetry()
+    assert tel["streaming"] == jtel["streaming"]
+    assert tel["alarms"] == jtel["alarms"]
+    assert tel["streaming"]["key_count"] > 0
+    got, want = teng.observed_profile(), jeng.observed_profile()
+    for f in dataclasses.fields(want):
+        np.testing.assert_allclose(np.asarray(getattr(got, f.name), float),
+                                   np.asarray(getattr(want, f.name), float),
+                                   rtol=1e-12, err_msg=f.name)
+    args = dict(step_us=6000.0, prefill_us=40.0, arrival_rate=0.002,
+                slo_us=5e4)
+    fc, jfc = teng.forecast_slo(**args), jeng.forecast_slo(**args)
+    assert fc.cap_grid is not None
+    np.testing.assert_allclose(fc.cap_grid, jfc.cap_grid, rtol=1e-12)
+    np.testing.assert_allclose(fc.p_grid, jfc.p_grid, rtol=1e-12)
+    assert fc.p_star_slo == pytest.approx(jfc.p_star_slo, rel=1e-12)
