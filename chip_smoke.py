@@ -6,23 +6,28 @@
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 
-1. device: the card's name and power limit;
-2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``,
-    and beside it ``nvcc -Xptxas -v`` reports the registers, stack and
-   spills of each of the event-sim kernel's 35 instantiations (closed,
-   traced, traced for long routes, coalescing, open loop, counting,
-   tiered; each must keep its registers of ``EVENT_SIM_REGISTERS``), of
-   their 35 sketched twins (``event_sim_sketch.cu``), of the sketch_trace
-   kernel, of
-   the replay kernel's 14 (seven policies x two state layouts), of the
+1. device: the card's name and power limit, and the port's provenance
+   stamp (``repro_torch.obs.provenance.collect``: versions, the card);
+2. build: ``nvcc`` builds every kernel under ``src/repro_torch/kernels/csrc``;
+   ``cuobjdump -res-usage`` of the library reads the registers, stack and
+   local memory of each of the event-sim kernel's 35 instantiations
+   (closed, traced, traced for long routes, coalescing, open loop,
+   counting, tiered; each must keep its registers of
+   ``EVENT_SIM_REGISTERS``), of their 35 sketched twins
+   (``event_sim_sketch.cu``), of the 15 traced coalescing, open-loop and
+   tiered instantiations (``event_sim_traced.cu``) and their 15 sketched
+   twins (``event_sim_traced_sketch.cu``) and of the sketch_trace kernel;
+   beside the build ``nvcc -Xptxas -v`` reports the registers, stack and
+   spills of the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
    widths) and of the split-TF32 flash kernel's ten (float32 at d_head
    16, 32, 64, 80, 128, 168; bf16 at 16, 32, 80, 168); then
-   ``cuobjdump --dump-sass`` of the library: the tensor-core flash
+   ``cuobjdump --dump-sass`` of the library, in the background beside the
+   checks below and read after them: the tensor-core flash
    kernel's instantiations must hold HGMMA (``wgmma``) instructions and
    every split-TF32 one HMMA (``mma.sync``);
-   then the checks of 3, 4, 5, 6d, 6e, 6f, 6g, 6h and 6i, which time
-   nothing, run at once in six worker processes (``parallel_checks``),
+   then the checks of 3, 4, 5, 6d, 6e, 6f, 6g, 6h, 6i and 6j, which time
+   nothing, run at once in eight worker processes (``parallel_checks``),
    longest first, each check's seconds printed; 6, 6b and 6c after them;
 3. replay kernel vs its plain PyTorch version on the card, bit for bit:
    every policy but LRU at the main path's lane shape (key space 4096,
@@ -110,6 +115,17 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    launches it at: B's seed-1 stream at sketch_cap 256 (8 SpaceSaving
    slots per thread) and C's two 12 000-key phases at 512 (16 slots; one
    two-lane launch) and its second phase at 256;
+6j. ``trace_ext_vs_plain``: the traced coalescing, open-loop and tiered
+   instantiations against their traced plain versions
+   (``TRACE_EXT_CASES`` of ``tests/test_torch_event_sim_cuda.py``: every
+   register-slot count and shared memory in each mode, routes of 34 and
+   41 visits, rings that overflow and that do not, bursts, dropped
+   arrivals; the tiered cases in ``trace_ext_tiers_vs_plain``) and, in
+   ``trace_ext_fig_vs_plain``, the figures' networks
+   (fig_delayed_hits B, fig_latency B's open loop and C's coalescing one,
+   fig_hierarchy's network, fig_cluster C's 8 shards): records identical
+   in req, branch, cls and nvis, the stamps on deterministic service;
+   every other output the untraced kernel's, with the sketch off and on;
 7. the main path at the benchmarks' sizes (``benchmarks/fig3_lru.py``):
    closed-loop simulations of the LRU network at three disk speeds and
    replay sweeps of every policy, with the LRU inversion and FIFO's
@@ -121,7 +137,19 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 8. the traced path: the LRU network at 100 us over P_GRID x 3 seeds x 16k
    requests with lossless 16384-record rings, its records reconciled with
    the throughput, per-station utilization printed, one lane written as a
-   Perfetto trace and read back (traced launch count > 0);
+   Perfetto trace and read back (traced launch count > 0); then
+   ``trace=K`` through the entry points at the figures' widths with
+   lossless rings: ``simulate_network`` with coalescing (fig_delayed_hits
+   B) and in the open loop (fig_latency B, C's coalescing, fig_cluster E's
+   bursts), ``simulate_hierarchy`` (fig_hierarchy's tiered network) and
+   ``simulate_cluster`` (fig_cluster C): the decoded records give one
+   record per completion, per-branch counts equal to an untraced launch's
+   and delayed records to its delayed hits (the open loop: each record's
+   class the class buffer's), parked time only on delayed records, every
+   visit left after it is entered, one lane of each through Perfetto and
+   back, and rebuild the result's throughput, per-branch, per-level or
+   per-shard rates and delayed fractions (the open loop: its class
+   fractions and mean sojourn); the traced launch count > 0;
 8b. the delayed-hits and latency path (``figures_path``): every
    assertion of ``benchmarks/table2_classify.py``, ``fig_delayed_hits.py``
    (the analytic p* shift, the simulated recovery on a bounded disk, the
@@ -223,9 +251,14 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    kernels on the same lane (ns per event at 8 shards); the tiered
    instantiation on one lane of fig_hierarchy's network (mpl 96, F 4),
    beside the closed, counting and coalescing kernels on the same lane;
-   each mode's lane again with the sketch (ns per event on and off); the
-   sketched closed kernel on fig_drift D's lane and the sketch_trace
-   kernel on fig_drift A's stream beside their plain versions.
+   each mode's lane again with the sketch (ns per event on and off), and
+   the coalescing, open-loop, tiered and 8-shard coalescing lanes traced
+   into lossless rings (ns per event traced and not; the traced
+   coalescing lane is the kernels line's ``event_sim_traced_ext``, held
+   against its traced plain version, timed alone); the sketched closed
+   kernel on fig_drift D's lane
+   and the sketch_trace kernel on fig_drift A's stream beside their plain
+   versions.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  The
@@ -411,9 +444,10 @@ FD_CLOSED_REQUESTS, FD_OPEN_REQUESTS = 48_000, 24_000
 # own, seed 0, first), every one of them
 FD_SEEDS = (0, 1, 2, 3)
 # event_sim_ptxas: the registers of event_sim.cu's 35 instantiations as
-# ptxas reported them for commit 38b57a4 (sm_90a, the library's flags);
-# the sketched instantiations live in event_sim_sketch.cu, and these must
-# keep their registers
+# ptxas assigned them for commit 38b57a4 (sm_90a, the library's flags);
+# the sketched and the traced coalescing, open-loop and tiered
+# instantiations live in sources of their own, and these must keep their
+# registers
 EVENT_SIM_REGISTERS = {
     "coalescing": (79, 71, 87, 96, 121), "counting": (64, 64, 64, 76, 92),
     "open loop": (83, 70, 79, 87, 128), "tiered": (71, 83, 93, 109, 157),
@@ -456,13 +490,24 @@ MAIN_PATH_X = {
                   6.663162708282471, 16.229402542114258)},
 }
 TRACE_CHECK_REQUESTS, TRACE_CHECK_CAP = 2000, 512  # overflowing rings
+# trace_ext_vs_plain: requests per lane of TRACE_EXT_CASES of
+# tests/test_torch_event_sim_cuda.py (at least one measured completion per
+# job; the routes over 32 visits run their cases' own count)
+TRACE_EXT_REQUESTS = 300
 TRACE_FULL = 16_384  # lossless at SIM_REQUESTS
+# the traced entry points' results rebuilt from their records (traced_path)
+TRACE_RECONCILE_RTOL = 1e-5
+# ... but the open loop's mean sojourn: the result's sojourns are float32
+# sums of the time steps a request lived through (the reference's ages), the
+# records' differences of two clock stamps, so the two part by the sums'
+# rounding, up to 2**-24 of the sojourn per step, over hundreds of steps
+OPEN_SOJOURN_RTOL = 1e-3
 # the kernels' checks against their plain versions that time nothing run
 # at once, in CHECK_WORKERS processes of their own (each its own CUDA
 # context), longest first: the plain versions are bound by the host's
-# launches, so the processes overlap on one card (six of the machine's
-# eight cores: ten checks)
-CHECK_WORKERS = 6
+# launches, so the processes overlap on one card (one for each of the
+# machine's eight cores: fifteen checks)
+CHECK_WORKERS = 8
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
 LRU_PATH = (1 << 22, 4096, 64)  # slots, ids per batch, batches
@@ -619,18 +664,32 @@ def device_ms(fn, reps: int) -> float:
                        "the card")
 
 
-def sass_counts(rec):
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
-    flash kernel instantiation, from ``cuobjdump --dump-sass`` of the built
-    library; raises unless every tensor-core instantiation holds HGMMA and
-    each of the split-TF32 kernel's ten holds HMMA."""
-    import re
+def start_sass():
+    """``cuobjdump --dump-sass`` of the built library, started in the
+    background (it takes tens of seconds on the host) into a file beside
+    the build; :func:`sass_counts` reads it."""
     import shutil
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "--dump-sass", str(_build.build_library())],
-                          capture_output=True, text=True, check=True).stdout
+    path = _build.BUILD_DIR / "library.sass"
+    with open(path, "w") as f:
+        return subprocess.Popen([tool, "--dump-sass",
+                                 str(_build.build_library())], stdout=f), path
+
+
+def sass_counts(started, rec):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
+    flash kernel instantiation, from the ``cuobjdump --dump-sass`` that
+    :func:`start_sass` started; raises unless every tensor-core
+    instantiation holds HGMMA and each of the split-TF32 kernel's ten holds
+    HMMA."""
+    import re
+
+    proc, path = started
+    if proc.wait() != 0:
+        raise RuntimeError(f"cuobjdump --dump-sass failed ({proc.returncode})")
+    sass = path.read_text()
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -653,11 +712,9 @@ def sass_counts(rec):
 
 
 def start_ptxas():
-    """``nvcc -Xptxas -v`` on ``csrc/event_sim.cu``,
-    ``csrc/event_sim_sketch.cu``, ``csrc/sketch_trace.cu``,
-    ``csrc/replay.cu``, ``csrc/linear_scan.cu`` and
-    ``csrc/flash_attention.cu`` with the library's flags, started beside
-    the library's own build."""
+    """``nvcc -Xptxas -v`` on ``csrc/replay.cu``, ``csrc/linear_scan.cu``
+    and ``csrc/flash_attention.cu`` with the library's flags, started
+    beside the library's own build."""
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "ptxas"
@@ -666,8 +723,7 @@ def start_ptxas():
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          str(_build.CSRC / f"{name}.cu"), "-o", str(out / f"{name}.o")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name in ("event_sim", "event_sim_sketch", "sketch_trace", "replay",
-                     "linear_scan", "flash_attention")}
+        for name in ("replay", "linear_scan", "flash_attention")}
 
 
 def ptxas_info(proc, pattern, name_of):
@@ -698,49 +754,80 @@ def ptxas_info(proc, pattern, name_of):
     return info
 
 
-def event_sim_ptxas(procs, rec):
-    """Registers, stack frame and spills of each event-sim instantiation
-    (untraced, traced, traced for routes over 32 visits, coalescing, open
-    loop, counting, tiered; R register slots per thread, R = 0: shared
-    memory), as ptxas reports them, without the sketch (``event_sim.cu``)
-    and with it (``event_sim_sketch.cu``), and of the sketch_trace
-    kernel; raises unless all 35 + 35 + 1 compiled, or if an
-    instantiation without the sketch lost its registers of
-    ``EVENT_SIM_REGISTERS``."""
+def event_sim_ptxas(rec):
+    """Registers, stack frame and local memory of each event-sim
+    instantiation (untraced, traced, traced for routes over 32 visits,
+    coalescing, open loop, counting, tiered, and traced coalescing, open
+    loop and tiered; R register slots per thread, R = 0: shared memory),
+    without the sketch (``event_sim.cu``, ``event_sim_traced.cu``) and
+    with it (``event_sim_sketch.cu``, ``event_sim_traced_sketch.cu``), and
+    of the sketch_trace kernel, as the built library records them
+    (``cuobjdump -res-usage``: the registers ptxas assigned, with no second
+    compile beside the build); raises unless all 35 + 15 + 35 + 15 + 1 are
+    there, or if an instantiation of ``event_sim.cu`` has other registers
+    than ``EVENT_SIM_REGISTERS``."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-res-usage", str(_build.build_library())],
+                         capture_output=True, text=True, check=True).stdout
     modes = ("untraced", "traced", "traced, routes over 32")
-    pattern = r"sim_kernelILi([012])ELi(\d+)ELi([01234])E"
-
-    def name(m):
-        return ((modes[int(m.group(1))], "coalescing", "open loop",
-                 "counting", "tiered")[int(m.group(3))] + f" R={m.group(2)}")
-
-    info = ptxas_info(procs["event_sim"], pattern, name)
-    sketched = ptxas_info(procs["event_sim_sketch"], pattern, name)
-    trace_k = ptxas_info(procs["sketch_trace"], r"sketch_trace_kernel",
-                         lambda m: "sketch_trace")
-    for got in (info, sketched):
-        if len(got) != 35 or not all(len(v) == 4 for v in got.values()):
-            raise AssertionError(f"ptxas reported {got}")
-    if len(trace_k) != 1:
-        raise AssertionError(f"ptxas reported {trace_k}")
+    ext = ("coalescing", "open loop", "counting", "tiered")
+    info = {"unsketched": {}, "sketched": {}}
+    fn = trace_k = None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            k = re.search(r"sim_kernelILi([012])ELi(\d+)ELi([01234])E",
+                          m.group(1))
+            fn = None
+            if k:
+                trace, mode = int(k.group(1)), int(k.group(3))
+                what = (modes[trace] if mode == 0 else
+                        ("traced " if trace else "") + ext[mode - 1])
+                fn = ("sketched" if "Sketched" in m.group(1) else
+                      "unsketched", f"{what} R={k.group(2)}")
+            elif "sketch_trace_kernel" in m.group(1):
+                fn = ("sketch_trace", None)
+            continue
+        r = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
+        if fn and r:
+            v = dict(zip(("registers", "stack_bytes", "local_bytes"),
+                         map(int, r.groups())))
+            if fn[0] == "sketch_trace":
+                trace_k = v
+            else:
+                info[fn[0]][fn[1]] = v
+            fn = None
+    for group, got in info.items():
+        traced = [n for n in got if n.startswith("traced ")
+                  and not n.startswith(("traced R=", "traced, routes"))]
+        if len(got) != 50 or len(traced) != 15:
+            raise AssertionError(f"cuobjdump -res-usage found {group} "
+                                 f"{sorted(got)}")
+    if trace_k is None:
+        raise AssertionError("cuobjdump -res-usage found no sketch_trace "
+                             "kernel")
     want = {f"{mode} R={r}": n for mode, regs in EVENT_SIM_REGISTERS.items()
             for r, n in zip((0, 1, 2, 4, 8), regs)}
-    moved = {fn: (v["registers"], want[fn]) for fn, v in info.items()
-             if v["registers"] != want[fn]}
-    if moved:
+    moved = {fn: (v["registers"], want[fn])
+             for fn, v in info["unsketched"].items()
+             if fn in want and v["registers"] != want[fn]}
+    if moved or not set(want) <= set(info["unsketched"]):
         raise AssertionError(f"event-sim instantiations without the sketch "
                              f"changed registers (now, before): {moved}")
-    for fn, v in sorted(info.items()):
-        print(f"ptxas event_sim {fn}: {json.dumps(v)}", flush=True)
-    for fn, v in sorted(sketched.items()):
-        print(f"ptxas event_sim sketched {fn}: {json.dumps(v)}", flush=True)
-    print(f"ptxas sketch_trace: {json.dumps(trace_k['sketch_trace'])}",
-          flush=True)
-    print("ptxas event_sim: the 35 instantiations without the sketch keep "
+    for group, got in info.items():
+        for fn, v in sorted(got.items()):
+            print(f"registers event_sim {group} {fn}: {json.dumps(v)}",
+                  flush=True)
+    print(f"registers sketch_trace: {json.dumps(trace_k)}", flush=True)
+    print("registers event_sim: the 35 instantiations of event_sim.cu keep "
           "their registers", flush=True)
-    rec["event_sim_ptxas"] = info
-    rec["event_sim_sketch_ptxas"] = sketched
-    rec["sketch_trace_ptxas"] = trace_k["sketch_trace"]
+    rec["event_sim_ptxas"] = info["unsketched"]
+    rec["event_sim_sketch_ptxas"] = info["sketched"]
+    rec["sketch_trace_ptxas"] = trace_k
 
 
 def replay_ptxas(procs, rec):
@@ -1121,6 +1208,131 @@ def check_sketch_ext(rec):
     """``sketch_ext_vs_plain``: :func:`check_sketch` on the coalescing,
     open-loop and tiered cases."""
     check_sketch(rec, modes=("flows", "open", "tiers"))
+
+
+def hold_trace_lanes(what, mode, lanes, exact):
+    """One traced launch against its traced plain version (records
+    identical in req, branch, cls and nvis, the stamps identical on
+    deterministic service and within SIM_RTOL otherwise) and against the
+    untraced launch (every other output identical); with the sketch on,
+    the traced launch's every output but its rings the sketched launch's
+    (the sketch state included) and its rings the traced launch's.
+    Returns the largest stamp difference (us)."""
+    import torch
+    from test_torch_event_sim_cuda import (hold_coalesced, hold_open,
+                                           hold_tiered, hold_trace_ext,
+                                           hold_trace_sketch)
+
+    holds = {"flows": hold_coalesced, "open": hold_open, "tiers": hold_tiered}
+    fn, plain_fn, spec, seeds, kw = lanes
+    bare = {k: v for k, v in kw.items() if k != "trace_cap"}
+    kern = fn(spec, seeds, **kw)
+    plain, ms = timed_plain(lambda: plain_fn(spec, seeds, **kw))
+    untraced = fn(spec, seeds, **bare)
+    torch.cuda.synchronize()
+    err = hold_trace_ext(kern, plain, untraced, exact)
+    holds[mode](kern, plain, exact=exact)
+    sk = dict(sketch_cap=8, window_us=50.0)
+    hold_trace_sketch(fn(spec, seeds, **dict(kw, **sk)),
+                      fn(spec, seeds, **dict(bare, **sk)), kern)
+    cap, done = kw["trace_cap"], kern.completed
+    print(f"trace_ext {what}: records == plain "
+          f"({'identical' if exact else 'integers identical'}), "
+          f"{int((kern.rings.cls == 2).sum())} delayed in the rings, "
+          f"{int(done.sum())} completions, rings of {cap} "
+          f"{'overflowing' if int(done.max()) > cap else 'lossless'}; "
+          f"other outputs == the untraced kernel's, sketch off and on "
+          f"(plain {ms:.0f} ms)", flush=True)
+    return err
+
+
+def check_trace_ext(rec, modes=("flows", "open")):
+    """``trace_ext_vs_plain``: the traced coalescing and open-loop
+    instantiations (``trace_ext_tiers_vs_plain``: the tiered ones) against
+    their traced plain versions on the card (:func:`hold_trace_lanes`), on
+    ``TRACE_EXT_CASES`` of ``tests/test_torch_event_sim_cuda.py`` at the
+    tests' own ``TRACE_EXT_REQUESTS``: every register-slot count and
+    shared memory in each mode, routes of 34 and 41 visits, rings that
+    overflow and rings that do not, bursts, a pool that drops arrivals.
+    Two checks, so that two workers share the cases."""
+    import torch
+    from test_torch_event_sim_cuda import TRACE_EXT_CASES, trace_ext_lanes
+
+    dev = torch.device("cuda")
+    err = 0.0
+    for case in TRACE_EXT_CASES:
+        if case[1] in modes:
+            err = max(err, hold_trace_lanes(
+                case[0], case[1],
+                trace_ext_lanes(case, dev, TRACE_EXT_REQUESTS),
+                exact=case[-1]))
+    rec["event_sim_traced_ext_max_abs_err"] = err
+
+
+def check_trace_ext_tiers(rec):
+    """``trace_ext_tiers_vs_plain``: :func:`check_trace_ext` on the
+    tiered cases."""
+    check_trace_ext(rec, modes=("tiers",))
+
+
+def check_trace_ext_fig(rec):
+    """``trace_ext_fig_vs_plain``: :func:`hold_trace_lanes` on the
+    figures' networks, a few hundred requests a lane: fig_delayed_hits B's
+    three p x two seeds into overflowing rings, fig_latency B's open loop
+    (three p), fig_latency C's coalescing open loop (deterministic disk,
+    16 flows, two seeds: the open loop's woken records), fig_hierarchy's
+    network at three p and fig_cluster C's 8-shard network (8 flows a
+    shard, mpl 96, three p x two seeds, with its per-branch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build, exponential_analogue
+    from repro_torch.kernels import event_sim as es
+    from repro_torch.latency import lambda_max
+    from test_torch_event_sim_cuda import cluster_model, hierarchy_model
+
+    dev = torch.device("cuda")
+    sim, plain, open_, open_plain = (es.sim_lanes, es.sim_lanes_plain,
+                                     es.sim_open_lanes, es.sim_open_lanes_plain)
+    net_b = build("lru", disk_us=DH_DISK_US, disk_servers=DH_IO_DEPTH)
+    err = hold_trace_lanes(
+        "fig_delayed_hits B, 3 p x 2 seeds", "flows",
+        (sim, plain, *es.grid_lanes(net_b, np.asarray(DH_P_SIM), 500, (0, 1),
+                                    0.25, dev, coalesce_flows=16, trace=128)),
+        exact=False)
+    lat = build("lru", disk_us=LAT_DISK_US)
+    lam = LAT_SIM_LOAD * float(np.max(lambda_max(lat, np.linspace(0, 1, 201))))
+    lanes = es.open_lanes(
+        exponential_analogue(build("lru", disk_us=LAT_DISK_US_SIM)),
+        np.asarray(LAT_P_SIM), np.full(3, lam), 500, (0,), 0.25, 256,
+        device=dev, trace=256)
+    err = max(err, hold_trace_lanes("fig_latency B's open loop, 3 p", "open",
+                                    (open_, open_plain, *lanes), exact=False))
+    net_c = build("lru", disk_us=LAT_DISK_US, disk_servers=LAT_CO_IO_DEPTH)
+    net_c = dataclasses.replace(net_c, stations=tuple(
+        dataclasses.replace(st, dist="det") if st.name == "disk" else st
+        for st in net_c.stations))
+    lanes = es.open_lanes(net_c, np.array([0.5]), np.array([LAT_CO_LAMBDA]),
+                          500, (0, 1), 0.25, 256, coalesce_flows=LAT_CO_FLOWS,
+                          device=dev, trace=256)
+    err = max(err, hold_trace_lanes(
+        "fig_latency C's coalescing open loop, 2 seeds", "open",
+        (open_, open_plain, *lanes), exact=True))
+    hm = hierarchy_model("fig", HI_MPL)
+    lo, hi = hm.profile.p_range()
+    lanes = es.grid_lanes(hm.network, np.linspace(lo + 1e-3, hi - 1e-3, 3),
+                          400, (0,), 0.25, dev, coalesce_flows=4,
+                          tiers=hm.mshr, trace=256)
+    err = max(err, hold_trace_lanes("fig_hierarchy's network, 3 p", "tiers",
+                                    (sim, plain, *lanes), exact=False))
+    cm = cluster_model(CL_SHARDS, 12 * CL_SHARDS, key_space=CL_SIM_KEYS)
+    spec, seeds, kw = es.grid_lanes(cm.network, np.asarray(CL_SIM_P), 300,
+                                    (0, 1), 0.25, dev, coalesce_flows=8,
+                                    trace=512)
+    err = max(err, hold_trace_lanes(
+        "fig_cluster C's 8 shards, 3 p x 2 seeds", "flows",
+        (sim, plain, spec, seeds, dict(kw, count_branches=True)),
+        exact=False))
+    rec["event_sim_traced_ext_max_abs_err"] = err
 
 
 def fig_drift_stream(device):
@@ -2188,7 +2400,11 @@ def ext_timing(rec):
     (fig_delayed_hits B's 6 lanes, fig_latency B's 9) at FIG_REQUESTS, and
     the counting instantiation on one lane of fig_cluster C's 8-shard
     network (beside its plain version and bound, the closed kernel and the
-    coalescing one on the same lane: ns per event at 8 shards)."""
+    coalescing one on the same lane: ns per event at 8 shards); each
+    mode's lane with the sketch; the coalescing, open-loop, tiered and
+    8-shard coalescing lanes traced into lossless rings (kernel only; the
+    coalescing lane's traced plain version too, held against the traced
+    kernel and timed alone: the kernels line's traced row)."""
     import numpy as np
     import torch
     from repro_torch.core import build, exponential_analogue
@@ -2196,7 +2412,7 @@ def ext_timing(rec):
     from repro_torch.latency import lambda_max
     from test_torch_event_sim_cuda import (cluster_model, hierarchy_model,
                                            hold_coalesced, hold_open,
-                                           hold_tiered)
+                                           hold_tiered, hold_trace_ext)
 
     dev = torch.device("cuda")
 
@@ -2394,6 +2610,49 @@ def ext_timing(rec):
                tr_kw, tr_off_ms, d_events)
     state_bytes = sum(t.numel() * t.element_size() for t in dkern.sketch)
     d_bytes = spec_bytes(dspec, dseeds, dkw) + 16 + state_bytes
+
+    # tracing's cost per event in the coalescing, open-loop and tiered
+    # modes: each mode's lane above launched traced into lossless rings
+    # beside its untraced time (kernel only); the coalescing lane's is the
+    # kernels line's traced row, its traced plain version timed here
+    trace_rows = {}
+    cap = 2 * EXT_TIMING_REQUESTS
+
+    def trace_row(mode, fn, kw, off_ms, events):
+        on_ms = cuda_ms(lambda: fn(**dict(kw, trace_cap=cap)), reps=5)
+        trace_rows[mode] = {
+            "off_ms": off_ms, "on_ms": on_ms, "events": events,
+            "off_ns_per_event": off_ms * 1e6 / events,
+            "on_ns_per_event": on_ms * 1e6 / events}
+        return on_ms
+
+    tr_co_kw = es.grid_lanes(net_b, np.array([0.5]), EXT_TIMING_REQUESTS, (0,),
+                             0.25, dev, coalesce_flows=16, trace=cap)[2]
+    tr_co_ms = trace_row("coalescing",
+                         lambda **k: es.sim_lanes(spec, seeds, **k), tr_co_kw,
+                         co_ms, co_events)
+    tr_kern = es.sim_lanes(spec, seeds, **tr_co_kw)
+    tr_plain, tr_plain_ms = timed_plain(
+        lambda: es.sim_lanes_plain(spec, seeds, **tr_co_kw))
+    rec["event_sim_traced_ext_max_abs_err"] = max(
+        rec["event_sim_traced_ext_max_abs_err"],
+        hold_trace_ext(tr_kern, tr_plain, kern, exact=False))
+    trace_row("open loop", lambda **k: es.sim_open_lanes(ospec, oseeds, **k),
+              okw, open_ms, open_events)
+    trace_row("tiered", lambda **k: es.sim_lanes(tspec, tseeds, **k),
+              es.grid_lanes(hm.network, hp, EXT_TIMING_REQUESTS, (0,), 0.25,
+                            dev, coalesce_flows=4, tiers=hm.mshr,
+                            trace=cap)[2], ti_ms, ti_events)
+    trace_row("coalescing, 8 shards",
+              lambda **k: es.sim_lanes(fspec, fseeds, **k),
+              es.grid_lanes(cm.network, np.array([CL_SIM_P[1]]),
+                            EXT_TIMING_REQUESTS, (0,), 0.25, dev,
+                            coalesce_flows=8, trace=cap)[2], fl_ms, fl_events)
+    # the rings' bytes: each record written once (five words and two stamp
+    # rows), the emitted count, and the miss classes read
+    tr_bytes = (co_bytes + 4 * (1 + spec.visits.shape[1])
+                + int(kern.completed[0]) * 4 * (5 + 2 * spec.visits.shape[2]))
+    trb, trby = work_bound(tr_bytes, co_ops)
     # per event: the closed loop's work (as kCount) and the sketch's tick,
     # window counts and EWMA steps
     d_ops = d_events * (5 * dkw["mpl"] + 61 + 30)
@@ -2456,6 +2715,11 @@ def ext_timing(rec):
         "sketch": {"ms": d_ms, "plain_ms": d_plain_ms, "bytes": d_bytes,
                    "ops": d_ops, "bound_ms": db, "per_mode": sketch_rows,
                    "requests": EXT_TIMING_REQUESTS},
+        "traced": {"ms": tr_co_ms,
+                   "plain_ms": tr_plain_ms,
+                   "bytes": tr_bytes, "ops": co_ops, "bound_ms": trb,
+                   "per_mode": trace_rows, "ring_cap": cap,
+                   "requests": EXT_TIMING_REQUESTS},
         "sketch_trace": {"ms": st_ms, "plain_ms": st_plain_ms,
                          "keys": FD_STREAM, "sketch_cap": FD_CAP,
                          "ns_per_key": st_ms * 1e6 / FD_STREAM,
@@ -2487,6 +2751,14 @@ def ext_timing(rec):
         print(f"event_sim sketch, {mode}: {r['off_ns_per_event']:.1f} ns per "
               f"event without the sketch, {r['on_ns_per_event']:.1f} with it "
               f"({r['events']} events)", flush=True)
+    for mode, r in trace_rows.items():
+        print(f"event_sim traced, {mode}: {r['off_ns_per_event']:.1f} ns per "
+              f"event untraced, {r['on_ns_per_event']:.1f} traced "
+              f"({r['events']} events)", flush=True)
+    print(f"event_sim traced coalescing, fig_delayed_hits B's lane: "
+          f"{tr_co_ms:.3f} ms per 1-lane launch, plain "
+          f"{tr_plain_ms:.1f} ms, "
+          f"bound {trb:.5f} ms", flush=True)
     print(f"event_sim sketched closed, fig_drift D's lane: {d_ms:.3f} ms per "
           f"1-lane launch, plain {d_plain_ms:.1f} ms, bound {db:.5f} ms",
           flush=True)
@@ -2515,6 +2787,11 @@ def ext_timing(rec):
          "replaces": "src/repro/core/simulator.py:483",
          "ms": ti_ms, "plain_ms": ti_plain_ms, "bound_ms": tb,
          "bound_by": tby, "library_ms": None},
+        {"name": "event_sim_traced_ext", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/event_sim_traced.cu",
+         "replaces": "src/repro/core/simulator.py:273",
+         "ms": tr_co_ms, "plain_ms": tr_plain_ms,
+         "bound_ms": trb, "bound_by": trby, "library_ms": None},
         {"name": "event_sim_sketch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/event_sim_sketch.cu",
          "replaces": "src/repro/core/simulator.py:162",
@@ -2751,12 +3028,317 @@ def hold_main_path(rec, launches):
                                           "max_rel_diff": worst}
 
 
+def hold_traced_lanes(what, traces, twin, warmup, jobs, n_b, names,
+                      open_loop=False):
+    """The lossless rings an entry point decoded onto its result
+    (``traces``, ``[seed][p]``) against the per-lane counts of ``twin``,
+    an untraced launch of the same lanes (lane ``s * P + p``; tracing is
+    inert, so its counts are the traced launch's): each lane's records are
+    exactly its completions 0..n-1; in the closed modes, from the warmup
+    snapshot (``warmup`` .. ``warmup + jobs``: a fill may carry it past
+    ``warmup``) the per-branch record counts are ``branch_done`` and the
+    delayed records the delayed count, in the open loop each record's
+    class is the one its completion index holds in the class buffer;
+    ``parked_us`` is 0 on every record not delayed; every visit is left
+    after it is entered.  Lane 0 goes to Perfetto and back: a slice per
+    visit and per parked interval, a request per record, its delayed ones
+    counted.  Returns what the records give the result (the closed modes:
+    per-branch and delayed rates of the ``n_b`` branches over each lane's
+    measured window and its delayed fraction, ``(S, P, ...)``; the open
+    loop: per p the classes and sojourns of the records from ``warmup``
+    on, every seed's pooled) and a summary."""
+    import numpy as np
+    from repro_torch.obs.export import (read_perfetto, summarize_events,
+                                        write_perfetto)
+    from repro_torch.obs.trace import CLS_DELAYED
+
+    t0 = time.perf_counter()
+    n_s, n_p = len(traces), len(traces[0])
+    comp = twin.completed.cpu().numpy()
+    rates = np.zeros((n_s, n_p, n_b))
+    dl_rates = np.zeros((n_s, n_p, n_b))
+    dl_frac = np.zeros((n_s, n_p))
+    pooled = [([], []) for _ in range(n_p)]
+    n_rec = n_delayed = 0
+    for lane in range(n_s * n_p):
+        s, p = divmod(lane, n_p)
+        tr = traces[s][p]
+        n = int(comp[lane])
+        if (tr.n_emitted != n or tr.n_dropped
+                or not np.array_equal(tr.req, np.arange(n))):
+            raise AssertionError(f"{what} lane {lane}: {tr.n_emitted} records "
+                                 f"emitted, {len(tr)} kept, {n} completed")
+        if open_loop:
+            if not np.array_equal(tr.cls, twin.cls[lane, :n].cpu().numpy()):
+                raise AssertionError(f"{what} lane {lane}: record classes != "
+                                     "the class buffer's")
+            n_delayed += int((tr.cls == CLS_DELAYED).sum())
+            pooled[p][0].append(tr.cls[warmup:])
+            pooled[p][1].append(tr.sojourn_us[warmup:])
+        else:
+            done_b = twin.branch_done[lane].cpu().numpy()
+            warm = n - int(done_b.sum())
+            m = tr.req >= warm
+            dl = m & (tr.cls == CLS_DELAYED)
+            if not (warmup <= warm < warmup + jobs and np.array_equal(
+                    np.bincount(tr.branch[m], minlength=len(done_b)), done_b)
+                    and int(dl.sum()) == int(twin.branch_delayed[lane].sum())):
+                raise AssertionError(f"{what} lane {lane}: records do not "
+                                     "reconcile with the counts")
+            n_delayed += int(dl.sum())
+            # the measured window: from the event that took the warmup
+            # snapshot (its records end then) to the last completion
+            end = tr.end_us
+            t_meas = end[n - 1] - end[warm - 1]
+            rates[s, p] = np.bincount(tr.branch[m], minlength=n_b)[:n_b] / t_meas
+            dl_rates[s, p] = np.bincount(tr.branch[dl], minlength=n_b)[:n_b] / t_meas
+            dl_frac[s, p] = dl.sum() / m.sum()
+        live = np.arange(tr.enter_us.shape[1])[None, :] < tr.nvis[:, None]
+        if ((tr.parked_us[tr.cls != CLS_DELAYED] != 0).any()
+                or not (tr.leave_us[live] >= tr.enter_us[live]).all()):
+            raise AssertionError(f"{what} lane {lane}: stamps malformed")
+        n_rec += len(tr)
+    hold_s = time.perf_counter() - t0
+    if bool(n_delayed) != bool(float(twin.delayed_frac.max()) > 0.0):
+        raise AssertionError(f"{what}: {n_delayed} delayed records, delayed "
+                             f"fractions {twin.delayed_frac.tolist()}")
+    path = ROOT / "chiprun_out" / f"trace_{'_'.join(what.split())}.json"
+    path.parent.mkdir(exist_ok=True)
+    tr = traces[0][0]
+    t0 = time.perf_counter()
+    write_perfetto(path, tr, station_names=names)
+    summ = summarize_events(read_perfetto(path))
+    cats = summ["by_cat_count"]
+    if (summ["requests_count"] != len(tr)
+            or cats.get("visit", 0) != int(tr.nvis.sum())
+            or cats.get("mshr", 0) != int((tr.parked_us > 0).sum())
+            or summ["by_cls_count"].get("delayed", 0)
+            != int((tr.cls == CLS_DELAYED).sum())):
+        raise AssertionError(f"{what}: Perfetto round trip lost events: "
+                             f"{summ}")
+    print(f"traced {what}: {n_s * n_p} lanes, {n_rec} records = the "
+          f"completions, {n_delayed} delayed; counts reconciled; Perfetto "
+          f"lane 0: {summ['slices_count']} slices, {summ['requests_count']} "
+          f"requests, {summ['by_cls_count']}", flush=True)
+    if open_loop:
+        got = {"cls": [np.concatenate(c) for c, _ in pooled],
+               "sojourn": [np.concatenate(j) for _, j in pooled]}
+    else:
+        got = {"rates": rates, "delayed_rates": dl_rates,
+               "delayed_frac": dl_frac}
+    return got, {"records": n_rec, "delayed": n_delayed, "perfetto": summ,
+                 "decode_and_hold_s": hold_s,
+                 "perfetto_s": time.perf_counter() - t0}
+
+
+def reconcile(what, pairs, rtol=TRACE_RECONCILE_RTOL):
+    """Raise unless each (name, from the records, the result's field,
+    absolute tolerance) pair agrees within ``rtol`` (and that tolerance);
+    returns the largest relative difference."""
+    import numpy as np
+
+    worst = 0.0
+    for name, got, want, atol in pairs:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=f"{what}: {name} from the records")
+        nz = np.isfinite(want) & (want != 0)
+        if nz.any():
+            worst = max(worst, float(np.max(np.abs(got[nz] - want[nz])
+                                            / np.abs(want[nz]))))
+    print(f"traced {what}: the result's {', '.join(p[0] for p in pairs)} "
+          f"equal the records' within {rtol} or the pair's absolute "
+          f"tolerance (largest relative difference {worst:.3g})", flush=True)
+    return worst
+
+
+def traced_modes(rec, device="cuda"):
+    """``trace=K`` through the entry points in every traced mode at the
+    figures' widths, lossless rings: ``simulate_network`` on
+    fig_delayed_hits B (LRU, 8-deep 100 us disk, 16 flows, 3 p x 2 seeds x
+    FIG_REQUESTS), fig_latency B's open loop (5 us disk, 0.838
+    lambda_max, 3 p x 3 seeds, 256 slots), fig_latency C's coalescing open
+    loop (16 flows, 2 seeds) and fig_cluster E's bursts (2 seeds, 512
+    slots); ``simulate_hierarchy`` on fig_hierarchy's network (K 18, mpl
+    96, F 4, 9 p x 2 seeds x HI_REQUESTS: ``simulate_network(tiers=...)``);
+    ``simulate_cluster`` on fig_cluster C (8 shards, 8 flows a shard, mpl
+    96, 3 p x 2 seeds x FIG_REQUESTS).  Each result's decoded ``traces``
+    are held by :func:`hold_traced_lanes` against an untraced launch of
+    the same lanes (whose throughput must be the result's), and the
+    result's own statistics are rebuilt from the records
+    (:func:`reconcile`): throughput, per-branch (per-level, per-shard)
+    and delayed rates and the delayed fraction over each lane's measured
+    window in the closed modes; class fractions (and, within
+    ``OPEN_SOJOURN_RTOL``, the mean sojourn) over the records from the
+    warmup on in the open loop."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.sim import simulate_cluster
+    from repro_torch.core import build, exponential_analogue
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.hierarchy.sim import simulate_hierarchy
+    from repro_torch.kernels import event_sim as es
+    from repro_torch.latency import lambda_max
+    from test_torch_event_sim_cuda import cluster_model, hierarchy_model
+
+    dev = torch.device(device)
+    out = {}
+
+    def run(what, net, call, lanes, open_loop=False, **extra):
+        t0 = time.perf_counter()
+        res = call()
+        sec = time.perf_counter() - t0
+        spec, seeds, kw = lanes
+        twin = (es.sim_open_lanes if open_loop else es.sim_lanes)(
+            spec, seeds, **kw, **extra)
+        n_s, n_p = len(res.traces), len(res.traces[0])
+        if not np.array_equal(twin.x.cpu().numpy().reshape(n_s, n_p).mean(0),
+                              res.throughput):
+            raise AssertionError(f"{what}: the untraced launch is not the "
+                                 "result's run")
+        got, summ = hold_traced_lanes(
+            what, res.traces, twin, kw["warmup"],
+            kw["n_slots"] if open_loop else kw["mpl"], len(net.branches),
+            [st.name for st in net.stations], open_loop)
+        out[what] = dict(summ, call_s=sec)
+        return res, got
+
+    def closed_pairs(res, got, folds):
+        rates = got["rates"].mean(0)
+        pairs = [("throughput", got["rates"].sum(-1).mean(0), res.throughput,
+                  0.0),
+                 ("delayed_frac", got["delayed_frac"].mean(0),
+                  res.delayed_frac, 0.0)]
+        for name, fold in folds.items():
+            pairs.append((name, fold(rates, got["delayed_rates"].mean(0)),
+                          getattr(res, name), 0.0))
+        return pairs
+
+    def open_pairs(what, res, got):
+        frac = np.array([[np.mean(c == k) for k in range(3)]
+                         for c in got["cls"]])
+        soj = np.array([j.mean() for j in got["sojourn"]])
+        out["open_sojourn_max_rel_diff"] = max(
+            out.get("open_sojourn_max_rel_diff", 0.0),
+            reconcile(what, [("sojourn_mean", soj, res.sojourn_mean, 0.0)],
+                      rtol=OPEN_SOJOURN_RTOL))
+        return reconcile(what, [("class_frac", frac, res.class_frac, 0.0)])
+
+    # fig_delayed_hits B: simulate_network with coalescing
+    net_b = build("lru", disk_us=DH_DISK_US, disk_servers=DH_IO_DEPTH)
+    ps = np.asarray(DH_P_SIM)
+    res, got = run(
+        "delayed_hits B", net_b,
+        lambda: simulate_network(net_b, ps, n_requests=FIG_REQUESTS,
+                                 seeds=(0, 1), coalesce_flows=16,
+                                 trace=FIG_REQUESTS + net_b.mpl,
+                                 device=device),
+        es.grid_lanes(net_b, ps, FIG_REQUESTS, (0, 1), 0.25, dev,
+                      coalesce_flows=16))
+    worst = reconcile("delayed_hits B", closed_pairs(res, got, {
+        "branch_throughput": lambda r, d: r,
+        "branch_delayed": lambda r, d: d}))
+
+    # fig_latency B's open loop, C's coalescing open loop, fig_cluster E's
+    # bursts: simulate_network(arrival_rate=...)
+    lat = build("lru", disk_us=LAT_DISK_US)
+    lam = LAT_SIM_LOAD * float(np.max(lambda_max(lat, np.linspace(0, 1, 201))))
+    net_l = exponential_analogue(build("lru", disk_us=LAT_DISK_US_SIM))
+    ps = np.asarray(LAT_P_SIM)
+    res, got = run(
+        "latency B open loop", net_l,
+        lambda: simulate_network(net_l, ps, arrival_rate=lam,
+                                 n_requests=FIG_REQUESTS, seeds=(0, 1, 2),
+                                 max_in_system=256,
+                                 trace=FIG_REQUESTS + 256,
+                                 device=device),
+        es.open_lanes(net_l, ps, np.full(len(ps), lam), FIG_REQUESTS,
+                      (0, 1, 2), 0.25, 256, device=dev), open_loop=True)
+    worst = max(worst, open_pairs("latency B open loop", res, got))
+    net_c = build("lru", disk_us=LAT_DISK_US, disk_servers=LAT_CO_IO_DEPTH)
+    net_c = dataclasses.replace(net_c, stations=tuple(
+        dataclasses.replace(st, dist="det") if st.name == "disk" else st
+        for st in net_c.stations))
+    res, got = run(
+        "latency C coalescing open loop", net_c,
+        lambda: simulate_network(net_c, [0.5], arrival_rate=LAT_CO_LAMBDA,
+                                 n_requests=FIG_REQUESTS, seeds=(0, 1),
+                                 coalesce_flows=LAT_CO_FLOWS,
+                                 max_in_system=256,
+                                 trace=FIG_REQUESTS + 256,
+                                 device=device),
+        es.open_lanes(net_c, np.array([0.5]), np.array([LAT_CO_LAMBDA]),
+                      FIG_REQUESTS, (0, 1), 0.25, 256,
+                      coalesce_flows=LAT_CO_FLOWS, device=dev),
+        open_loop=True)
+    worst = max(worst, open_pairs("latency C coalescing open loop", res, got))
+    cm = cluster_model(CL_SHARDS, 12 * CL_SHARDS, key_space=CL_SIM_KEYS)
+    net_e = exponential_analogue(cm.network)
+    lam_e = 0.55 * float(cm.lambda_max(0.6, tail_mode="nominal"))
+    burst = (0.55, 2_000.0)
+    res, got = run(
+        "cluster E burst open loop", net_e,
+        lambda: simulate_network(net_e, [0.6], arrival_rate=lam_e,
+                                 n_requests=FIG_REQUESTS, seeds=(0, 1),
+                                 max_in_system=512, burst=burst,
+                                 trace=FIG_REQUESTS + 512,
+                                 device=device),
+        es.open_lanes(net_e, np.array([0.6]), np.array([lam_e]),
+                      FIG_REQUESTS, (0, 1), 0.25, 512, burst=burst,
+                      device=dev), open_loop=True)
+    worst = max(worst, open_pairs("cluster E burst open loop", res, got))
+
+    # fig_hierarchy's network: simulate_hierarchy, the tiered tables
+    hm = hierarchy_model("fig", HI_MPL)
+    lo, hi = hm.profile.p_range()
+    ps = np.linspace(lo + 1e-3, hi - 1e-3, HI_GRID_N)
+    res, got = run(
+        "hierarchy", hm.network,
+        lambda: simulate_hierarchy(hm, ps, n_requests=HI_REQUESTS,
+                                   seeds=(0, 1), coalesce_flows=4,
+                                   trace=HI_REQUESTS + hm.network.mpl,
+                                   device=device),
+        es.grid_lanes(hm.network, ps, HI_REQUESTS, (0, 1), 0.25, dev,
+                      coalesce_flows=4, tiers=hm.mshr))
+    level, shard = np.asarray(hm.branch_level), np.asarray(hm.branch_shard)
+    worst = max(worst, reconcile("hierarchy", closed_pairs(res, got, {
+        "level_throughput": lambda r, d: np.stack(
+            [r[:, level == lv].sum(1) for lv in range(3)], axis=1),
+        "shard_throughput": lambda r, d: np.stack(
+            [r[:, shard == k].sum(1) for k in range(hm.n_shards)], axis=1)})))
+
+    # fig_cluster C: simulate_cluster with coalescing and its counts
+    shard = np.asarray(cm.branch_shard)
+    hit = ~np.asarray(cm.branch_has_disk)
+    ps = np.asarray(CL_SIM_P)
+    res, got = run(
+        "cluster C", cm.network,
+        lambda: simulate_cluster(cm, ps, n_requests=FIG_REQUESTS,
+                                 seeds=(0, 1), coalesce_flows=8,
+                                 trace=FIG_REQUESTS + cm.network.mpl,
+                                 device=device),
+        es.grid_lanes(cm.network, ps, FIG_REQUESTS, (0, 1), 0.25, dev,
+                      coalesce_flows=8), count_branches=True)
+
+    def per_shard(r, sel=True):
+        return np.stack([r[:, (shard == k) & sel].sum(1)
+                         for k in range(CL_SHARDS)], axis=1)
+
+    worst = max(worst, reconcile("cluster C", closed_pairs(res, got, {
+        "shard_throughput": lambda r, d: per_shard(r),
+        "shard_hit_ratio": lambda r, d: per_shard(r, hit) / per_shard(r),
+        "shard_delayed_frac": lambda r, d: per_shard(d) / per_shard(r)})))
+    out["reconcile_max_rel_diff"] = worst
+    rec["traced_modes"] = out
+
+
 def traced_path(rec):
     """The LRU network at 100 us through ``simulate_network(trace=...)``
     with lossless rings: every lane's records are exactly requests
     0..n-1, and its post-warmup records over the measured interval (both
     read off the records' stamps) give the throughput; per-station
-    utilization across P_GRID; one lane to Perfetto and back."""
+    utilization across P_GRID; one lane to Perfetto and back.  Then the
+    traced coalescing, open-loop and tiered modes (:func:`traced_modes`)."""
     import numpy as np
     from repro_torch.core.policy_models import lru_network
     from repro_torch.core.simulator import simulate_network
@@ -2824,6 +3406,7 @@ def traced_path(rec):
     rec["traced_path"] = {"x": sim.throughput.tolist(),
                           "branch_rate": rates, "stations": util,
                           "perfetto": summ, "seconds": seconds}
+    traced_modes(rec)
 
 
 def lru_update_path(rec):
@@ -4253,17 +4836,20 @@ def attention_timing():
 # the checks that time nothing, by name, in the order they are handed to
 # the workers (longest first)
 PARALLEL_CHECKS = {
+    "event_sim_vs_plain": check_event_sim,
+    "tiers_long_vs_plain": check_tiers_long,
     "sketch_ext_vs_plain": check_sketch_ext,
     "sketch_vs_plain": check_sketch,
-    "tiers_long_vs_plain": check_tiers_long,
     "replay_vs_plain": check_replay,
-    "event_sim_vs_plain": check_event_sim,
+    "trace_ext_vs_plain": check_trace_ext,
     "cluster_vs_plain": check_cluster,
     "tiers_vs_plain": check_tiers,
-    "sketch_trace_bc_vs_plain": check_sketch_trace_bc,
-    "open_vs_plain": check_open,
+    "trace_ext_tiers_vs_plain": check_trace_ext_tiers,
     "trace_vs_plain": check_trace,
+    "open_vs_plain": check_open,
+    "trace_ext_fig_vs_plain": check_trace_ext_fig,
     "coalesce_vs_plain": check_coalesce,
+    "sketch_trace_bc_vs_plain": check_sketch_trace_bc,
     "sketch_trace_vs_plain": check_sketch_trace,
 }
 
@@ -4332,19 +4918,24 @@ def main() -> int:
     from repro_torch.kernels import sketch as ksk
     from repro_torch.models import transformer
 
+    from repro_torch.obs.provenance import collect
+
     phases = Phases()
     card = phases.run("device", card_line)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    prov = collect(config={"script": "chip_smoke.py"}, device="cuda")
+    print(f"provenance: {json.dumps(prov)}", flush=True)
     ptxas = start_ptxas()
     phases.run("build", _build.load_library)
-    rec = {"card": card}
-    phases.run("event_sim_ptxas", event_sim_ptxas, ptxas, rec)
+    rec = {"card": card, "provenance": prov}
+    phases.run("event_sim_ptxas", event_sim_ptxas, rec)
     phases.run("replay_ptxas", replay_ptxas, ptxas, rec)
     phases.run("wkv_ptxas", wkv_ptxas, ptxas, rec)
     phases.run("flash_ptxas", flash_ptxas, ptxas, rec)
-    phases.run("sass", sass_counts, rec)
+    sass = start_sass()
     phases.run("parallel_checks", parallel_checks, rec)
+    phases.run("sass", sass_counts, sass, rec)
     phases.run("lru_update_vs_plain", check_lru_update, rec)
     phases.run("flash_vs_plain", check_flash, rec)
     phases.run("paged_vs_plain", check_paged, rec)
@@ -4357,8 +4948,13 @@ def main() -> int:
                 "event_sim": es.sim_lanes.launches}
     hold_main_path(rec, launches)
     es.sim_lanes.traced_launches = 0
+    es.sim_lanes.traced_flows_launches = es.sim_lanes.traced_tiers_launches = 0
+    es.sim_open_lanes.traced_launches = 0
     phases.run("traced_path", traced_path, rec)
     launches["event_sim_traced"] = es.sim_lanes.traced_launches
+    launches["event_sim_traced_ext"] = (es.sim_lanes.traced_flows_launches
+                                        + es.sim_lanes.traced_tiers_launches
+                                        + es.sim_open_lanes.traced_launches)
     cu.lru_update.launches = 0
     phases.run("lru_update_path", lru_update_path, rec)
     launches["lru_batch_update"] = cu.lru_update.launches

@@ -30,9 +30,10 @@ new request on completion); open-loop cluster runs go straight through
 
 ``sketch_cap > 0`` runs the streaming estimators on both: the simulator's
 observe the coalescing flows (``simulate_network``'s sketch), the oracle's
-exact twin counts the routed keys themselves.  Not ported yet, raising
-:class:`NotImplementedError`: tracing together with coalescing (ROADMAP
-queue 1, item 8, its trace half).
+exact twin counts the routed keys themselves.  ``trace > 0`` keeps
+per-request records on both, with coalescing or without: one traced launch
+of the coalescing kernel carries the records and the counts (without
+coalescing, a traced closed launch beside the counting one).
 """
 
 from __future__ import annotations
@@ -51,9 +52,6 @@ from repro_torch.kernels.event_sim import simulate_grid
 from repro_torch.obs.streaming import PyStreamSketch
 
 __all__ = ["ClusterSimResult", "simulate_cluster", "simulate_cluster_py"]
-
-_ITEM_8 = "ROADMAP queue 1, item 8 (its trace half: tracing with coalescing)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSimResult:
@@ -92,21 +90,17 @@ def simulate_cluster(model: ClusterModel, p_hits, n_requests: int = 40_000,
     ``coalesce_flows`` is the per-shard MSHR hot-flow count (each shard's
     disk owns its own flow group); ``trace=K`` keeps the last K
     per-request trace records per lane (see :mod:`repro_torch.obs.trace`;
-    without coalescing only).  Everything else matches
+    with coalescing, the jobs a fill wakes are delayed records).
+    Everything else matches
     :func:`repro_torch.core.simulator.simulate_network`, whose grid this
     runs (:func:`repro_torch.kernels.event_sim.simulate_grid`, with the
     per-branch counts).  ``sketch_cap=K`` threads the streaming estimators
     (:mod:`repro_torch.obs.streaming`, windowed every ``window_us``
-    simulated µs) onto ``sketches``.  ``trace`` with coalescing raises
-    :class:`NotImplementedError`.
+    simulated µs) onto ``sketches``.
     """
     if sketch_cap and window_us <= 0.0:
         raise ValueError("sketch_cap > 0 requires window_us > 0 (the "
                          "tumbling-window width in simulated µs)")
-    if trace and coalesce_flows:
-        raise NotImplementedError(
-            f"simulate_cluster(trace=...) with coalesce_flows is not ported "
-            f"yet: {_ITEM_8}")
     res = simulate_grid(model.network, p_hits, n_requests=n_requests,
                         seeds=seeds, warmup_frac=warmup_frac, trace=trace,
                         coalesce_flows=coalesce_flows,

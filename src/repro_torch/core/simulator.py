@@ -3,8 +3,8 @@
 
 The **closed loop**: exactly ``mpl`` jobs, think stations infinite-server,
 queue stations c-server FCFS, a completed request re-entering at once
-with a fresh branch, optionally traced (``trace=K``: per-request records,
-:mod:`repro_torch.obs`).  With ``coalesce_flows > 0`` misses coalesce on
+with a fresh branch.  Every mode below may be traced as well (``trace=K``:
+per-request records, :mod:`repro_torch.obs`).  With ``coalesce_flows > 0`` misses coalesce on
 an MSHR-style outstanding-miss table (delayed hits): a job arriving at a
 disk station whose flow already has a fetch in flight parks, holds no
 server, and completes when the fill lands.  With ``tiers`` (an
@@ -47,7 +47,8 @@ from repro_torch.core.simspec import (BIG_SEQ, INF_NS, SimResult, SimSpec,
                                       compile_network, stack_specs)
 from repro_torch.kernels.event_sim import open_grid, simulate_grid
 from repro_torch.obs.streaming import decode_sketch_grid
-from repro_torch.obs.trace import CLS_DELAYED, CLS_HIT, CLS_MISS
+from repro_torch.obs.trace import (CLS_DELAYED, CLS_HIT, CLS_MISS,
+                                   decode_trace_grid)
 
 __all__ = ["BIG_SEQ", "INF_NS", "SimResult", "SimSpec", "OpenSimResult",
            "CLS_MISS", "CLS_HIT", "CLS_DELAYED", "compile_network",
@@ -83,9 +84,9 @@ class OpenSimResult:
     # (deep overload): their statistics cover fewer completions than asked.
     truncated: np.ndarray
     n_requests: int
-    # trace records: None until the port traces the open loop (ROADMAP
-    # queue 1, item 8, its trace half); decoded per-lane streaming
-    # estimators ([seed][p] SketchEstimates) when sketch_cap=K was asked.
+    # decoded per-lane trace records ([seed][p] TraceRecords) when
+    # trace=K was asked; decoded per-lane streaming estimators ([seed][p]
+    # SketchEstimates) when sketch_cap=K was asked.
     traces: list | None = None
     sketches: list | None = None
 
@@ -119,9 +120,12 @@ def simulate_network(
     ``n_requests`` completions (or ``n_requests * (Lr + 2) * 3`` events);
     returns a :class:`SimResult` with the mean throughput (requests/µs)
     and its CI95 half-width across seeds.  ``trace=K`` keeps the last K
-    per-request trace records of every lane (the traced kernel) and
-    decodes them onto the result's ``traces``, ``[seed][p]``; the
-    statistics are the untraced run's bit for bit.
+    per-request trace records of every lane (the traced kernel), in every
+    mode below as well, and decodes them onto the result's ``traces``,
+    ``[seed][p]``; the statistics are the untraced run's bit for bit.
+    With coalescing the jobs a fill wakes are records of class delayed,
+    each ``parked_us`` after it parked; in the open loop a record's
+    ``req`` is its completion index.
 
     ``coalesce_flows > 0`` turns on miss coalescing: a job arriving at a
     disk station samples one of ``coalesce_flows`` hot keys of its disk
@@ -165,9 +169,7 @@ def simulate_network(
     The keywords are the reference's.  ``backend`` names the engine: the
     port has one, the reference's counter-RNG ``"pallas"`` engine, so that
     is its default and ``"jax"`` (the reference's threefry engine) raises
-    :class:`ValueError`.  ``trace`` together with coalescing (tiered or
-    not) or the open loop belongs to a later slice of the port: it raises
-    :class:`NotImplementedError` naming its ROADMAP item.
+    :class:`ValueError`.
     """
     if backend not in ("jax", "pallas"):
         raise ValueError(f"unknown backend {backend!r} (want 'jax' or "
@@ -187,10 +189,6 @@ def simulate_network(
     if sketch_cap and window_us <= 0.0:
         raise ValueError("sketch_cap > 0 requires window_us > 0 (the "
                          "tumbling-window width in simulated µs)")
-    if trace and (coalesce_flows or arrival_rate is not None):
-        raise NotImplementedError(
-            "simulate_network(trace=...) with coalesce_flows or arrival_rate "
-            "is not ported yet: ROADMAP queue 1, item 8 (its trace half)")
     if arrival_rate is None:
         if burst is not None:
             raise ValueError("burst arrivals require arrival_rate "
@@ -203,13 +201,14 @@ def simulate_network(
                              device=device)
     return _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                           warmup_frac, max_in_system, burst, coalesce_flows,
-                          coalesce_theta, sketch_cap, window_us, device)
+                          coalesce_theta, sketch_cap, window_us, device,
+                          int(trace))
 
 
 def _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                    warmup_frac, max_in_system, burst, coalesce_flows,
-                   coalesce_theta, sketch_cap, window_us,
-                   device) -> OpenSimResult:
+                   coalesce_theta, sketch_cap, window_us, device,
+                   trace=0) -> OpenSimResult:
     """The open-loop grid and the reference's reduction of its records."""
     p_hits = np.atleast_1d(np.asarray(p_hits, dtype=np.float64))
     n_p, n_s = len(p_hits), len(seeds)
@@ -227,13 +226,17 @@ def _simulate_open(net, p_hits, arrival_rate, n_requests, seeds,
                     coalesce_flows=int(coalesce_flows),
                     coalesce_theta=float(coalesce_theta),
                     sketch_cap=int(sketch_cap), window_us=float(window_us),
-                    device=device)
+                    device=device, trace=trace)
     res = open_result(out, p_hits, lam, n_requests, n_s,
                       int(n_requests * warmup_frac))
-    if out.sketch is None:
-        return res
-    return dataclasses.replace(res, sketches=decode_sketch_grid(
-        out.sketch, n_s, len(p_hits), float(window_us)))
+    if out.rings is not None:
+        visits = compile_network(net, float(p_hits[0]), device="cpu").visits
+        res = dataclasses.replace(res, traces=decode_trace_grid(
+            out.rings, visits, n_s, n_p))
+    if out.sketch is not None:
+        res = dataclasses.replace(res, sketches=decode_sketch_grid(
+            out.sketch, n_s, n_p, float(window_us)))
+    return res
 
 
 def open_result(out, p_hits, lam, n_requests: int, n_s: int,

@@ -15,9 +15,9 @@
 The reference runs the tiered loop on its threefry engine and the port
 on its counter engine, so the two agree statistically.  ``sketch_cap > 0``
 runs the streaming estimators on both twins (the sketched instantiation of
-the kernel; the oracle's exact twin).  Not ported yet, raising
-:class:`NotImplementedError`: tracing together with coalescing (ROADMAP
-queue 1, item 8, its trace half).
+the kernel; the oracle's exact twin), and ``trace > 0`` keeps
+per-request records on both (the traced tiered instantiation: the jobs a
+cascade wakes are delayed records).
 """
 
 from __future__ import annotations
@@ -55,9 +55,8 @@ class HierarchySimResult:
     delayed_l2_frac: np.ndarray  # (P,) parked at a shard origin table
     n_requests: int
     # per-request trace records when the run asked for tracing
-    # (``trace=K``, without coalescing): [seed][p] TraceRecords from the
-    # simulator, a single TraceRecords from the heapq oracle.  None
-    # otherwise.
+    # (``trace=K``): [seed][p] TraceRecords from the simulator, a single
+    # TraceRecords from the heapq oracle.  None otherwise.
     traces: object = None
     # streaming-estimator decodes when the run asked for them
     # (``sketch_cap=K``): [seed][p] SketchEstimates from the simulator, a
@@ -102,14 +101,13 @@ def simulate_hierarchy(model: HierarchyModel, p_hits,
     client at L1, per shard at the origin) and runs the tiered kernel;
     0 runs the plain closed loop (the counting kernel, which takes the
     per-branch counts the fold reads) as the no-coalescing reference.
-    ``trace=K`` (without coalescing) keeps the last K per-request trace
-    records per (seed, p) lane on the result's ``traces`` — the branch id
+    ``trace=K`` keeps the last K per-request trace records per (seed, p)
+    lane on the result's ``traces`` — the branch id
     in each record resolves a request to its client / shard / serving
     level through ``model.branch_client`` & friends.  ``sketch_cap=K``
     threads the streaming estimators (:mod:`repro_torch.obs.streaming`,
     sampled every ``window_us`` simulated µs) and decodes them onto
-    ``sketches``.  ``trace`` with coalescing raises
-    :class:`NotImplementedError`.  Wraps
+    ``sketches``.  Wraps
     :func:`repro_torch.core.simulator.simulate_network`.
     """
     if sketch_cap and window_us <= 0.0:

@@ -156,14 +156,21 @@ extern "C" int event_sim_ext_shared_bytes(const ExtArgs* p, int sketched) {
   return ext_shared_bytes(*p, sketched != 0);
 }
 
-// Every launch: the closed loop (closed; traced when cap > 0, into the
-// rings the caller allocates with req = -1), the coalescing (open == 0,
+// Every launch: the closed loop (closed), the coalescing (open == 0,
 // n_flows > 0), open-loop (open == 1), tiered (tiers == 1, n_flows > 0,
 // max_held <= kMaxHeld) or counting (open == 0, n_flows == 0) loop, one
-// warp per lane on `stream`; with the sketch *s when s is not null (its
-// instantiations are event_sim_sketch.cu's).  Returns the cudaError_t.
+// warp per lane on `stream`, traced when cap > 0 (every mode but the
+// counting one), into the rings the caller allocates with req = -1; with
+// the sketch *s when s is not null (its instantiations are
+// event_sim_sketch.cu's; traced, those of the closed loop too, and
+// event_sim_traced.cu's and event_sim_traced_sketch.cu's the other traced
+// ones).  Returns the cudaError_t.
 extern "C" int event_sim_ext_launch(const ExtArgs* p, const SketchArgs* s,
                                     void* stream) {
+  if (p->cap > 0 && ext_mode(*p) != kClosed) {
+    return s != nullptr ? traced_sketched_launch(*p, *s, stream)
+                        : traced_launch(*p, stream);
+  }
   if (s != nullptr) return sketched_launch(*p, *s, stream);
   return launch_mode(*p, ext_of(*p), tiers_of<TierExt>(*p), stream);
 }

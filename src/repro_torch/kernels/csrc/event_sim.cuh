@@ -1,6 +1,8 @@
 // The event-sim kernel template and its launch helpers, shared by
-// event_sim.cu (the instantiations without the streaming sketch) and
-// event_sim_sketch.cu (those with it): two sources, so that nvcc builds
+// event_sim.cu (the instantiations without the streaming sketch),
+// event_sim_sketch.cu (those with it), event_sim_traced.cu and
+// event_sim_traced_sketch.cu (the traced coalescing, open-loop and tiered
+// instantiations, without and with it): four sources, so that nvcc builds
 // them in parallel.  The design is event_sim.cu's header comment.
 
 #pragma once
@@ -550,8 +552,62 @@ __global__ void __launch_bounds__(32)
       }
     }
   };
+  // kTrace, every mode but the closed loop: the records of the jobs a fill
+  // wakes, stored in the event itself, in job order (a ballot per slot
+  // round, its set bits in turn; the warp writes each record: stamp slot u
+  // by thread u % 32, which alone reads and writes it, the other fields by
+  // thread 0, as the deferred stores do, so a later record on the same row
+  // is stored after).  is_woken(r): this thread's slot r holds a woken job.
+  // Each leaves its park visit now, parked since it entered it; in the
+  // closed modes its fresh request enters visit 0 now.
+  auto trace_woken = [&](auto is_woken) {
+    if constexpr (kTrace > 0 && kMode != kClosed) {
+      int req = completed;
+      const size_t lane0 = static_cast<size_t>(lane_id) * (rings.cap + 1);
+#pragma unroll
+      for (int r = 0; r < jobs.max_slots(); ++r) {
+        const bool w = r < jobs.slots() && is_woken(r);
+        const int pw = w ? jobs.pos(r) : 0, bw = w ? jobs.br(r) : 0;
+        unsigned m = __ballot_sync(FULL, w);
+        while (m != 0u) {
+          const int src = __ffs(m) - 1;
+          m &= m - 1u;
+          const int p = __shfl_sync(FULL, pw, src);
+          const int b = __shfl_sync(FULL, bw, src);
+          const size_t row = lane0 + req % rings.cap;
+          float* ej = enter_s + (32 * r + src) * n_l;
+          float* lj = leave_s + (32 * r + src) * n_l;
+          float parked = 0.0f;
+          for (int u = me; u < n_l; u += 32) {
+            const float ev = ej[u];
+            rings.enter[row * n_l + u] = ev;
+            rings.leave[row * n_l + u] = u == p ? elapsed_us : lj[u];
+            if (u == p) {
+              lj[u] = elapsed_us;
+              parked = elapsed_us - ev;
+            }
+            if (!kOp && u == 0) ej[0] = elapsed_us;
+          }
+          parked = __shfl_sync(FULL, parked, p & 31);
+          if (me == 0) {
+            rings.req[row] = req;
+            rings.branch[row] = b;
+            rings.cls[row] = CLS_DELAYED;
+            rings.nvis[row] = p + 1;
+            rings.parked[row] = parked;
+          }
+          ++req;
+        }
+      }
+    }
+  };
   while (completed < a.n_requests && events < max_events) {
     store_trace();
+    if constexpr (kTrace > 0 && kOp) {
+      // an arrival or a toggle writes no record and no stamp of j
+      tr.done = false;
+      tr.enter_at = tr.leave_at = trash + me;
+    }
     if (slot == kBatch) {
       // draw the next kBatch events, event e = events + me here (its
       // counters 2 mpl + 3 e + {0, 1, 2})
@@ -624,6 +680,11 @@ __global__ void __launch_bounds__(32)
           }
         }
         if (free_slot >= 0) {
+          // traced: the admitted request enters visit 0 now (stamp slot 0
+          // is thread 0's)
+          if constexpr (kTrace > 0) {
+            if (me == 0) enter_s[free_slot * n_l] = elapsed_us;
+          }
           const uint32_t ready0 = clock + static_cast<uint32_t>(d[n_k + first]);
           jobs.at(me == (free_slot & 31) ? free_slot >> 5 : -1, [&](int r) {
             jobs.ready(r) = ready0;
@@ -833,6 +894,7 @@ __global__ void __launch_bounds__(32)
       if (fill) {
         const int n_woken = __reduce_add_sync(FULL, lwoken);
         if (n_woken > 0) {
+          trace_woken([&](int r) { return jobs.fl(r) == f_cur && me + 32 * r != j; });
           int before = completed;  // the next woken job's record index
           const unsigned lower = (1u << me) - 1u;
 #pragma unroll
@@ -880,6 +942,7 @@ __global__ void __launch_bounds__(32)
     // the branch and at the level they parked at, and start fresh requests
     if constexpr (kTi) {
       if (n_woken_t > 0) {
+        trace_woken([&](int r) { return jobs.st(r) == WOKEN; });
 #pragma unroll
         for (int r = 0; r < jobs.slots(); ++r) {
           if (jobs.st(r) == WOKEN) {
@@ -986,9 +1049,11 @@ __global__ void __launch_bounds__(32)
     if constexpr (kTrace > 0) {
       // the finished request's record, its last visit left just now, and
       // the stamps: held in registers, stored at the top of the next event
+      // (with coalescing, after the woken jobs' records: req counts them)
       const int pos_next = done ? 0 : pos_j + 1;
       float* enter_j = enter_s + j * n_l;
       float* leave_j = leave_s + j * n_l;
+      if constexpr (kMode != kClosed) ring_row = completed % rings.cap;
       const size_t row = static_cast<size_t>(lane_id) * (rings.cap + 1) + ring_row;
       tr.done = done;
       tr.row = row;
@@ -1003,7 +1068,8 @@ __global__ void __launch_bounds__(32)
       // new stamp or the value it read), threads past the route a trash word
       tr.leave_at = me < n_l ? leave_j + me : trash + me;
       tr.leave_stamp = me == pos_j ? elapsed_us : leave_v;
-      tr.enter_at = me < n_l ? enter_j + me : trash + me;
+      // (kOp: a request that completes leaves its slot and enters nothing)
+      tr.enter_at = me < n_l && !(kOp && done) ? enter_j + me : trash + me;
       tr.enter_stamp = me == pos_next ? elapsed_us : enter_v;
       if constexpr (kTrace == 2) {  // routes longer than a warp: slots 32..
         for (int u = me + 32; done && u < n_l; u += 32) {
@@ -1223,3 +1289,29 @@ static int launch_mode(const ExtArgs& p, const E& ex, const TE& tx,
 // event_sim_sketch.cu: launch_mode with the sketch s, every lane's state
 // updated in place.
 int sketched_launch(const ExtArgs& p, const SketchArgs& s, void* stream);
+
+// The traced launch of the coalescing, open-loop or tiered mode that
+// ext_mode(p) selects (p.cap > 0; the counting mode is not traced), with
+// parameters ex (kTiers: tx), into the rings of p.  Every route length
+// takes the kTrace = 2 instantiation: its loops over stamp slots past the
+// warp run no iteration on shorter routes.  Returns the cudaError_t.
+template <class E, class TE>
+static int launch_traced_mode(const ExtArgs& p, const E& ex, const TE& tx,
+                              void* stream) {
+  const Args a = args_of(p);
+  const Rings rings{p.bmiss, p.n_count, p.req, p.rbranch, p.rcls,
+                    p.nvis, p.parked, p.enter, p.leave, p.cap};
+  switch (ext_mode(p)) {
+    case kOpen: return launch_ext<kOpen, E, 2>(a, ex, p.lanes, stream, rings);
+    case kTiers:
+      if (p.max_held > kMaxHeld || p.max_held < 1) return (int)cudaErrorInvalidValue;
+      return launch_ext<kTiers, TE, 2>(a, tx, p.lanes, stream, rings);
+    case kFlows: return launch_ext<kFlows, E, 2>(a, ex, p.lanes, stream, rings);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// event_sim_traced.cu and event_sim_traced_sketch.cu: launch_traced_mode
+// without the sketch, and with the sketch s.
+int traced_launch(const ExtArgs& p, void* stream);
+int traced_sketched_launch(const ExtArgs& p, const SketchArgs& s, void* stream);

@@ -28,7 +28,11 @@ With ``trace_cap=K > 0`` both versions also fill per-lane
 request's visits, and one record per completed request at ring row
 ``req % K``.  Tracing draws no random numbers, so the simulated system is
 the untraced one bit for bit; with ``trace_cap=0`` no trace code runs
-(the CUDA kernel's untraced instantiation compiles none).
+(the CUDA kernel's untraced instantiation compiles none).  Every mode
+below traces too (the reference's threefry engine with ``trace_cap``):
+the jobs a fill wakes write their records as delayed hits before the job
+whose event it is (traced instantiations of its own source,
+``csrc/event_sim_traced.cu``).
 
 Two further modes, which the reference runs only on its threefry engine
 (``repro.core.simulator._simulate`` with ``n_flows``, and
@@ -322,6 +326,17 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     it at level ``acq_slot``; the warmup snapshot, which also takes the
     per-level counts.
 
+    Traced with coalescing (tiered or not; the reference's ``_simulate``
+    and ``_simulate_tiered`` with ``trace_cap``), the jobs a fill (or a
+    cascade) wakes write their records first, in job order, before the
+    wake draws their fresh requests (:func:`_trace_woken`: ``req`` the
+    completions so far plus the job's rank among the woken, the branch it
+    parked on, class delayed, ``nvis = pos + 1``, ``parked_us`` the time
+    since it entered its park visit); each then enters visit 0 now.  Job
+    ``j``'s record and stamps follow as in the closed loop, at the
+    ``req`` after them.  ``bmiss`` gives the classes of ``j``'s records (a
+    tiered network's acquiring branches are miss routes).
+
     With ``sketch_cap > 0`` the streaming estimators (a
     :class:`~repro_torch.obs.streaming.SketchState` of the L lanes,
     returned on ``sketch``) run at the reference's sites (``_simulate``
@@ -439,6 +454,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 if sketch is not None:
                     stream_done_many(sketch, slot, branch, woken, decay)
                 co.count_levels(woken)
+                if trace_cap:
+                    _trace_woken(rings, enter_s, leave_s, woken, branch, pos,
+                                 elapsed, completed, trace_cap, restart=True)
                 wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
                 ready = torch.where(woken, wsvc, ready)
                 station = torch.where(woken, wst, station)
@@ -454,6 +472,9 @@ def sim_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 co.count(woken, branch)
                 if sketch is not None:
                     stream_done_many(sketch, slot, branch, woken, decay)
+                if trace_cap:
+                    _trace_woken(rings, enter_s, leave_s, woken, branch, pos,
+                                 elapsed, completed, trace_cap, restart=True)
                 wb, wst, wsvc = co.wake_draws(e - 1, pick_branch, visit, spec)
                 ready = torch.where(woken, wsvc, ready)
                 station = torch.where(woken, wst, station)
@@ -781,6 +802,7 @@ class OpenLaneOutputs(NamedTuple):
     sojourn_us: torch.Tensor    # (L, n_requests + N) f32, by completion
     cls: torch.Tensor           # (L, n_requests + N) i8 CLS_MISS/HIT/DELAYED
     sketch: Optional[SketchState] = None  # filled when sketch_cap > 0
+    rings: Optional[TraceRings] = None  # filled when trace_cap > 0
 
 
 def exp_ns(u: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
@@ -797,8 +819,8 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
                          bmiss: torch.Tensor, burst=None, n_flows: int = 0,
                          flow_theta: float = 0.0, n_disks: int = 1,
                          disk_rank: Optional[torch.Tensor] = None,
-                         sketch_cap: int = 0,
-                         window_us: float = 0.0) -> OpenLaneOutputs:
+                         sketch_cap: int = 0, window_us: float = 0.0,
+                         trace_cap: int = 0) -> OpenLaneOutputs:
     """The open-loop kernel's plain PyTorch version, every lane batched
     (the reference ``_simulate_open`` on the counter streams).
 
@@ -830,6 +852,15 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
     ``_simulate_open``: every event ticks, every offered arrival (dropped
     ones too) is counted, and a departure's fill, completion and disk
     arrival feed the sketch.
+
+    ``trace_cap > 0`` fills the lanes' trace rings (returned on ``rings``)
+    at the reference's sites: an admitted arrival enters visit 0 of its
+    slot now (a dropped one writes nothing); the jobs a fill wakes write
+    their records first, in slot order, at the completion indices their
+    sojourns take (:func:`_trace_woken`, without a fresh request); then
+    the departing job leaves its visit, writes its record if it completes
+    (req = its completion index) and otherwise enters its next visit.
+    Tracing draws no random numbers.
     """
     dev = seeds.device
     n_l, n = seeds.shape[0], n_slots
@@ -887,7 +918,12 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
         co.sketch = sketch
     if sketch is not None:
         decay = pow_table(n, device=dev)
-    slot_idx = torch.arange(n, device=dev)[None, :]
+    rings = None
+    if trace_cap:
+        rings = init_rings(n_l, trace_cap, route_len, dev)
+        enter_s = torch.zeros((n_l, n, route_len), dtype=torch.float32,
+                              device=dev)
+        leave_s = torch.zeros_like(enter_s)
 
     def record(at: torch.Tensor, value, c) -> None:
         # at: (L,) or (L, n) record index, n_rec = the scrap column
@@ -953,6 +989,9 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
         put(branch, slot, b0, admit)
         put(pos, slot, 0, admit)
         put(age, slot, 0.0, admit)
+        if trace_cap:
+            enter_s[lane, slot, 0] = torch.where(admit, elapsed,
+                                                 enter_s[lane, slot, 0])
         dropped = dropped + (arr & ~admit).long()
         next_arr = torch.where(arr, exp_ns(u_ia[:, c], ia_mean), next_arr)
 
@@ -978,6 +1017,10 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
                 widx = completed[:, None] + woken.long().cumsum(dim=1) - 1
                 record(torch.where(woken, widx, n_rec), age,
                        torch.full_like(widx, CLS_DELAYED))
+                if trace_cap:
+                    _trace_woken(rings, enter_s, leave_s, woken, branch, pos,
+                                 elapsed, completed, trace_cap,
+                                 restart=False)
                 completed = completed + woken.sum(dim=1)
                 co.delayed += woken.sum(dim=1)
                 ready = torch.where(woken, inf, ready)
@@ -1004,6 +1047,11 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
                torch.where(j_miss, CLS_MISS, CLS_HIT))
         if sketch is not None:
             stream_done(sketch, w_slot, b_j, ~j_miss, False, done)
+        if trace_cap:
+            _trace_event(rings, enter_s, leave_s, lane, j, pos[lane, j],
+                         nxt.clamp(max=route_len - 1), b_j, miss, elapsed,
+                         completed, dep, done, trace_cap,
+                         enters=dep & ~done)
         completed = completed + done.long()
 
         k_next = route_next.clamp(min=0)
@@ -1037,7 +1085,41 @@ def sim_open_lanes_plain(spec: _LaneSpec, seeds: torch.Tensor, *,
     return OpenLaneOutputs(x, completed.to(torch.int32),
                            events.to(torch.int32), t_meas, frac,
                            dropped.to(torch.int32), soj[:, :n_rec],
-                           cls[:, :n_rec], sketch)
+                           cls[:, :n_rec], sketch, rings)
+
+
+def _trace_woken(rings: TraceRings, enter_s: torch.Tensor,
+                 leave_s: torch.Tensor, woken: torch.Tensor,
+                 branch: torch.Tensor, pos: torch.Tensor,
+                 elapsed: torch.Tensor, completed: torch.Tensor, cap: int,
+                 restart: bool) -> None:
+    """The records of the jobs a fill wakes, in place, every lane at once
+    (the reference's ``ring_write_many``): in job order, woken job ``i``
+    leaves its park visit ``pos[i]`` now and completes as request
+    ``completed + rank`` (its rank among the woken), a delayed hit under
+    the branch it parked on, parked since it entered that visit; with
+    ``restart`` its fresh request then enters visit 0 now.  Of woken jobs
+    that land on one row (more woken than ``cap``) only the last writes;
+    every other write goes to the scrap row ``cap``."""
+    n_w = woken.sum(dim=1, keepdim=True)
+    rank = woken.long().cumsum(dim=1) - 1
+    req = completed[:, None] + rank
+    row = torch.where(woken & (rank >= n_w - cap), req % cap, cap)
+    lane = torch.arange(woken.shape[0], device=woken.device)[:, None]
+    now = elapsed[:, None]
+    at = pos.unsqueeze(-1)
+    leave_s.scatter_(2, at, torch.where(
+        woken, now, leave_s.gather(2, at).squeeze(-1)).unsqueeze(-1))
+    rings.req[lane, row] = req.to(torch.int32)
+    rings.branch[lane, row] = branch.to(torch.int32)
+    rings.cls[lane, row] = CLS_DELAYED
+    rings.nvis[lane, row] = (pos + 1).to(torch.int32)
+    rings.parked_us[lane, row] = now - enter_s.gather(2, at).squeeze(-1)
+    rings.enter_us[lane, row] = enter_s
+    rings.leave_us[lane, row] = leave_s
+    rings.n_count.add_(n_w.squeeze(1).to(torch.int32))
+    if restart:
+        enter_s[..., 0] = torch.where(woken, now, enter_s[..., 0])
 
 
 def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
@@ -1045,10 +1127,12 @@ def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
                  pos_j: torch.Tensor, pos_next: torch.Tensor,
                  b_j: torch.Tensor, miss: torch.Tensor, elapsed: torch.Tensor,
                  completed: torch.Tensor, active: torch.Tensor,
-                 write: torch.Tensor, cap: int) -> None:
+                 write: torch.Tensor, cap: int,
+                 enters: Optional[torch.Tensor] = None) -> None:
     """One event's trace updates, in place, every lane at once: stamp job
     ``j`` leaving visit ``pos_j``, write the record of a completing request
-    (scrap row ``cap`` otherwise), stamp ``j`` entering ``pos_next``."""
+    (scrap row ``cap`` otherwise), stamp ``j`` entering ``pos_next`` (on
+    the lanes ``enters``, default ``active``)."""
     leave_s[lane, j, pos_j] = torch.where(active, elapsed,
                                           leave_s[lane, j, pos_j])
     row = torch.where(write, completed % cap, cap)
@@ -1062,7 +1146,8 @@ def _trace_event(rings: TraceRings, enter_s: torch.Tensor,
     rings.enter_us[lane, row] = enter_s[lane, j]
     rings.leave_us[lane, row] = leave_s[lane, j]
     rings.n_count.add_(write.to(torch.int32))
-    enter_s[lane, j, pos_next] = torch.where(active, elapsed,
+    enters = active if enters is None else enters
+    enter_s[lane, j, pos_next] = torch.where(enters, elapsed,
                                              enter_s[lane, j, pos_next])
 
 
@@ -1149,7 +1234,8 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     ``count_branches`` with ``n_flows = 0`` runs the counting kernel
     (``kCount``): the closed loop's events with the per-branch counts (and
     a zero delayed fraction) on the result; traced as well, it is one
-    traced and one counting launch, which simulate the same events.
+    traced closed and one counting launch, which simulate the same
+    events.
     ``tiers`` (a :class:`LaneTiers`, with ``n_flows > 0``) runs the tiered
     kernel (``kTiers``, see :func:`sim_lanes_plain`) in place of the
     coalescing one; the result carries the per-branch counts and the
@@ -1160,10 +1246,15 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     is a hit); the result carries the lanes' state on ``sketch``, and its
     other outputs are the unsketched launch's bit for bit.  Traced with
     the per-branch counts as well, the sketch rides the traced launch.
+    ``trace_cap > 0`` with ``n_flows > 0`` runs the traced coalescing or
+    tiered instantiation, one launch that carries the rings, the counts
+    and (``sketch_cap > 0``) the sketch.
     Untraced, traced, coalescing, counting and tiered launches are counted
     apart (``sim_lanes.launches``, ``.traced_launches``,
-    ``.flows_launches``, ``.count_launches``, ``.tiers_launches``), and
-    every sketched launch, of any mode, in ``.sketch_launches``.
+    ``.flows_launches``, ``.count_launches``, ``.tiers_launches``), as are
+    the traced coalescing and tiered ones (``.traced_flows_launches``,
+    ``.traced_tiers_launches``), and every sketched launch, of any mode,
+    in ``.sketch_launches``.
     """
     if trace_cap < 0:
         raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
@@ -1184,13 +1275,8 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                              f"{MAX_GROUPS} leader groups")
         extra.update(acq_group=tiers.acq_group, acq_slot=tiers.acq_slot,
                      rel_slot=tiers.rel_slot)
-    if trace_cap:
-        if n_flows:
-            raise NotImplementedError(
-                "tracing with coalescing is not ported yet: ROADMAP queue 1, "
-                "item 8 (its trace half)")
-        if bmiss is None:
-            raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
+    if trace_cap and bmiss is None:
+        raise ValueError("trace_cap > 0 needs the (L, B) bmiss table")
     if sketch_cap:
         if bmiss is None:
             raise ValueError("sketch_cap > 0 needs the (L, B) bmiss table")
@@ -1215,17 +1301,31 @@ def sim_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     sk = sketch_init(sketch_cap, spec.visits.shape[1], seeds.shape[0],
                      device=seeds.device)
     sketched = None if sk is None else (sk, window_us)
+    if n_flows:
+        # coalescing or tiered, traced or not, with the sketch or not: one
+        # launch
+        out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
+                          n_jobs=mpl, max_events=max_events, bmiss=bmiss,
+                          trace_cap=trace_cap, sketch=sketched, **flows)
+        tiered = tiers is not None
+        if sketched is not None:
+            sim_lanes.sketch_launches += 1
+        elif trace_cap and tiered:
+            sim_lanes.traced_tiers_launches += 1
+        elif trace_cap:
+            sim_lanes.traced_flows_launches += 1
+        elif tiered:
+            sim_lanes.tiers_launches += 1
+        else:
+            sim_lanes.flows_launches += 1
+        return out
     count = {}
-    if n_flows or count_branches:
+    if count_branches:
         out = _launch_ext(spec, seeds, n_requests=n_requests, warmup=warmup,
                           n_jobs=mpl, max_events=max_events, bmiss=bmiss,
                           sketch=None if trace_cap else sketched, **flows)
         if sketched is not None and not trace_cap:
             sim_lanes.sketch_launches += 1
-        elif tiers is not None:
-            sim_lanes.tiers_launches += 1
-        elif n_flows:
-            sim_lanes.flows_launches += 1
         else:
             sim_lanes.count_launches += 1
         if not trace_cap:
@@ -1253,6 +1353,9 @@ sim_lanes.traced_launches = 0  # traced kernel launches (CUDA path only)
 sim_lanes.flows_launches = 0  # coalescing kernel launches (CUDA path only)
 sim_lanes.count_launches = 0  # counting kernel launches (CUDA path only)
 sim_lanes.tiers_launches = 0  # tiered kernel launches (CUDA path only)
+# traced coalescing and traced tiered launches (CUDA path only)
+sim_lanes.traced_flows_launches = 0
+sim_lanes.traced_tiers_launches = 0
 # sketched launches of any mode, sim_open_lanes' too (CUDA path only)
 sim_lanes.sketch_launches = 0
 
@@ -1263,8 +1366,8 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                    n_flows: int = 0, flow_theta: float = 0.0,
                    n_disks: int = 1,
                    disk_rank: Optional[torch.Tensor] = None,
-                   sketch_cap: int = 0, window_us: float = 0.0
-                   ) -> OpenLaneOutputs:
+                   sketch_cap: int = 0, window_us: float = 0.0,
+                   trace_cap: int = 0) -> OpenLaneOutputs:
     """Simulate ``(L,)`` open-loop lanes (see :func:`sim_open_lanes_plain`
     for the arguments): the CUDA kernel's open-loop instantiation for
     CUDA tensors, the plain version for CPU tensors.  ``ia_mean`` is the
@@ -1272,10 +1375,14 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     miss class, ``burst`` None or the float32 ON and OFF phase means in
     ns.  ``sketch_cap > 0`` runs the streaming estimators (the sketched
     open-loop instantiation; see :func:`sim_lanes`) and returns their
-    state on ``sketch``.  Launches are counted in
-    ``sim_open_lanes.launches``, sketched ones in
-    ``sim_lanes.sketch_launches``.
+    state on ``sketch``.  ``trace_cap > 0`` runs the traced open-loop
+    instantiation and returns the lanes' trace rings on ``rings``.
+    Launches are counted in ``sim_open_lanes.launches``, traced ones in
+    ``sim_open_lanes.traced_launches`` and sketched ones (traced or not)
+    in ``sim_lanes.sketch_launches``.
     """
+    if trace_cap < 0:
+        raise ValueError(f"trace_cap must be >= 0, got {trace_cap}")
     if n_slots < 1:
         raise ValueError(f"n_slots must be >= 1, got {n_slots}")
     if n_flows < 0:
@@ -1290,7 +1397,7 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     _check_inputs(spec, seeds, extra)
     kw = dict(n_requests=n_requests, warmup=warmup, max_events=max_events,
               n_flows=n_flows, flow_theta=flow_theta, n_disks=n_disks,
-              disk_rank=disk_rank)
+              disk_rank=disk_rank, trace_cap=trace_cap)
     if seeds.device.type == "cpu":
         return sim_open_lanes_plain(spec, seeds, n_slots=n_slots,
                                     ia_mean=ia_mean, bmiss=bmiss, burst=burst,
@@ -1301,14 +1408,17 @@ def sim_open_lanes(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     out = _launch_ext(spec, seeds, n_jobs=n_slots, open_loop=(ia_mean, burst),
                       bmiss=bmiss,
                       sketch=None if sk is None else (sk, window_us), **kw)
-    if sk is None:
-        sim_open_lanes.launches += 1
-    else:
+    if sk is not None:
         sim_lanes.sketch_launches += 1
+    elif trace_cap:
+        sim_open_lanes.traced_launches += 1
+    else:
+        sim_open_lanes.launches += 1
     return out
 
 
 sim_open_lanes.launches = 0  # open-loop kernel launches (CUDA path only)
+sim_open_lanes.traced_launches = 0  # traced ones (CUDA path only)
 
 
 def _check_shared(nbytes: int, what: str) -> None:
@@ -1325,13 +1435,13 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 tiers: Optional[LaneTiers] = None, closed: bool = False,
                 trace_cap: int = 0, bmiss: Optional[torch.Tensor] = None,
                 sketch=None):
-    """One launch of the closed-loop (``closed``; traced when ``trace_cap >
-    0``: the rings come back on the result), coalescing (``open_loop``
-    None, ``n_flows > 0``), counting (``open_loop`` None, ``n_flows = 0``),
-    tiered (``tiers``) or open-loop (``open_loop = (ia_mean, burst)``)
-    instantiation; with ``sketch = (state, window_us)`` its sketched
-    instantiation.  ``bmiss``, the (L, B) miss routes, feeds the rings,
-    the open loop and the sketch."""
+    """One launch of the closed-loop (``closed``), coalescing
+    (``open_loop`` None, ``n_flows > 0``), counting (``open_loop`` None,
+    ``n_flows = 0``), tiered (``tiers``) or open-loop (``open_loop =
+    (ia_mean, burst)``) instantiation; traced when ``trace_cap > 0`` (the
+    rings come back on the result; every mode but counting), with
+    ``sketch = (state, window_us)`` sketched.  ``bmiss``, the (L, B) miss
+    routes, feeds the rings, the open loop and the sketch."""
     dev = seeds.device
     n_l = seeds.shape[0]
     n_k = spec.is_queue.shape[1]
@@ -1396,7 +1506,7 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     a.n_requests, a.warmup = n_requests, warmup
     a.n_flows, a.n_lead = n_flows, n_lead
     rings = None
-    if closed and trace_cap:
+    if trace_cap:
         rings = init_rings(n_l, trace_cap, n_r, dev)
         keep.append(rings)
         a.cap, a.bmiss = trace_cap, ptr(bmiss.to(torch.int32))
@@ -1428,12 +1538,13 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                            outs["tmeas"], rings, sketch=sk)
     if open_loop is None:
         return LaneOutputs(outs["x"], outs["completed"], outs["events"],
-                           outs["tmeas"], None, outs["delayed_frac"],
+                           outs["tmeas"], rings, outs["delayed_frac"],
                            outs["branch_done"], outs["branch_delayed"],
                            outs.get("delayed_tier"), sketch=sk)
     return OpenLaneOutputs(outs["x"], outs["completed"], outs["events"],
                            outs["tmeas"], outs["delayed_frac"],
-                           outs["dropped"], outs["soj"], outs["cls"], sk)
+                           outs["dropped"], outs["soj"], outs["cls"], sk,
+                           rings)
 
 
 def branch_miss(spec: SimSpec) -> np.ndarray:
@@ -1456,14 +1567,14 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
     per-p_hit specs tiled across seeds, lane seeds ``seed*1000 + p_index``
     (int32 arithmetic, as the reference) and the warmup / per-lane event
     budget ``max_events = n_requests * (Lr + budget_visits) * 3``; with
-    ``trace > 0`` also ``trace_cap`` and the (L, B) ``bmiss`` table
-    (:func:`branch_miss` of the first p_hit's network, the same for every
-    lane); with ``coalesce_flows > 0`` the coalescing arguments, with
-    ``n_disks`` taken from the first network's disk ranks, as the
-    reference does, and with ``tiers`` (the network's
+    ``trace > 0`` also ``trace_cap``; with ``coalesce_flows > 0`` the
+    coalescing arguments, with ``n_disks`` taken from the first network's
+    disk ranks, as the reference does, and with ``tiers`` (the network's
     :class:`~repro_torch.core.simspec.MshrSpec`) also its
-    :class:`LaneTiers`.  ``sketch`` adds the ``bmiss`` table the sketch
-    reads (a tiered network's acquiring branches are miss routes too).
+    :class:`LaneTiers`.  ``trace`` and ``sketch`` add the (L, B)
+    ``bmiss`` table the rings and the sketch read (:func:`branch_miss` of
+    the first p_hit's network, the same for every lane; a tiered
+    network's acquiring branches are miss routes too).
     """
     specs = [compile_network(net, float(p), device=device) for p in p_hits]
     n_p = len(specs)
@@ -1473,12 +1584,11 @@ def grid_lanes(net, p_hits, n_requests: int, seeds: Sequence[int],
     lane_spec, seed_t, kwargs = pad_lanes(specs * len(seeds), seed_v.tolist(),
                                           n_requests, warmup_frac,
                                           budget_visits)
-    if trace:
-        kwargs.update(trace_cap=int(trace), bmiss=_bmiss(specs[0],
-                                                         len(seed_v), device))
-    if sketch:
+    if trace or sketch:
         kwargs["bmiss"] = _bmiss(specs[0], len(seed_v), device,
                                  tiers if coalesce_flows else None)
+    if trace:
+        kwargs["trace_cap"] = int(trace)
     if coalesce_flows:
         disk_rank = torch.stack([s.disk_rank for s in specs] * len(seeds))
         kwargs.update(n_flows=int(coalesce_flows),
@@ -1649,7 +1759,8 @@ def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
                seeds: Sequence[int], warmup_frac: float, max_in_system: int,
                burst=None, coalesce_flows: int = 0,
                coalesce_theta: float = 0.0, sketch_cap: int = 0,
-               window_us: float = 0.0, device: str = "cuda"):
+               window_us: float = 0.0, device: str = "cuda",
+               trace: int = 0):
     """The open-loop (seed x p_hit) lane grid (lane = s * P + p, lane seeds
     as :func:`grid_lanes`) at the (P,) arrival ``rates`` (requests/µs).
 
@@ -1659,7 +1770,8 @@ def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
     means ``mean_on_us * 1e3`` and ``mean_on_us * 1e3 * (1 - duty) /
     duty`` ns (float32, as the reference's); the event budget
     ``n_requests * (Lr + 3) * 3``, as the reference's; ``sketch_cap`` and
-    ``window_us`` as :func:`sim_open_lanes` takes them.
+    ``window_us`` as :func:`sim_open_lanes` takes them, and ``trace`` as
+    its ``trace_cap``.
     """
     dev = resolve_device(device)
     spec, seed_v, kwargs = grid_lanes(net, p_hits, n_requests, seeds,
@@ -1680,7 +1792,8 @@ def open_lanes(net, p_hits, rates: np.ndarray, n_requests: int,
     kwargs.update(n_slots=int(max_in_system),
                   ia_mean=torch.from_numpy(mean_ns).to(dev),
                   bmiss=_bmiss(first, len(seed_v), dev), burst=phases,
-                  sketch_cap=int(sketch_cap), window_us=float(window_us))
+                  sketch_cap=int(sketch_cap), window_us=float(window_us),
+                  trace_cap=int(trace))
     return spec, seed_v, kwargs
 
 
@@ -1688,12 +1801,12 @@ def open_grid(net, p_hits, rates: np.ndarray, n_requests: int,
               seeds: Sequence[int], warmup_frac: float, max_in_system: int,
               burst=None, coalesce_flows: int = 0,
               coalesce_theta: float = 0.0, sketch_cap: int = 0,
-              window_us: float = 0.0,
-              device: str = "cuda") -> OpenLaneOutputs:
+              window_us: float = 0.0, device: str = "cuda",
+              trace: int = 0) -> OpenLaneOutputs:
     """The open-loop grid of :func:`open_lanes` in ONE launch (the plain
     version on the CPU); returns the lanes' raw outputs."""
     spec, seed_v, kwargs = open_lanes(net, p_hits, rates, n_requests, seeds,
                                       warmup_frac, max_in_system, burst,
                                       coalesce_flows, coalesce_theta,
-                                      sketch_cap, window_us, device)
+                                      sketch_cap, window_us, device, trace)
     return sim_open_lanes(spec, seed_v, **kwargs)

@@ -384,13 +384,17 @@ def test_counts_sum_to_the_measured_completions():
 
 
 def test_unported_options_raise():
-    """Tracing with coalescing still raises (ROADMAP item 8's trace half);
-    the sketches run: on the simulator with every output as without them,
-    on the oracle equal to the reference oracle's."""
+    """Tracing with coalescing runs: ``[seed][p]`` records, the counts
+    as untraced; the sketches run: on the simulator with every output as
+    without them, on the oracle equal to the reference oracle's."""
     tm, jm, probs, assign = _models("lru", 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.simulate_cluster(tm, [0.5], n_requests=50, coalesce_flows=4,
-                           trace=8, device="cpu")
+    co = dict(n_requests=50, seeds=(0, 1), coalesce_flows=4, device="cpu")
+    traced = T.simulate_cluster(tm, [0.5], trace=8, **co)
+    assert len(traced.traces) == 2 and len(traced.traces[0]) == 1
+    assert all(len(t[0]) == 8 for t in traced.traces)
+    np.testing.assert_array_equal(traced.shard_throughput,
+                                  T.simulate_cluster(tm, [0.5], **co)
+                                  .shard_throughput)
     with pytest.raises(ValueError, match="window_us"):
         T.simulate_cluster(tm, [0.5], n_requests=50, sketch_cap=8,
                            device="cpu")

@@ -220,6 +220,7 @@ def test_coalescing_arguments_validated():
         tes.sim_lanes(spec, seeds, **dict(kw, disk_rank=None))
     with pytest.raises(ValueError, match="disk_rank must be"):
         tes.sim_lanes(spec, seeds, **dict(kw, disk_rank=kw["disk_rank"][:, :2]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tes.sim_lanes(spec, seeds, trace_cap=8,
-                      bmiss=torch.zeros((1, 2), dtype=torch.int32), **kw)
+    traced = tes.sim_lanes(spec, seeds, trace_cap=8,
+                           bmiss=torch.zeros((1, 2), dtype=torch.int32), **kw)
+    assert tuple(traced.rings.req.shape) == (1, 9)
+    assert torch.equal(traced.rings.n_count, traced.completed)

@@ -138,11 +138,14 @@ def _no_marks(net):
 
 def test_options_outside_the_slice_raise():
     net = tpm.lru_network()
+    # tracing runs in every mode: tiered, coalescing, the open loop
     for kw in ({"tiers": _no_marks(net), "coalesce_flows": 4, "trace": 8},
                {"coalesce_flows": 4, "trace": 8},
                {"arrival_rate": 0.1, "trace": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            simulate_network(net, [0.5], device="cpu", **kw)
+        res = simulate_network(net, [0.5], n_requests=100, seeds=(0,),
+                               device="cpu", **kw)
+        assert len(res.traces) == 1 and len(res.traces[0]) == 1
+        assert len(res.traces[0][0]) == 8
     # the tiered tables run the closed loop only, as in the reference
     with pytest.raises(ValueError, match="closed loop"):
         simulate_network(net, [0.5], device="cpu", tiers=_no_marks(net),
@@ -185,19 +188,22 @@ def test_reference_keywords_accepted():
     ({"window_us": 5.0}, None),
 ])
 def test_unported_reference_keywords_raise(kw, item):
-    """What the port does not carry yet raises naming its ROADMAP item;
-    ``window_us`` without a sketch runs, as in the reference, and changes
-    nothing."""
+    """Every keyword of the reference runs (``item`` names the ROADMAP
+    item that brought it): tracing with coalescing, tiered or not,
+    returns ``[seed][p]`` records; ``window_us`` without a sketch runs,
+    as in the reference, and changes nothing."""
+    run = dict(n_requests=200, seeds=(0,), device="cpu")
+    res = simulate_network(tpm.lru_network(), [0.5], **kw, **run)
+    np.testing.assert_array_equal(
+        res.throughput,
+        simulate_network(tpm.lru_network(), [0.5], **{
+            k: v for k, v in kw.items() if k not in ("trace", "window_us")},
+            **run).throughput)
     if item is None:
-        run = dict(n_requests=200, seeds=(0,), device="cpu")
-        res = simulate_network(tpm.lru_network(), [0.5], **kw, **run)
-        np.testing.assert_array_equal(
-            res.throughput,
-            simulate_network(tpm.lru_network(), [0.5], **run).throughput)
-        assert res.sketches is None
+        assert res.sketches is None and res.traces is None
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        simulate_network(tpm.lru_network(), [0.5], device="cpu", **kw)
+    assert len(res.traces) == 1 and len(res.traces[0]) == 1
+    assert res.traces[0][0].n_emitted >= 200 and len(res.traces[0][0]) == 8
 
 
 def test_backend_keyword():

@@ -50,6 +50,19 @@ sketch state is identical to the plain version's, the float32 EWMAs
 included, and every simulation output is identical to the unsketched
 kernel's.  The ``sketch_trace`` kernel is held against its plain version
 and against the exact twin ``sketch_trace_py`` (``SKETCH_TRACE_CASES``).
+
+The traced coalescing, open-loop and tiered instantiations are held on
+``TRACE_EXT_CASES``, which ``chip_smoke.py``'s ``trace_ext_vs_plain``
+runs: every register-slot count and shared memory, routes over 32 visits,
+rings that overflow and rings that do not.  The rings' ``req``,
+``branch``, ``cls`` and ``nvis`` are identical to the traced plain
+version's, the stamps too on deterministic service, and every other
+output is the untraced kernel's, with the sketch on as well.  The same
+modes run through the entry points (``TRACED_ENTRY_MODES``:
+``simulate_network`` with coalescing, the open loop with coalescing and
+with bursts, the tiered tables; ``simulate_cluster`` and
+``simulate_hierarchy`` with coalescing): the decoded ``traces`` on the
+card equal the same call's on the CPU.
 """
 
 import dataclasses
@@ -638,6 +651,200 @@ def test_sketched_kernel_matches_plain(cuda_device, case):
         assert int(kern.sketch.key_count.min()) > 0
 
 
+def long_disk_network(mpl):
+    """A miss that alternates two queues sixteen times and then fetches
+    from a 4-deep disk (34 visits), or a hit that visits one queue:
+    coalescing on a route longer than a warp (deterministic service)."""
+    stations = (Station("think", THINK, 2.0), Station("a", QUEUE, 0.05),
+                Station("b", QUEUE, 0.04, servers=2),
+                Station("disk", QUEUE, 3.0, servers=4))
+    branches = (Branch("hit", lambda p: p, ("think", "a")),
+                Branch("miss", lambda p: 1.0 - p,
+                       ("think",) + ("a", "b") * 16 + ("disk",)))
+    return ClosedNetwork("long miss", stations, branches, mpl)
+
+
+# (id, mode, config, deterministic service): the traced coalescing,
+# open-loop and tiered instantiations (kTrace 2 at every route length):
+# register slots and shared memory, uniform and Zipf flows, bursts, a pool
+# that drops arrivals, routes over 32 visits, and rings that overflow
+# (cap below the completions) and that do not
+TRACE_EXT_CASES = [
+    ("flows-lru-mpl24-F1", "flows",
+     dict(net=lambda: _lru(24, True), flows=1, cap=1024), True),
+    ("flows-lru-mpl72-F16-zipf-overflow", "flows",
+     dict(net=lambda: _lru(72, True), flows=16, theta=0.99, cap=64), True),
+    ("flows-2disk-mpl144-F16", "flows",
+     dict(net=lambda: _two(144, True), flows=16, cap=2048), True),
+    ("flows-lru-mpl300-F16", "flows",
+     dict(net=lambda: _lru(300, True), flows=16, cap=2048), True),
+    ("flows-exp-mpl48-F16-overflow", "flows",
+     dict(net=lambda: _lru(48, False, 8), flows=16, cap=100), False),
+    ("flows-34-visits-mpl24-F4", "flows",
+     dict(net=lambda: det_network(long_disk_network(24)), flows=4, cap=256,
+          requests=120), True),
+    ("open-N128-F16", "open",
+     dict(net=lambda: _lru(1, True, 8), slots=128, flows=16, cap=1024), True),
+    ("open-N300-burst-overflow", "open",
+     dict(net=lambda: _lru(1, True, 8), slots=300, burst=(0.6, 200.0),
+          cap=64), True),
+    ("open-N40-F1-burst", "open",
+     dict(net=lambda: _lru(1, True, 8), slots=40, flows=1, burst=(0.5, 100.0),
+          cap=512), True),
+    ("open-N4-F4-drops", "open",
+     dict(net=lambda: _lru(1, True, 8), slots=4, flows=4, cap=512), True),
+    ("open-41-visits-N64", "open",
+     dict(net=lambda: det_network(long_route_network(1)), slots=64, cap=512,
+          requests=120), True),
+    ("open-exp-N256-F16", "open",
+     dict(net=lambda: _lru(1, False, 8), slots=256, flows=16, cap=512), False),
+    ("tiers-small-mpl16-F2", "tiers",
+     dict(kind="small", mpl=16, flows=2, ps=(0.2, 0.8393), cap=1024), True),
+    ("tiers-small-mpl48-F4-zipf-overflow", "tiers",
+     dict(kind="small", mpl=48, flows=4, theta=0.99, ps=(0.3, 0.7), cap=32),
+     True),
+    ("tiers-fig-mpl96-F4", "tiers",
+     dict(kind="fig", mpl=96, flows=4, ps=(0.55,), cap=1024), True),
+    ("tiers-small-mpl300-F4", "tiers",
+     dict(kind="small", mpl=300, flows=4, ps=(0.5,), cap=2048), True),
+    ("tiers-exp-small-mpl192-F8", "tiers",
+     dict(kind="small", mpl=192, flows=8, ps=(0.4,), cap=1024), False),
+    ("tiers-refill-mpl1-F1", "tiers",
+     dict(kind="refill", mpl=1, flows=1, ps=(0.5,), cap=16), True),
+]
+
+# the launch counter of each traced mode
+TRACE_EXT_COUNTERS = {"flows": (tes.sim_lanes, "traced_flows_launches"),
+                      "open": (tes.sim_open_lanes, "traced_launches"),
+                      "tiers": (tes.sim_lanes, "traced_tiers_launches")}
+
+
+def trace_ext_lanes(case, device, n_requests=300):
+    """``(kernel wrapper, plain version, spec, seeds, kwargs)`` of a
+    ``TRACE_EXT_CASES`` case, traced into rings of its ``cap``: its network
+    at two p_hits x two seeds (the tiered cases at their own p_hits; the
+    open loop at ``OPEN_RATES``), ``n_requests`` requests (the case's own
+    count on its long routes) and at least enough for one measured
+    completion per job."""
+    _, mode, c, det = case
+    n_requests = c.get("requests", n_requests)
+    if mode == "open":
+        spec, seeds, kw = tes.open_lanes(c["net"](), np.array([0.5, 0.8]),
+                                         OPEN_RATES, n_requests, (0, 1), 0.25,
+                                         c["slots"], burst=c.get("burst"),
+                                         coalesce_flows=c.get("flows", 0),
+                                         device=device, trace=c["cap"])
+        return tes.sim_open_lanes, tes.sim_open_lanes_plain, spec, seeds, kw
+    tiers, ps = None, np.array([0.3, 0.7])
+    if mode == "tiers":
+        model = hierarchy_model(c["kind"], c["mpl"])
+        net, tiers, ps = model.network, model.mshr, np.array(c["ps"])
+        net = det_network(net) if det else net
+    else:
+        net = c["net"]()
+    n_requests = max(n_requests, math.ceil(net.mpl / 0.75))
+    spec, seeds, kw = tes.grid_lanes(net, ps, n_requests, (0, 1), 0.25, device,
+                                     trace=c["cap"], coalesce_flows=c["flows"],
+                                     coalesce_theta=c.get("theta", 0.0),
+                                     tiers=tiers)
+    return tes.sim_lanes, tes.sim_lanes_plain, spec, seeds, kw
+
+
+def trace_ext_pair(case, device, n_requests=300):
+    """The traced kernel, the traced plain version and the untraced kernel
+    on a ``TRACE_EXT_CASES`` case."""
+    kern_fn, plain_fn, spec, seeds, kw = trace_ext_lanes(case, device,
+                                                         n_requests)
+    bare = {k: v for k, v in kw.items() if k != "trace_cap"}
+    return (kern_fn(spec, seeds, **kw), plain_fn(spec, seeds, **kw),
+            kern_fn(spec, seeds, **bare))
+
+
+def hold_untraced(kern, bare) -> None:
+    """Every output of the traced launch but its rings identical to the
+    untraced launch's."""
+    assert bare.rings is None and kern.rings is not None
+    for f, a in kern._asdict().items():
+        b = getattr(bare, f)
+        if f == "rings" or (a is None and b is None):
+            continue
+        if f == "sketch":
+            for fa, fb in zip(a, b):
+                assert torch.equal(fa, fb), f
+        else:
+            assert torch.equal(a, b), f
+
+
+def hold_trace_ext(kern, plain, bare, exact) -> float:
+    """The traced kernel's rings against the traced plain version's (the
+    scrap row left out): ``req``, ``branch``, ``cls`` and ``nvis``
+    identical, one record per completion, the stamps and parked times
+    identical on deterministic service, else within RTOL; and its other
+    outputs identical to the untraced kernel's.  Returns max |d stamp|
+    (µs)."""
+    hold_untraced(kern, bare)
+    assert torch.equal(kern.completed.cpu(), plain.completed.cpu())
+    assert torch.equal(kern.events.cpu(), plain.events.cpu())
+    assert torch.equal(kern.rings.n_count.cpu(), kern.completed.cpu())
+    assert torch.equal(plain.rings.n_count.cpu(), plain.completed.cpu())
+    for f in ("req", "branch", "cls", "nvis"):
+        assert torch.equal(getattr(kern.rings, f)[:, :-1].cpu(),
+                           getattr(plain.rings, f)[:, :-1].cpu()), f
+    err = 0.0
+    for f in ("parked_us", "enter_us", "leave_us"):
+        a = getattr(kern.rings, f)[:, :-1].cpu()
+        b = getattr(plain.rings, f)[:, :-1].cpu()
+        if exact:
+            assert torch.equal(a, b), f
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                       err_msg=f)
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def hold_trace_sketch(both, sketched, traced) -> None:
+    """The traced and sketched launch: its every output but the rings
+    identical to the sketched launch's (the sketch state included), and
+    its rings to the traced launch's."""
+    hold_untraced(both, sketched)
+    for fa, fb in zip(both.rings, traced.rings):
+        assert torch.equal(fa, fb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRACE_EXT_CASES,
+                         ids=[c[0] for c in TRACE_EXT_CASES])
+def test_traced_ext_kernel_matches_plain(cuda_device, case):
+    fn, counter = TRACE_EXT_COUNTERS[case[1]]
+    before = getattr(fn, counter)
+    kern, plain, bare = trace_ext_pair(case, cuda_device)
+    assert getattr(fn, counter) == before + 1
+    hold_trace_ext(kern, plain, bare, exact=case[-1])
+    if case[1] == "open":
+        hold_open(kern, plain, exact=case[-1])
+    elif case[1] == "tiers":
+        hold_tiered(kern, plain, exact=case[-1])
+    else:
+        hold_coalesced(kern, plain, exact=case[-1])
+    if case[2].get("flows") and case[2].get("mpl", 2) > 1:
+        assert int((kern.rings.cls == 2).sum()) > 0  # delayed records
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRACE_EXT_CASES[::3],
+                         ids=[c[0] for c in TRACE_EXT_CASES[::3]])
+def test_traced_ext_kernel_with_the_sketch(cuda_device, case):
+    kern_fn, _, spec, seeds, kw = trace_ext_lanes(case, cuda_device)
+    sk = dict(kw, sketch_cap=8, window_us=20.0)
+    before = tes.sim_lanes.sketch_launches
+    both = kern_fn(spec, seeds, **sk)
+    assert tes.sim_lanes.sketch_launches == before + 1
+    hold_trace_sketch(both, kern_fn(spec, seeds, **{
+        k: v for k, v in sk.items() if k != "trace_cap"}),
+        kern_fn(spec, seeds, **kw))
+
+
 # (id, stream length, key space, theta, sketch_cap, window_us, hits): the
 # sketch_trace kernel's lanes
 SKETCH_TRACE_CASES = [
@@ -694,3 +901,58 @@ def test_sketch_trace_kernel_matches_plain(cuda_device, case):
     plain = tsk.sketch_trace_plain(keys.cpu(), t.cpu(), hits.cpu(),
                                    sketch_cap=cap, window_us=window)
     hold_sketch_trace(kern, plain, keys, t, hits, cap, window)
+
+
+# the traced modes through the entry points: simulate_network with
+# coalescing, the open loop (coalescing; bursts) and the tiered tables,
+# simulate_cluster and simulate_hierarchy with coalescing
+TRACED_ENTRY_MODES = ["coalescing", "open", "open-burst", "tiered", "cluster",
+                      "hierarchy"]
+
+
+def traced_entry_run(mode, device, n_requests=400, cap=512):
+    """``trace=cap`` through the entry point of ``mode`` on ``device``: two
+    p_hits x two seeds on deterministic service, rings no lane fills."""
+    from repro_torch.cluster.sim import simulate_cluster
+    from repro_torch.core.simulator import simulate_network
+    from repro_torch.hierarchy.sim import simulate_hierarchy
+
+    kw = dict(n_requests=n_requests, seeds=(0, 1), trace=cap, device=device)
+    ps = [0.3, 0.7]
+    if mode == "coalescing":
+        return simulate_network(_lru(48, True, 8), ps, coalesce_flows=16, **kw)
+    if mode == "open":
+        return simulate_network(_lru(1, True, 8), ps, arrival_rate=0.3,
+                                coalesce_flows=16, max_in_system=128, **kw)
+    if mode == "open-burst":
+        return simulate_network(_lru(1, True, 8), ps, arrival_rate=0.3,
+                                burst=(0.6, 200.0), max_in_system=128, **kw)
+    if mode == "cluster":
+        model = cluster_model(4, 48)
+        return simulate_cluster(dataclasses.replace(
+            model, network=det_network(model.network)), ps, coalesce_flows=8,
+            **kw)
+    model = hierarchy_model("small")
+    model = dataclasses.replace(model, network=det_network(model.network))
+    if mode == "tiered":
+        return simulate_network(model.network, ps, coalesce_flows=2,
+                                tiers=model.mshr, **kw)
+    return simulate_hierarchy(model, ps, coalesce_flows=2, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", TRACED_ENTRY_MODES)
+def test_traced_entry_points_match_plain(cuda_device, mode):
+    """The decoded ``traces`` of a traced entry-point run on the card are
+    the same run's on the CPU (the plain version), every field, one record
+    per completion, and so is its throughput (deterministic service)."""
+    kern = traced_entry_run(mode, "cuda")
+    plain = traced_entry_run(mode, "cpu")
+    assert np.array_equal(kern.throughput, plain.throughput)
+    assert len(kern.traces) == 2 and all(len(row) == 2 for row in kern.traces)
+    for a, b in zip(sum(kern.traces, []), sum(plain.traces, [])):
+        assert a.n_emitted == b.n_emitted >= 400 and a.n_dropped == 0
+        for f in ("req", "branch", "cls", "nvis", "station", "parked_us",
+                  "enter_us", "leave_us"):
+            assert np.array_equal(getattr(a, f), getattr(b, f),
+                                  equal_nan=True), f

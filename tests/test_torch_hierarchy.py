@@ -449,9 +449,10 @@ def test_simulate_network_refusals():
     with pytest.raises(ValueError, match="closed loop"):
         simulate_network(m.network, [0.5], n_requests=500, tiers=m.mshr,
                          coalesce_flows=2, arrival_rate=0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        simulate_network(m.network, [0.5], n_requests=500, tiers=m.mshr,
-                         coalesce_flows=2, trace=8, device="cpu")
+    traced = simulate_network(m.network, [0.5], n_requests=500,
+                              seeds=(0,), tiers=m.mshr, coalesce_flows=2,
+                              trace=8, device="cpu")
+    assert len(traced.traces) == 1 and len(traced.traces[0][0]) == 8
     with pytest.raises(ValueError, match="do not match"):
         simulate_network(m.network, [0.5], n_requests=500,
                          tiers=_mshr([[-1]], [[-1]], [[-1]]),
