@@ -16,7 +16,9 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    ``EVENT_SIM_REGISTERS``), of their 35 sketched twins
    (``event_sim_sketch.cu``), of the 15 traced coalescing, open-loop and
    tiered instantiations (``event_sim_traced.cu``) and their 15 sketched
-   twins (``event_sim_traced_sketch.cu``) and of the sketch_trace kernel;
+   twins (``event_sim_traced_sketch.cu``) and of the sketch_trace kernel's
+   11 (S register slots a thread, 1 to 16, packed and unpacked; S = 0, the
+   table in device memory), none of which may use stack or local memory;
    beside the build ``nvcc -Xptxas -v`` reports the registers, stack and
    spills of the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
@@ -258,7 +260,12 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    against its traced plain version, timed alone); the sketched closed
    kernel on fig_drift D's lane
    and the sketch_trace kernel on fig_drift A's stream beside their plain
-   versions.
+   versions; the sketch_trace kernel at each of fig_drift's caps (96, 256,
+   512: S 4, 8, 16) in turns with its S = 0 instantiation on the same
+   inputs, held equal to it, in ns per key, beside its chain bound: one
+   warp reduction a key, at the latency of ``REDUX_STEPS`` dependent
+   ``redux.sync`` minima (``CHASE_SRC``'s ``redux_chain``, clock64 and
+   CUDA events), which is its ``bound_ms``.
 
 The line before the last two is the JSON ``kernels`` record; then the
 card's name and power limit; the last line is the JSON result.  The
@@ -299,8 +306,10 @@ CHECK_T, CHECK_FILL = 5000, 3400  # the replay check's trace and its fill
 # the lane's state in device memory: key space 2**17, a short stream
 REPLAY_BIG_KEYS, REPLAY_BIG_T = 1 << 17, 600
 # the replay bound's unit: one thread follows next[] over a random cycle
-# of CHASE_N ints for CHASE_STEPS dependent loads, timed by clock64
+# of CHASE_N ints for CHASE_STEPS dependent loads, timed by clock64; the
+# sketch_trace bound's: REDUX_STEPS dependent warp reductions
 CHASE_N, CHASE_STEPS = 1024, 1 << 20
+REDUX_STEPS = 1 << 20
 CHASE_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void chase(const int* __restrict__ next, int n, int steps,
@@ -322,6 +331,24 @@ extern "C" int chase_launch(const int* next, int n, int steps, int shared,
                             long long* cycles, int* sink, void* stream) {
   chase<<<1, 32, n * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
       next, n, steps, shared, cycles, sink);
+  return (int)cudaGetLastError();
+}
+// the sketch_trace bound's unit: one warp's chain of redux.sync minima,
+// each fed by the last (and one add)
+__global__ void redux_chain(int steps, long long* cycles, unsigned* sink) {
+  unsigned v = __reduce_min_sync(0xffffffffu, threadIdx.x);
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int k = 0; k < steps; ++k) v = __reduce_min_sync(0xffffffffu, v + threadIdx.x);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    *cycles = t1 - t0;
+    *sink = v;
+  }
+}
+extern "C" int redux_launch(int steps, long long* cycles, unsigned* sink,
+                            void* stream) {
+  redux_chain<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(steps, cycles, sink);
   return (int)cudaGetLastError();
 }
 """
@@ -437,6 +464,7 @@ SKETCH_PLAIN_REQUESTS = 300
 # stream, the windows (one event per us), D's hit ratios and run lengths
 FD_KEYS, FD_THETA, FD_CAP = 512, 0.9, 96
 FD_STREAM, FD_WINDOW_US = 24_000, 500.0
+FD_CAPS = (FD_CAP, 256, 512)  # every sketch_cap fig_drift launches at
 FD_P = (0.55, 0.85)
 FD_CLOSED_REQUESTS, FD_OPEN_REQUESTS = 48_000, 24_000
 # fig_drift D draws its windows from the counter engine, whose numbers are
@@ -448,6 +476,10 @@ FD_SEEDS = (0, 1, 2, 3)
 # the sketched and the traced coalescing, open-loop and tiered
 # instantiations live in sources of their own, and these must keep their
 # registers
+# the sketch_trace kernel's register-table ladder and its two forms
+# (repro_torch.kernels.sketch.REG_SLOTS; packed: one reduction per key)
+SKETCH_SLOTS = (1, 2, 4, 8, 16)
+SKETCH_FORMS = ("unpacked", "packed")
 EVENT_SIM_REGISTERS = {
     "coalescing": (79, 71, 87, 96, 121), "counting": (64, 64, 64, 76, 92),
     "open loop": (83, 70, 79, 87, 128), "tiered": (71, 83, 93, 109, 157),
@@ -761,11 +793,14 @@ def event_sim_ptxas(rec):
     loop and tiered; R register slots per thread, R = 0: shared memory),
     without the sketch (``event_sim.cu``, ``event_sim_traced.cu``) and
     with it (``event_sim_sketch.cu``, ``event_sim_traced_sketch.cu``), and
-    of the sketch_trace kernel, as the built library records them
-    (``cuobjdump -res-usage``: the registers ptxas assigned, with no second
-    compile beside the build); raises unless all 35 + 15 + 35 + 15 + 1 are
-    there, or if an instantiation of ``event_sim.cu`` has other registers
-    than ``EVENT_SIM_REGISTERS``."""
+    of the sketch_trace kernel's 11 (S register slots a thread, packed and
+    unpacked; S = 0, the table in device memory, unpacked), as the built
+    library records them (``cuobjdump -res-usage``: the registers ptxas
+    assigned, with no second compile beside the build); raises unless all
+    35 + 15 + 35 + 15 + 11 are there, if an instantiation of
+    ``event_sim.cu`` has other registers than ``EVENT_SIM_REGISTERS``, or
+    if a sketch_trace instantiation has stack or local memory (its
+    register table is indexed by constants alone)."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -776,7 +811,7 @@ def event_sim_ptxas(rec):
     modes = ("untraced", "traced", "traced, routes over 32")
     ext = ("coalescing", "open loop", "counting", "tiered")
     info = {"unsketched": {}, "sketched": {}}
-    fn = trace_k = None
+    fn, trace_k = None, {}
     for line in out.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
@@ -790,14 +825,17 @@ def event_sim_ptxas(rec):
                 fn = ("sketched" if "Sketched" in m.group(1) else
                       "unsketched", f"{what} R={k.group(2)}")
             elif "sketch_trace_kernel" in m.group(1):
-                fn = ("sketch_trace", None)
+                t = re.search(r"RegTableILi(\d+)ELb([01])E", m.group(1))
+                fn = ("sketch_trace",
+                      f"S={t.group(1)} {SKETCH_FORMS[int(t.group(2))]}"
+                      if t else f"S=0 {SKETCH_FORMS[0]}")
             continue
         r = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", line)
         if fn and r:
             v = dict(zip(("registers", "stack_bytes", "local_bytes"),
                          map(int, r.groups())))
             if fn[0] == "sketch_trace":
-                trace_k = v
+                trace_k[fn[1]] = v
             else:
                 info[fn[0]][fn[1]] = v
             fn = None
@@ -807,9 +845,16 @@ def event_sim_ptxas(rec):
         if len(got) != 50 or len(traced) != 15:
             raise AssertionError(f"cuobjdump -res-usage found {group} "
                                  f"{sorted(got)}")
-    if trace_k is None:
-        raise AssertionError("cuobjdump -res-usage found no sketch_trace "
-                             "kernel")
+    want_st = {f"S=0 {SKETCH_FORMS[0]}"} | {
+        f"S={n} {f}" for n in SKETCH_SLOTS for f in SKETCH_FORMS}
+    if set(trace_k) != want_st:
+        raise AssertionError(f"cuobjdump -res-usage found sketch_trace "
+                             f"{sorted(trace_k)}, not {sorted(want_st)}")
+    spilled = {fn: v for fn, v in trace_k.items()
+               if v["stack_bytes"] or v["local_bytes"]}
+    if spilled:
+        raise AssertionError(f"sketch_trace instantiations with stack or "
+                             f"local memory: {spilled}")
     want = {f"{mode} R={r}": n for mode, regs in EVENT_SIM_REGISTERS.items()
             for r, n in zip((0, 1, 2, 4, 8), regs)}
     moved = {fn: (v["registers"], want[fn])
@@ -822,7 +867,8 @@ def event_sim_ptxas(rec):
         for fn, v in sorted(got.items()):
             print(f"registers event_sim {group} {fn}: {json.dumps(v)}",
                   flush=True)
-    print(f"registers sketch_trace: {json.dumps(trace_k)}", flush=True)
+    for fn, v in sorted(trace_k.items()):
+        print(f"registers sketch_trace {fn}: {json.dumps(v)}", flush=True)
     print("registers event_sim: the 35 instantiations of event_sim.cu keep "
           "their registers", flush=True)
     rec["event_sim_ptxas"] = info["unsketched"]
@@ -2658,14 +2704,40 @@ def ext_timing(rec):
     d_ops = d_events * (5 * dkw["mpl"] + 61 + 30)
     db, dby = work_bound(d_bytes, d_ops)
 
-    # the sketch_trace kernel on fig_drift A's stream, beside the plain
-    # torch loop on the card
+    # the sketch_trace kernel on fig_drift A's stream at each of
+    # fig_drift's caps, in turns with its S = 0 instantiation (the table in
+    # device memory) on the same inputs and held equal to it, beside its
+    # chain bound (one warp reduction per key); at A's cap also beside the
+    # plain torch loop on the card
     from repro_torch.kernels import sketch as ksk
 
     fkeys, ft, fhits = fig_drift_stream(dev)
+    red = redux_latency(build_chase())
+    chain_ms = FD_STREAM * red["ns"] * 1e-6
+    st_rows = {}
+    for st_cap in FD_CAPS:
+        form = ksk.sketch_trace_form(st_cap, FD_STREAM)
+        runs = {form: [], (0, False): []}
+        for f in (form, (0, False), (0, False), form):
+            runs[f].append(cuda_ms(lambda f=f: ksk.sketch_trace_lanes(
+                fkeys, ft, fhits, sketch_cap=st_cap, window_us=FD_WINDOW_US,
+                form=f), reps=5))
+        a, b = (ksk.sketch_trace_lanes(fkeys, ft, fhits, sketch_cap=st_cap,
+                                       window_us=FD_WINDOW_US, form=f)
+                for f in runs)
+        for f in a._fields:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"sketch_trace S={form[0]} != S=0 at "
+                                     f"cap {st_cap}: {f}")
+        ms, s0_ms = (sum(v) / len(v) for v in runs.values())
+        st_rows[st_cap] = {
+            "slots": form[0], "packed": form[1], "ms": ms,
+            "ms_runs": runs[form], "ns_per_key": ms * 1e6 / FD_STREAM,
+            "s0_ms": s0_ms, "s0_ms_runs": runs[(0, False)],
+            "s0_ns_per_key": s0_ms * 1e6 / FD_STREAM,
+            "chain_bound_ms": chain_ms, "chain_share": chain_ms / ms}
     st_kw = dict(sketch_cap=FD_CAP, window_us=FD_WINDOW_US)
-    st_ms = cuda_ms(lambda: ksk.sketch_trace_lanes(fkeys, ft, fhits, **st_kw),
-                    reps=5)
+    st_ms = st_rows[FD_CAP]["ms"]
     st_kern = ksk.sketch_trace_lanes(fkeys, ft, fhits, **st_kw)
     st_plain, st_plain_ms = timed_plain(
         lambda: ksk.sketch_trace_plain(fkeys, ft, fhits, **st_kw))
@@ -2677,7 +2749,9 @@ def ext_timing(rec):
     # per key: the SpaceSaving search (a compare of each slot's key and
     # count), four count-min hashes, the tick and the EWMA steps
     st_ops = FD_STREAM * (2 * FD_CAP + 60)
-    sb, sby = work_bound(st_bytes, st_ops)
+    st_work, st_work_by = work_bound(st_bytes, st_ops)
+    # the keys' chain of warp reductions, far above bytes and operations
+    sb, sby = max((st_work, st_work_by), (chain_ms, "operations"))
     out = {
         "count_8_shards": {
             "ms": cnt_ms, "plain_ms": cnt_plain_ms, "events": cnt_events,
@@ -2723,7 +2797,10 @@ def ext_timing(rec):
         "sketch_trace": {"ms": st_ms, "plain_ms": st_plain_ms,
                          "keys": FD_STREAM, "sketch_cap": FD_CAP,
                          "ns_per_key": st_ms * 1e6 / FD_STREAM,
-                         "bytes": st_bytes, "ops": st_ops, "bound_ms": sb}}
+                         "bytes": st_bytes, "ops": st_ops,
+                         "work_bound_ms": st_work, "redux": red,
+                         "chain_bound_ms": chain_ms, "bound_ms": sb,
+                         "per_cap": st_rows}}
     c8 = out["count_8_shards"]
     print(f"event_sim count, {CL_SHARDS} shards (K {n_k}, mpl {ckw['mpl']}): "
           f"{cnt_ms:.3f} ms per 1-lane launch ({c8['ns_per_event']:.1f} ns per "
@@ -2764,7 +2841,16 @@ def ext_timing(rec):
           flush=True)
     print(f"sketch_trace, fig_drift A's stream: {st_ms:.3f} ms per launch "
           f"({out['sketch_trace']['ns_per_key']:.1f} ns per key), plain "
-          f"{st_plain_ms:.1f} ms, bound {sb:.5f} ms", flush=True)
+          f"{st_plain_ms:.1f} ms, bound {sb:.5f} ms (chain: {FD_STREAM} "
+          f"warp reductions of {red['ns']:.2f} ns, {red['cycles']:.1f} "
+          f"cycles; bytes and operations {st_work:.5f} ms)", flush=True)
+    for st_cap, r in st_rows.items():
+        print(f"sketch_trace at cap {st_cap} (S={r['slots']}, "
+              f"{SKETCH_FORMS[r['packed']]}): {r['ms']:.3f} ms "
+              f"({r['ns_per_key']:.1f} ns per key; runs {r['ms_runs']}), "
+              f"S=0 on the same inputs {r['s0_ms']:.3f} ms "
+              f"({r['s0_ns_per_key']:.1f} ns per key; runs {r['s0_ms_runs']})"
+              f"; {r['chain_share']:.3f} of the chain bound", flush=True)
     rec["ext_timing"] = out
     return [
         {"name": "event_sim_coalesced", "route": "cuda",
@@ -3556,22 +3642,52 @@ def hold_py_ref(rec, policy, params, grid, trace, us, outs):
 
 
 def build_chase():
-    """Compile ``CHASE_SRC`` with the library's flags and load it."""
+    """Compile ``CHASE_SRC`` with the library's flags (once per checkout)
+    and load it."""
     import ctypes
 
     from repro_torch.kernels import _build
 
     out = _build.BUILD_DIR / "chase"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "chase.cu").write_text(CHASE_SRC)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                    str(out / "chase.cu"), "-o", str(out / "chase.so")],
-                   check=True, capture_output=True)
+    src = out / "chase.cu"
+    if not ((out / "chase.so").exists() and src.exists()
+            and src.read_text() == CHASE_SRC):  # else built by this checkout
+        src.write_text(CHASE_SRC)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                        str(src), "-o", str(out / "chase.so")],
+                       check=True, capture_output=True)
     lib = ctypes.CDLL(str(out / "chase.so"))
     lib.chase_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p] * 3)
     lib.chase_launch.restype = ctypes.c_int
+    lib.redux_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.redux_launch.restype = ctypes.c_int
     return lib
+
+
+def redux_latency(lib) -> dict:
+    """ns (CUDA events) and cycles (clock64) per step of one warp's chain
+    of dependent ``redux.sync`` minima: the latency of one warp-wide
+    reduction, the unit of the sketch_trace kernel's chain bound."""
+    import torch
+    from repro_torch.kernels._build import check
+
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def launch():
+        return lib.redux_launch(REDUX_STEPS, cycles.data_ptr(), sink.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+
+    check(launch(), "redux launch")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    check(launch(), "redux launch")
+    end.record()
+    torch.cuda.synchronize()
+    return {"ns": start.elapsed_time(end) * 1e6 / REDUX_STEPS,
+            "cycles": int(cycles.item()) / REDUX_STEPS}
 
 
 def load_latency(lib) -> dict:

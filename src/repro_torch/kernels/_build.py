@@ -38,7 +38,7 @@ _SIGNATURES = {
     "event_sim_slots": ([_I], _I),
     "event_sim_ext_launch": ([_P] * 3, _I),
     "event_sim_ext_shared_bytes": ([_P, _I], _I),
-    "sketch_trace_launch": ([_P] * 4 + [_I] * 2 + [_P], _I),
+    "sketch_trace_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "lru_update_launch": ([_P] * 5 + [_I] * 3 + [_P], _I),
     "lru_update_blocks": ([_I], _I),
     "flash_attention_launch": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),

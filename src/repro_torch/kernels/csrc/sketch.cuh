@@ -4,20 +4,24 @@
 //
 // Included by event_sim_sketch.cu (the sketched instantiations of the
 // event-sim kernel) and by sketch_trace.cu, so the sketch_trace kernel
-// runs the code the simulator runs.
+// runs the code the simulator runs (but for the SpaceSaving table, which
+// sketch_trace.cu keeps in registers: RegTable, at the end).
 //
 // Where the state lives: the SketchState tensors in device memory, the
-// lane's rows at lane * row length (a variant staging the SpaceSaving
-// table and the count-min rows in shared memory gained nothing on the
-// card, so it was not kept).  The current window's four counters
+// lane's rows at lane * row length.  The current window's four counters
 // (completions, hits, delayed hits, arrivals) are registers, the same in
 // every thread, loaded when the ring enters a window (zero if its row was
 // stale) and stored back when it leaves it and at the end; the
 // per-branch window row and the count-min rows take reductions to device
-// memory (atomicAdd whose result is unused compiles to RED, which the
-// warp does not wait for).  The count-min row r is written only by
-// thread r, and SpaceSaving slot i only by thread i % 32: it reads its
-// own slots' keys and counts, the warp reduces the lowest matching slot
+// memory (atomicAdd whose result is unused compiles to RED: the warp does
+// not wait for it, but on an H100 each costs a lone warp some 50 cycles,
+// in shared memory as in device memory, tools/sketch_trace_ablation.py's
+// adds probe; so staging the rows in shared memory gains nothing, and
+// sketch_trace.cu makes fewer adds instead).  The count-min row r is
+// written only by thread r (here; sketch_trace.cu's batched adds come
+// from every thread, atomically), and SpaceSaving slot i only by thread
+// i % 32: it reads its own slots' keys and counts, the warp reduces the
+// lowest matching slot
 // (or the lowest slot of the least count) by redux.sync, and the slot's
 // owner writes it.  So no word passes between threads through memory,
 // except at a window change, which zeroes a stale branch row: a
@@ -80,6 +84,17 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x = (x ^ (x >> 16)) * 0x7FEB352Du;
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   return x ^ (x >> 16);
+}
+
+// stream_key's count-min half: the offset of key k's column in row r of a
+// lane's count-min rows (Lane::observe's), and its +1 by thread r (a RED:
+// nothing waits for it)
+__device__ __forceinline__ int cm_offset(int k, int r, int width) {
+  const uint32_t h = mix32(static_cast<uint32_t>(k) * CM_MULT + cm_salt(r));
+  return r * (width + 1) + static_cast<int>(h % static_cast<uint32_t>(width));
+}
+__device__ __forceinline__ void cm_add(int* cm, int width, int me, int k) {
+  if (me < CM_DEPTH) atomicAdd(&cm[cm_offset(k, me, width)], 1);
 }
 
 // One lane's sketch, held by every thread of its warp.
@@ -244,6 +259,118 @@ struct Lane {
       s.ewma_dly[lane] = s_dly;
       s.ewma_norm[lane] = s_norm;
       s.key_count[lane] = key_count;
+    }
+  }
+};
+
+// The SpaceSaving table in registers, for sketch_trace.cu alone (the
+// event-sim kernel keeps Lane::observe).  Slot i belongs to thread i % 32
+// at register index i / 32, as in Lane::observe, so S slots a thread hold
+// caps up to 32 * S (the host's ladder: 1, 2, 4, 8, 16).  Slots at or past
+// K never match and are never least.  The arrays are indexed only by
+// unrolled constants: no stack, no local memory.
+//
+// PACKED: each slot's count is kept as the word a miss offers the warp,
+// PACK_MISS | count << PACK_SLOT_BITS | slot, and a match offers its slot
+// alone, so one redux.sync.min gives the lowest matching slot, or else the
+// lowest slot of the least count, with that count: stream_key's choice.
+// It needs every count below 2^PACK_COUNT_BITS, which a stream of fewer
+// keys than that keeps (the host chooses).  Unpacked: the count itself and
+// Lane::observe's three reductions (match; least; its lowest slot).
+//
+// Per key the owner of the chosen slot writes nothing to device memory
+// but err on a replacement; keys and counts are written back by store().
+constexpr int PACK_SLOT_BITS = 9;  // slots < 512
+constexpr int PACK_COUNT_BITS = 31 - PACK_SLOT_BITS;
+constexpr uint32_t PACK_MISS = 0x80000000u;
+constexpr uint32_t PACK_NONE = 0xffffffffu;  // a slot past K
+
+template <int S, bool PACKED>
+struct RegTable {
+  static_assert(S >= 1 && 32 * S <= (1 << PACK_SLOT_BITS), "S in 1..16");
+  static constexpr int LOG2_S = S >= 16 ? 4 : S >= 8 ? 3 : S >= 4 ? 2 : S >= 2 ? 1 : 0;
+  static constexpr uint32_t NONE = PACKED ? PACK_NONE : static_cast<uint32_t>(INT_MAX);
+  int key[S];
+  uint32_t word[S];  // PACKED: the miss word; else the count (INT_MAX past K)
+  uint32_t slot[S];  // what a match offers: the slot, NONE past K
+
+  __device__ __forceinline__ void load(const Lane& sk) {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int i = sk.me + 32 * r;
+      const bool in = i < sk.K;
+      slot[r] = in ? static_cast<uint32_t>(i) : NONE;
+      key[r] = in ? sk.key[i] : 0;
+      const uint32_t c = in ? static_cast<uint32_t>(sk.cnt[i]) : 0u;
+      word[r] = !in ? NONE : PACKED ? PACK_MISS | c << PACK_SLOT_BITS | slot[r] : c;
+    }
+  }
+
+  static constexpr bool kCountsMin = false;  // the caller counts key k
+
+  // stream_key's SpaceSaving half and the key count
+  __device__ __forceinline__ void search(Lane& sk, int k) {
+    int j, least;
+    bool miss;
+    if constexpr (PACKED) {
+      uint32_t w[S];
+#pragma unroll
+      for (int r = 0; r < S; ++r) w[r] = key[r] == k ? slot[r] : word[r];
+#pragma unroll
+      for (int lg = 0; lg < LOG2_S; ++lg) {  // a tree: log2 S deep
+#pragma unroll
+        for (int r = 0; r + (1 << lg) < S; r += 2 << lg) w[r] = min(w[r], w[r + (1 << lg)]);
+      }
+      const uint32_t got = __reduce_min_sync(FULL_MASK, w[0]);
+      miss = got >= PACK_MISS;
+      j = static_cast<int>(got & ((1u << PACK_SLOT_BITS) - 1));
+      least = static_cast<int>((got >> PACK_SLOT_BITS) & ((1u << PACK_COUNT_BITS) - 1));
+    } else {
+      uint32_t my_match = NONE, my_min = NONE, my_arg = NONE;
+#pragma unroll
+      for (int r = S - 1; r >= 0; --r) {  // down, so the lowest slot wins
+        if (key[r] == k) my_match = slot[r];
+        if (word[r] <= my_min) {
+          my_min = word[r];
+          my_arg = slot[r];
+        }
+      }
+      const int match = __reduce_min_sync(FULL_MASK, static_cast<int>(my_match));
+      j = match;
+      miss = match == INT_MAX;
+      least = 0;
+      if (miss) {
+        least = __reduce_min_sync(FULL_MASK, static_cast<int>(my_min));
+        j = __reduce_min_sync(FULL_MASK, static_cast<int>(my_min) == least
+                                             ? static_cast<int>(my_arg) : INT_MAX);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (slot[r] == static_cast<uint32_t>(j)) {  // the chosen slot's owner
+        key[r] = k;
+        word[r] += PACKED ? 1u << PACK_SLOT_BITS : 1u;
+      }
+    }
+    // the evicted count, by the slot's owner: a predicated store, not a
+    // branch the warp would reconverge from on every key
+    const unsigned owner = miss && sk.me == (j & 31);
+    asm volatile("{\n .reg .pred p;\n setp.ne.u32 p, %2, 0;\n @p st.u32 [%0], %1;\n}"
+                 ::"l"(sk.err + j), "r"(least), "r"(owner) : "memory");
+    sk.key_count += 1;
+  }
+
+  // keys and counts back to the state
+  __device__ __forceinline__ void store(const Lane& sk) const {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (slot[r] != NONE) {
+        const int i = sk.me + 32 * r;
+        sk.key[i] = key[r];
+        sk.cnt[i] = PACKED ? static_cast<int>(word[r] >> PACK_SLOT_BITS &
+                                              ((1u << PACK_COUNT_BITS) - 1))
+                           : static_cast<int>(word[r]);
+      }
     }
   }
 };

@@ -9,9 +9,11 @@ delayed) on the lane's :class:`~repro_torch.obs.streaming.SketchState`.
 :func:`sketch_trace_lanes` is the kernel wrapper: on CUDA tensors it
 launches the hand-written kernel (``csrc/sketch_trace.cu``: one warp per
 stream, on the device code of ``csrc/sketch.cuh`` that the event-sim
-kernel's sketched instantiations run too) or raises; on CPU tensors it
-runs the plain version, :func:`sketch_trace_plain`, the loop of the lane
-functions of :mod:`repro_torch.obs.streaming` over every lane at once.
+kernel's sketched instantiations run too, the SpaceSaving table in
+registers up to a cap of 512, in the form :func:`sketch_trace_form`
+chooses) or raises; on CPU tensors it runs the plain version,
+:func:`sketch_trace_plain`, the loop of the lane functions of
+:mod:`repro_torch.obs.streaming` over every lane at once.
 Both give the reference's state: every integer field exactly, the EWMA
 bit for bit where XLA's CPU backend computes the reference's (fused
 multiply-adds, IEEE division).
@@ -95,17 +97,55 @@ def sketch_trace_plain(keys: torch.Tensor, t_us: torch.Tensor,
     return sk
 
 
+# The kernel's register table (csrc/sketch.cuh RegTable): S slots a thread
+# for caps up to 32 * S; a larger cap keeps the table in device memory (S 0)
+REG_SLOTS = (1, 2, 4, 8, 16)
+# its packed form holds a count in PACK_COUNT_BITS bits, so it takes streams
+# of at most PACK_MAX_KEYS keys (no count reaches 2**PACK_COUNT_BITS)
+PACK_COUNT_BITS = 22
+PACK_MAX_KEYS = (1 << PACK_COUNT_BITS) - 1
+
+
+def sketch_trace_form(sketch_cap: int, n: int) -> tuple[int, bool]:
+    """The kernel's instantiation for streams of ``n`` keys at
+    ``sketch_cap``: ``(S, packed)``, S SpaceSaving slots a thread in
+    registers (the least of :data:`REG_SLOTS` with ``32 * S >=
+    sketch_cap``; 0 past 512: the table in device memory), ``packed`` one
+    warp reduction per key (where S > 0 and ``n <= PACK_MAX_KEYS``), else
+    three."""
+    slots = next((s for s in REG_SLOTS if 32 * s >= sketch_cap), 0)
+    return slots, slots > 0 and n <= PACK_MAX_KEYS
+
+
+def _check_form(form, sketch_cap: int, n: int) -> tuple[int, bool]:
+    """``form``, or :func:`sketch_trace_form`'s when None; raises unless
+    the kernel has that instantiation and it takes these streams."""
+    if form is None:
+        return sketch_trace_form(sketch_cap, n)
+    slots, packed = int(form[0]), bool(form[1])
+    if slots not in (0,) + REG_SLOTS or (slots and 32 * slots < sketch_cap):
+        raise ValueError(f"no sketch_trace form with {slots} slots a thread "
+                         f"at sketch_cap {sketch_cap}")
+    if packed and (slots == 0 or n > PACK_MAX_KEYS):
+        raise ValueError(f"the packed form needs slots > 0 and n <= "
+                         f"{PACK_MAX_KEYS}, got {slots} slots, n {n}")
+    return slots, packed
+
+
 def sketch_trace_lanes(keys: torch.Tensor, t_us: torch.Tensor,
                        hits: torch.Tensor, *, sketch_cap: int,
-                       window_us: float,
-                       n_windows: int = N_WINDOWS) -> SketchState:
+                       window_us: float, n_windows: int = N_WINDOWS,
+                       form: Optional[tuple[int, bool]] = None
+                       ) -> SketchState:
     """The sketches of ``L`` key streams: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.
 
     ``keys`` is (L, n) int32, ``t_us`` (L, n) float32 event times in µs,
     ``hits`` (L, n) int32 (nonzero: a hit), all on one device.  Returns
-    the lanes' :class:`~repro_torch.obs.streaming.SketchState`.  Launches
-    are counted in ``sketch_trace_lanes.launches``.
+    the lanes' :class:`~repro_torch.obs.streaming.SketchState`.
+    ``form`` picks another instantiation than :func:`sketch_trace_form`'s,
+    ``(S, packed)``: every form gives the same state.  Launches are counted
+    in ``sketch_trace_lanes.launches``.
     """
     if sketch_cap <= 0:
         raise ValueError("sketch_trace needs sketch_cap > 0")
@@ -122,6 +162,7 @@ def sketch_trace_lanes(keys: torch.Tensor, t_us: torch.Tensor,
                              f"{a.dtype} {tuple(a.shape)}")
         if a.device != keys.device:
             raise ValueError(f"{name} on {a.device}, keys on {keys.device}")
+    slots, packed = _check_form(form, sketch_cap, keys.shape[1])
     dev = keys.device
     if dev.type == "cpu":
         return sketch_trace_plain(keys, t_us, hits, sketch_cap=sketch_cap,
@@ -138,7 +179,7 @@ def sketch_trace_lanes(keys: torch.Tensor, t_us: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sketch_trace_launch(ctypes.byref(args),
                                       *(a.data_ptr() for a in ins), n_l, n,
-                                      stream)
+                                      slots, int(packed), stream)
     _build.check(err, "sketch_trace kernel launch")
     sketch_trace_lanes.launches += 1
     return sk

@@ -845,20 +845,32 @@ def test_traced_ext_kernel_with_the_sketch(cuda_device, case):
         kern_fn(spec, seeds, **kw))
 
 
-# (id, stream length, key space, theta, sketch_cap, window_us, hits): the
-# sketch_trace kernel's lanes
+# (id, stream length, key space, theta, sketch_cap, window_us, hits, form):
+# the sketch_trace kernel's lanes; form None is sketch_trace_form's (the
+# register ladder, packed), else (S, packed) forced: the unpacked form at
+# S 1, 4 and 16, and S = 0 (the table in device memory) at a cap of 96
 SKETCH_TRACE_CASES = [
-    ("zipf-cap64", 3000, 256, 0.9, 64, 500.0, True),
-    ("zipf-cap512-nohits", 2000, 512, 0.55, 512, 100.0, False),
-    ("uniform-cap5", 1500, 64, 0.0, 5, 7.0, True),
+    ("zipf-cap64", 3000, 256, 0.9, 64, 500.0, True, None),
+    ("zipf-cap512-nohits", 2000, 512, 0.55, 512, 100.0, False, None),
+    ("uniform-cap5", 1500, 64, 0.0, 5, 7.0, True, None),
+    ("zipf-cap33", 2000, 256, 0.9, 33, 100.0, True, None),
+    ("zipf-cap96", 3000, 512, 0.9, 96, 500.0, True, None),
+    ("zipf-cap600-nohits", 2000, 1024, 0.9, 600, 100.0, False, None),
+    ("uniform-cap5-unpacked", 1500, 64, 0.0, 5, 7.0, True, (1, False)),
+    ("zipf-cap96-unpacked", 3000, 512, 0.9, 96, 500.0, True, (4, False)),
+    ("zipf-cap512-unpacked", 2000, 512, 0.55, 512, 100.0, False, (16, False)),
+    ("zipf-cap96-device-table", 2000, 512, 0.9, 96, 100.0, True, (0, False)),
 ]
+# a stream too long for the packed form (sketch_trace_form picks three
+# reductions by its length alone), at fig_drift A's cap
+SKETCH_TRACE_LONG = 4_194_304
 
 
 def sketch_trace_inputs(case, device, n_lanes=2):
     """(L, n) keys, times and hits of a ``SKETCH_TRACE_CASES`` case: a
     Zipf (or uniform) key stream per lane from numpy seeds, one event per
     µs, random hits."""
-    _, n, key_space, theta, _, _, hits = case
+    _, n, key_space, theta, _, _, hits, _ = case
     rng = np.random.default_rng(7)
     w = (np.arange(1, key_space + 1, dtype=np.float64) ** -theta)
     keys = rng.choice(key_space, size=(n_lanes, n), p=w / w.sum())
@@ -893,14 +905,55 @@ def hold_sketch_trace(kern, plain, keys, t, hits, cap, window) -> None:
                          ids=[c[0] for c in SKETCH_TRACE_CASES])
 def test_sketch_trace_kernel_matches_plain(cuda_device, case):
     keys, t, hits = sketch_trace_inputs(case, cuda_device)
-    cap, window = case[4], case[5]
+    cap, window, form = case[4], case[5], case[7]
     before = tsk.sketch_trace_lanes.launches
     kern = tsk.sketch_trace_lanes(keys, t, hits, sketch_cap=cap,
-                                  window_us=window)
+                                  window_us=window, form=form)
     assert tsk.sketch_trace_lanes.launches == before + 1
     plain = tsk.sketch_trace_plain(keys.cpu(), t.cpu(), hits.cpu(),
                                    sketch_cap=cap, window_us=window)
     hold_sketch_trace(kern, plain, keys, t, hits, cap, window)
+
+
+@pytest.mark.cuda
+def test_sketch_trace_unpacked_by_length(cuda_device):
+    """A stream of ``SKETCH_TRACE_LONG`` keys takes the unpacked register
+    form by its length; its state equals the S = 0 instantiation's (the
+    table in device memory, held against the plain version above) in every
+    field.  The plain version itself, some 0.5 ms a key, would take over
+    half an hour here, so the table is also replayed by an exact
+    SpaceSaving (stream_key's rule: the lowest matching slot, else the
+    lowest slot of the least count, which passes its count on as err)."""
+    n, cap = SKETCH_TRACE_LONG, 96
+    assert tsk.sketch_trace_form(cap, n) == (4, False)
+    rng = np.random.default_rng(11)
+    w = np.arange(1, 513, dtype=np.float64) ** -0.9
+    keys = rng.choice(512, size=n, p=w / w.sum()).astype(np.int32)
+    ins = (torch.from_numpy(keys)[None].to(cuda_device),
+           torch.arange(n, dtype=torch.float32, device=cuda_device)[None],
+           torch.from_numpy((keys % 3 == 0).astype(np.int32))[None]
+           .to(cuda_device))
+    kw = dict(sketch_cap=cap, window_us=500.0)
+    kern = tsk.sketch_trace_lanes(*ins, **kw)
+    dev_table = tsk.sketch_trace_lanes(*ins, **kw, form=(0, False))
+    for f in tst.SketchState._fields:
+        assert torch.equal(getattr(kern, f), getattr(dev_table, f)), f
+    ss_key, ss_cnt, ss_err = (np.full(cap, -1), np.zeros(cap, np.int64),
+                              np.zeros(cap, np.int64))
+    where = {}
+    for k in keys.tolist():
+        j = where.get(k)
+        if j is None:
+            j = int(np.argmin(ss_cnt))
+            where.pop(int(ss_key[j]), None)
+            where[k] = j
+            ss_key[j], ss_err[j] = k, ss_cnt[j]
+        ss_cnt[j] += 1
+    for name, want in (("ss_key", ss_key), ("ss_count", ss_cnt),
+                       ("ss_err_count", ss_err)):
+        assert np.array_equal(getattr(kern, name)[0, :cap].cpu().numpy(),
+                              want), name
+    assert int(kern.ss_count[0].sum()) == n == int(kern.key_count[0])
 
 
 # the traced modes through the entry points: simulate_network with
