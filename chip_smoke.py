@@ -18,7 +18,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    tiered instantiations (``event_sim_traced.cu``) and their 15 sketched
    twins (``event_sim_traced_sketch.cu``) and of the sketch_trace kernel's
    11 (S register slots a thread, 1 to 16, packed and unpacked; S = 0, the
-   table in device memory), none of which may use stack or local memory;
+   table in device memory), none of which may use stack or local memory
+   (but ``SKETCH_STACK_BEFORE``'s 16 bytes of stack, as before);
    beside the build ``nvcc -Xptxas -v`` reports the registers, stack and
    spills of the replay kernel's 14 (seven policies x two state layouts), of the
    chunked WKV kernel's nine (three type combinations x three head
@@ -102,11 +103,13 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
 6g. ``tiers_long_vs_plain``: the same on fig_hierarchy's network with
    deterministic service at fig_hierarchy's 8 000 requests, 3 p x 2
    seeds: every output identical;
-6h. ``sketch_vs_plain`` and ``sketch_ext_vs_plain``: the sketched
-   instantiations (the streaming estimators in the launch) against their
-   plain versions (``SKETCH_CASES``: closed, traced closed with a route
-   over 32 visits, counting; then coalescing, open loop with bursts,
-   tiered; register slots and shared memory; deterministic service):
+6h. ``sketch_vs_plain``, ``sketch_ext_vs_plain`` and
+   ``sketch_tiers_vs_plain``: the sketched instantiations (the streaming
+   estimators in the launch) against their plain versions
+   (``SKETCH_CASES``: closed, traced closed with a route over 32 visits,
+   counting at 32 and 34 branches, windows that wrap the ring; then
+   coalescing and open loop with bursts; then tiered; register slots and
+   shared memory; caps up to 32 and past it; deterministic service):
    every field of the sketch state identical, the EWMAs bit for bit, and
    every simulation output identical to the unsketched kernel's;
 6i. ``sketch_trace_vs_plain``: the sketch_trace kernel against its plain
@@ -230,7 +233,8 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    measured-network lane at 16k requests with identical event counts;
    the LRU network's 21 lanes x 16k requests, untraced and traced with
    lossless 16384-record rings, against one run of the traced plain
-   version, records field by field; the event-sim launch of one sweep,
+   version, records field by field (the three plain runs side by side in
+   worker processes, after the kernels are timed); the event-sim launch of one sweep,
    five measured networks x 16k requests, bit for bit its networks
    launched alone; ns per event of the 1-, 5- and 21-lane and traced
    launches); the attention kernels at their
@@ -258,7 +262,10 @@ CUDA toolkit (``nvcc``).  Phases, each printed with its seconds:
    into lossless rings (ns per event traced and not; the traced
    coalescing lane is the kernels line's ``event_sim_traced_ext``, held
    against its traced plain version, timed alone); the sketched closed
-   kernel on fig_drift D's lane
+   kernel on fig_drift D's lane (its bound the chain of each event's
+   warp collectives, ``CLOSED_CHAIN``, at the latencies of
+   ``CHASE_SRC``'s ``redux_chain`` and ``shfl_chain``; the unsketched
+   closed kernel's share of it beside)
    and the sketch_trace kernel on fig_drift A's stream beside their plain
    versions; the sketch_trace kernel at each of fig_drift's caps (96, 256,
    512: S 4, 8, 16) in turns with its S = 0 instantiation on the same
@@ -307,9 +314,21 @@ CHECK_T, CHECK_FILL = 5000, 3400  # the replay check's trace and its fill
 REPLAY_BIG_KEYS, REPLAY_BIG_T = 1 << 17, 600
 # the replay bound's unit: one thread follows next[] over a random cycle
 # of CHASE_N ints for CHASE_STEPS dependent loads, timed by clock64; the
-# sketch_trace bound's: REDUX_STEPS dependent warp reductions
+# sketch_trace bound's: REDUX_STEPS dependent warp reductions (the event
+# sim's: those and as many dependent shuffles)
 CHASE_N, CHASE_STEPS = 1024, 1 << 20
 REDUX_STEPS = 1 << 20
+# the warp collectives on one closed-loop event's dependent chain
+# (csrc/event_sim.cuh): the argmin's two reductions (t, then the lowest j
+# holding it), the owner's shuffles of j's station and next station (in
+# parallel), then the successor's and the busy count's reductions (in
+# parallel); the sketched closed instantiations add none to it (the
+# shuffle of j's branch and the RED to its row feed no later event)
+CLOSED_CHAIN = {"redux": 3, "shfl": 1}
+# ext_timing's sketch rows: the modes whose sketch is logged and replayed
+# every 32 events (csrc/sketch.cuh SimLane); the others keep it in place
+SKETCH_DESIGN = {m: "logged, replayed every 32 events"
+                 for m in ("coalescing", "open loop", "tiered")}
 CHASE_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void chase(const int* __restrict__ next, int n, int steps,
@@ -349,6 +368,24 @@ __global__ void redux_chain(int steps, long long* cycles, unsigned* sink) {
 extern "C" int redux_launch(int steps, long long* cycles, unsigned* sink,
                             void* stream) {
   redux_chain<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(steps, cycles, sink);
+  return (int)cudaGetLastError();
+}
+// the event sim's owner shuffle: one warp's chain of __shfl_sync, each
+// reading the lane the last one's value names (and one add)
+__global__ void shfl_chain(int steps, long long* cycles, unsigned* sink) {
+  int v = threadIdx.x;
+  const long long t0 = clock64();
+#pragma unroll 8
+  for (int k = 0; k < steps; ++k) v = __shfl_sync(0xffffffffu, v + 1, v & 31);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    *cycles = t1 - t0;
+    *sink = v;
+  }
+}
+extern "C" int shfl_launch(int steps, long long* cycles, unsigned* sink,
+                           void* stream) {
+  shfl_chain<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(steps, cycles, sink);
   return (int)cudaGetLastError();
 }
 """
@@ -538,7 +575,7 @@ OPEN_SOJOURN_RTOL = 1e-3
 # at once, in CHECK_WORKERS processes of their own (each its own CUDA
 # context), longest first: the plain versions are bound by the host's
 # launches, so the processes overlap on one card (one for each of the
-# machine's eight cores: fifteen checks)
+# machine's eight cores: sixteen checks)
 CHECK_WORKERS = 8
 # (C, N, padded with -1 and duplicated ids) of the LRU-update check
 LRU_SHAPES = ((2048, 128, False), (1000, 96, True), (1 << 22, 4096, False))
@@ -710,28 +747,56 @@ def start_sass():
                                  str(_build.build_library())], stdout=f), path
 
 
+# sass_counts: the event-sim instantiations whose warp collectives and
+# atomics are counted, by (kTrace, R, kMode, sketched): fig_drift D's lane,
+# the closed loop at R = 4, without the sketch and with it (in place); the
+# coalescing one at R = 4 with the sketch (logged)
+SIM_SASS = {(0, 4, 0, False): "closed R=4",
+            (0, 4, 0, True): "sketched closed R=4",
+            (0, 4, 1, True): "sketched coalescing R=4"}
+SIM_OPS = ("REDUX", "SHFL", "VOTE", "RED", "ATOM", "ATOMS", "ATOMG")
+
+
+def sim_sass_name(mangled: str):
+    """``SIM_SASS``'s name of a mangled event-sim instantiation, or None."""
+    import re
+
+    k = re.search(r"sim_kernelILi([012])ELi(\d+)ELi([01234])E", mangled)
+    if not k:
+        return None
+    return SIM_SASS.get((*map(int, k.groups()), "Sketched" in mangled))
+
+
 def sass_counts(started, rec):
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of each
     flash kernel instantiation, from the ``cuobjdump --dump-sass`` that
     :func:`start_sass` started; raises unless every tensor-core
     instantiation holds HGMMA and each of the split-TF32 kernel's ten holds
-    HMMA."""
+    HMMA.  Also the warp collectives and atomics (``SIM_OPS``, static
+    counts: the whole kernel, the loop among it) of ``SIM_SASS``'s
+    event-sim instantiations."""
     import re
 
     proc, path = started
     if proc.wait() != 0:
         raise RuntimeError(f"cuobjdump --dump-sass failed ({proc.returncode})")
     sass = path.read_text()
-    counts, fn = {}, None
+    counts, fn, sim, sim_fn = {}, None, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1) if "flash" in m.group(1) else None
             if fn:
                 counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            sim_fn = sim_sass_name(m.group(1))
+            if sim_fn:
+                sim[sim_fn] = dict.fromkeys(SIM_OPS, 0)
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+        elif sim_fn:
+            for op in SIM_OPS:
+                sim[sim_fn][op] += bool(re.search(rf"\b{op}\b", line))
     tc = {f: c for f, c in counts.items() if "flash_sm90_kernel" in f}
     if len(tc) != 2 or not all(c["HGMMA"] > 0 for c in tc.values()):
         raise AssertionError(f"tensor-core flash kernel without HGMMA: {counts}")
@@ -741,6 +806,9 @@ def sass_counts(started, rec):
     for f, c in counts.items():
         print(f"sass {f}: {c}", flush=True)
     rec["flash_sass"] = counts
+    for f, c in sim.items():
+        print(f"sass event_sim {f}: {c}", flush=True)
+    rec["event_sim_sass"] = sim
 
 
 def start_ptxas():
@@ -786,6 +854,12 @@ def ptxas_info(proc, pattern, name_of):
     return info
 
 
+# event_sim_ptxas: the sketched instantiations that had stack memory in the
+# sketch slice's final chip run (16 bytes, no local memory); no other may
+# have any
+SKETCH_STACK_BEFORE = ("tiered R=8",)
+
+
 def event_sim_ptxas(rec):
     """Registers, stack frame and local memory of each event-sim
     instantiation (untraced, traced, traced for routes over 32 visits,
@@ -797,10 +871,11 @@ def event_sim_ptxas(rec):
     unpacked; S = 0, the table in device memory, unpacked), as the built
     library records them (``cuobjdump -res-usage``: the registers ptxas
     assigned, with no second compile beside the build); raises unless all
-    35 + 15 + 35 + 15 + 11 are there, if an instantiation of
-    ``event_sim.cu`` has other registers than ``EVENT_SIM_REGISTERS``, or
-    if a sketch_trace instantiation has stack or local memory (its
-    register table is indexed by constants alone)."""
+    35 + 15 + 35 + 15 + 11 are there, if an instantiation of ``event_sim.cu`` has other
+    registers than ``EVENT_SIM_REGISTERS``, or if a sketch_trace
+    instantiation, or a sketched one but ``SKETCH_STACK_BEFORE``'s, has
+    stack or local memory (sketch_trace's register table is indexed by
+    constants alone)."""
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -845,6 +920,16 @@ def event_sim_ptxas(rec):
         if len(got) != 50 or len(traced) != 15:
             raise AssertionError(f"cuobjdump -res-usage found {group} "
                                  f"{sorted(got)}")
+    if set(info["sketched"]) != set(info["unsketched"]):
+        raise AssertionError(f"sketched instantiations "
+                             f"{sorted(info['sketched'])} are not the "
+                             f"unsketched ones' twins")
+    stacked = {fn: v for fn, v in info["sketched"].items()
+               if (v["stack_bytes"] and not fn.startswith(SKETCH_STACK_BEFORE))
+               or v["local_bytes"]}
+    if stacked:
+        raise AssertionError(f"sketched event-sim instantiations with stack "
+                             f"or local memory: {stacked}")
     want_st = {f"S=0 {SKETCH_FORMS[0]}"} | {
         f"S={n} {f}" for n in SKETCH_SLOTS for f in SKETCH_FORMS}
     if set(trace_k) != want_st:
@@ -870,7 +955,8 @@ def event_sim_ptxas(rec):
     for fn, v in sorted(trace_k.items()):
         print(f"registers sketch_trace {fn}: {json.dumps(v)}", flush=True)
     print("registers event_sim: the 35 instantiations of event_sim.cu keep "
-          "their registers", flush=True)
+          "their registers; the 50 sketched ones have no stack or local "
+          f"memory but {SKETCH_STACK_BEFORE}'s stack, as before", flush=True)
     rec["event_sim_ptxas"] = info["unsketched"]
     rec["event_sim_sketch_ptxas"] = info["sketched"]
     rec["sketch_trace_ptxas"] = trace_k
@@ -1233,8 +1319,8 @@ def check_sketch(rec, modes=("closed", "count")):
     unsketched kernel's.  Two checks, so that two workers share the
     cases."""
     import torch
-    from test_torch_event_sim_cuda import (SKETCH_CASES, hold_sketched,
-                                           sketch_pair)
+    from test_torch_event_sim_cuda import (SKETCH_CASES, hold_sketch_case,
+                                           hold_sketched, sketch_pair)
 
     err = 0.0
     for case in [c for c in SKETCH_CASES if c[1] in modes]:
@@ -1242,18 +1328,26 @@ def check_sketch(rec, modes=("closed", "count")):
                                         SKETCH_PLAIN_REQUESTS)
         torch.cuda.synchronize()
         done = hold_sketched(kern, plain, bare)
+        hold_sketch_case(case, kern)
         err = max(err, float((kern.sketch.ewma_hit_frac
                               - plain.sketch.ewma_hit_frac).abs().max()))
         print(f"sketch {case[0]}: state == plain (every field), outputs == "
               f"the unsketched kernel's; {done} completions, keys "
-              f"{kern.sketch.key_count.cpu().tolist()}", flush=True)
+              f"{kern.sketch.key_count.cpu().tolist()}, windows to "
+              f"{int(kern.sketch.win_id.max())}", flush=True)
     rec["event_sim_sketch_max_abs_err"] = err
 
 
 def check_sketch_ext(rec):
-    """``sketch_ext_vs_plain``: :func:`check_sketch` on the coalescing,
-    open-loop and tiered cases."""
-    check_sketch(rec, modes=("flows", "open", "tiers"))
+    """``sketch_ext_vs_plain``: :func:`check_sketch` on the coalescing and
+    open-loop cases."""
+    check_sketch(rec, modes=("flows", "open"))
+
+
+def check_sketch_tiers(rec):
+    """``sketch_tiers_vs_plain``: :func:`check_sketch` on the tiered
+    cases."""
+    check_sketch(rec, modes=("tiers",))
 
 
 def hold_trace_lanes(what, mode, lanes, exact):
@@ -2702,7 +2796,16 @@ def ext_timing(rec):
     # per event: the closed loop's work (as kCount) and the sketch's tick,
     # window counts and EWMA steps
     d_ops = d_events * (5 * dkw["mpl"] + 61 + 30)
-    db, dby = work_bound(d_bytes, d_ops)
+    d_work, d_work_by = work_bound(d_bytes, d_ops)
+    # its chain: each event's warp collectives (CLOSED_CHAIN) at their
+    # latencies, probed; far above its bytes and operations
+    chase = build_chase()
+    red = redux_latency(chase)
+    shf = redux_latency(chase, "shfl")
+    d_chain_ns = (CLOSED_CHAIN["redux"] * red["ns"]
+                  + CLOSED_CHAIN["shfl"] * shf["ns"])
+    d_chain_ms = d_events * d_chain_ns * 1e-6
+    db, dby = max((d_work, d_work_by), (d_chain_ms, "operations"))
 
     # the sketch_trace kernel on fig_drift A's stream at each of
     # fig_drift's caps, in turns with its S = 0 instantiation (the table in
@@ -2712,7 +2815,6 @@ def ext_timing(rec):
     from repro_torch.kernels import sketch as ksk
 
     fkeys, ft, fhits = fig_drift_stream(dev)
-    red = redux_latency(build_chase())
     chain_ms = FD_STREAM * red["ns"] * 1e-6
     st_rows = {}
     for st_cap in FD_CAPS:
@@ -2787,8 +2889,13 @@ def ext_timing(rec):
                   "bytes": ti_bytes, "ops": ti_ops, "bound_ms": tb,
                   "requests": EXT_TIMING_REQUESTS},
         "sketch": {"ms": d_ms, "plain_ms": d_plain_ms, "bytes": d_bytes,
-                   "ops": d_ops, "bound_ms": db, "per_mode": sketch_rows,
-                   "requests": EXT_TIMING_REQUESTS},
+                   "ops": d_ops, "work_bound_ms": d_work, "bound_ms": db,
+                   "chain": CLOSED_CHAIN, "shfl": shf, "redux": red,
+                   "chain_ns_per_event": d_chain_ns,
+                   "chain_bound_ms": d_chain_ms,
+                   "chain_share": d_chain_ms / d_ms,
+                   "off_chain_share": d_chain_ms / d_off_ms,
+                   "per_mode": sketch_rows, "requests": EXT_TIMING_REQUESTS},
         "traced": {"ms": tr_co_ms,
                    "plain_ms": tr_plain_ms,
                    "bytes": tr_bytes, "ops": co_ops, "bound_ms": trb,
@@ -2827,7 +2934,9 @@ def ext_timing(rec):
     for mode, r in sketch_rows.items():
         print(f"event_sim sketch, {mode}: {r['off_ns_per_event']:.1f} ns per "
               f"event without the sketch, {r['on_ns_per_event']:.1f} with it "
-              f"({r['events']} events)", flush=True)
+              f"({r['on_ns_per_event'] - r['off_ns_per_event']:+.1f}; "
+              f"{r['events']} events; the sketch "
+              f"{SKETCH_DESIGN.get(mode, 'in place')})", flush=True)
     for mode, r in trace_rows.items():
         print(f"event_sim traced, {mode}: {r['off_ns_per_event']:.1f} ns per "
               f"event untraced, {r['on_ns_per_event']:.1f} traced "
@@ -2837,8 +2946,13 @@ def ext_timing(rec):
           f"{tr_plain_ms:.1f} ms, "
           f"bound {trb:.5f} ms", flush=True)
     print(f"event_sim sketched closed, fig_drift D's lane: {d_ms:.3f} ms per "
-          f"1-lane launch, plain {d_plain_ms:.1f} ms, bound {db:.5f} ms",
-          flush=True)
+          f"1-lane launch, plain {d_plain_ms:.1f} ms, bound {db:.5f} ms "
+          f"(chain: {d_events} events of {CLOSED_CHAIN['redux']} warp "
+          f"reductions of {red['ns']:.2f} ns and {CLOSED_CHAIN['shfl']} "
+          f"shuffle of {shf['ns']:.2f} ns, {shf['cycles']:.1f} cycles; bytes "
+          f"and operations {d_work:.5f} ms): {d_chain_ms / d_ms:.3f} of it "
+          f"reached; the unsketched closed kernel on the same lane "
+          f"{d_off_ms:.3f} ms, {d_chain_ms / d_off_ms:.3f}", flush=True)
     print(f"sketch_trace, fig_drift A's stream: {st_ms:.3f} ms per launch "
           f"({out['sketch_trace']['ns_per_key']:.1f} ns per key), plain "
           f"{st_plain_ms:.1f} ms, bound {sb:.5f} ms (chain: {FD_STREAM} "
@@ -3661,29 +3775,32 @@ def build_chase():
     lib.chase_launch.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p] * 3)
     lib.chase_launch.restype = ctypes.c_int
-    lib.redux_launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
-    lib.redux_launch.restype = ctypes.c_int
+    for fn in (lib.redux_launch, lib.shfl_launch):
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
-def redux_latency(lib) -> dict:
+def redux_latency(lib, which="redux") -> dict:
     """ns (CUDA events) and cycles (clock64) per step of one warp's chain
-    of dependent ``redux.sync`` minima: the latency of one warp-wide
-    reduction, the unit of the sketch_trace kernel's chain bound."""
+    of dependent ``redux.sync`` minima (``which`` "shfl": ``__shfl_sync``
+    reads): the latency of one warp-wide reduction (shuffle), the unit of
+    the sketch_trace and event-sim kernels' chain bounds."""
     import torch
     from repro_torch.kernels._build import check
 
     cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
     sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    chain = getattr(lib, f"{which}_launch")
 
     def launch():
-        return lib.redux_launch(REDUX_STEPS, cycles.data_ptr(), sink.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
+        return chain(REDUX_STEPS, cycles.data_ptr(), sink.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
 
-    check(launch(), "redux launch")
+    check(launch(), f"{which} launch")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    check(launch(), "redux launch")
+    check(launch(), f"{which} launch")
     end.record()
     torch.cuda.synchronize()
     return {"ns": start.elapsed_time(end) * 1e6 / REDUX_STEPS,
@@ -3720,16 +3837,130 @@ def load_latency(lib) -> dict:
     return out
 
 
+def full_size_grid():
+    """full_size's event-sim grid: one disk speed's (p_hit x seed) lanes,
+    21 x 16k requests, with its lossless-ring trace kwargs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy_models import lru_network
+    from repro_torch.kernels import event_sim as es
+
+    return es.grid_lanes(lru_network(disk_us=100.0), np.asarray(P_GRID),
+                         SIM_REQUESTS, SEEDS, 0.25, torch.device("cuda"),
+                         trace=TRACE_FULL)
+
+
+def full_size_one_lane():
+    """full_size's one measured-network lane (LRU at 384), as the sweeps
+    launch 35 of the main path's 39 untraced lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.harness import measure_cache
+    from repro_torch.kernels import event_sim as es
+
+    meas = measure_cache("lru", 384, key_space=4096, n_requests=60_000,
+                         device="cuda")
+    return es.grid_lanes(meas.network, np.asarray([meas.hit_ratio]),
+                         SIM_REQUESTS, (0,), 0.25, torch.device("cuda"))
+
+
+def outputs_digest(*outs) -> str:
+    """sha256 of the bytes of every tensor in ``outs`` (tensors, or tuples
+    and NamedTuples of them; None skipped), with their dtypes and shapes:
+    how full_size's timed launches are held to the launches its workers
+    hold against the plain versions."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, torch.Tensor):
+            h.update(f"{x.dtype} {tuple(x.shape)}".encode())
+            h.update(x.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                feed(y)
+
+    feed(outs)
+    return h.hexdigest()
+
+
+def plain_replay_lru(rec):
+    """full_size's LRU replay launch (5 lanes x 60k requests) held against
+    its plain version on the same inputs, which is timed; the launch's
+    digest recorded."""
+    from repro_torch.core.harness import coin_stream, zipf_trace
+    from repro_torch.kernels import replay as kr
+
+    grid = kr.grid_lanes("lru", zipf_trace(60_000, 4096, 0.99, 0),
+                         coin_stream(60_000, 0), IMPL_CAPS, key_space=4096,
+                         window=8, device="cuda")
+    outs = kr.replay_lanes("lru", *grid.args, grid.key_space, grid.pad)
+    plain, rec["replay_plain_ms"] = timed_plain(
+        lambda: kr.replay_lanes_plain("lru", *grid.args, grid.key_space,
+                                      grid.pad))
+    hold_replay(f"lru {grid.shape}", outs, plain)
+    rec["digest_replay_lru"] = outputs_digest(outs)
+
+
+def plain_event_sim_grid(rec):
+    """full_size's event-sim grid, untraced and traced, held against one
+    run of the traced plain version (timed), whose throughput,
+    completions and events are the untraced plain version's; the two
+    launches' digest recorded."""
+    from repro_torch.kernels import event_sim as es
+
+    spec, seeds, kw_t = full_size_grid()
+    out = es.sim_lanes(spec, seeds, **untraced(kw_t))
+    out_t = es.sim_lanes(spec, seeds, **kw_t)
+    plain, rec["traced_plain_ms"] = timed_plain(
+        lambda: es.sim_lanes_plain(spec, seeds, **kw_t))
+    what = f"lru network {len(P_GRID)}x{len(SEEDS)} lanes"
+    rec["event_sim_max_abs_err"] = hold_sim(
+        f"{what} (vs the traced plain version)", out, plain)
+    hold_sim(f"traced {what}", out_t, plain)
+    rec["event_sim_traced_max_abs_err"] = hold_trace(
+        f"{what}, {TRACE_FULL}-record rings", out_t, plain, spec.visits[0],
+        exact=False)
+    rec["digest_event_sim_grid"] = outputs_digest(out, out_t)
+
+
+def plain_event_sim_one(rec):
+    """full_size's one measured-network lane held against its plain
+    version, which is timed; the launch's digest recorded."""
+    from repro_torch.kernels import event_sim as es
+
+    spec, seeds, kw = full_size_one_lane()
+    out = es.sim_lanes(spec, seeds, **kw)
+    plain, rec["sim_one_lane_plain_ms"] = timed_plain(
+        lambda: es.sim_lanes_plain(spec, seeds, **kw))
+    rec["event_sim_max_abs_err"] = hold_sim("measured lru@384 network, 1 lane",
+                                            out, plain)
+    rec["digest_event_sim_one"] = outputs_digest(out)
+
+
+# full_size's plain versions, each a check at the main path's shapes: run
+# side by side in worker processes (run_workers), longest first
+FULL_SIZE_PLAIN = {
+    "event_sim_grid_plain": plain_event_sim_grid,
+    "event_sim_one_lane_plain": plain_event_sim_one,
+    "replay_lru_plain": plain_replay_lru,
+}
+
+
 def full_size(rec):
     """Each kernel at the main path's shapes: timed per launch (CUDA events)
-    and held against its plain version, run once on the same inputs and
-    timed, and against the work's bound."""
+    and against the work's bound, then held against its plain version, run
+    once on the same inputs and timed, the three plain versions side by
+    side in worker processes (``FULL_SIZE_PLAIN``)."""
     import numpy as np
     import torch
     from repro_torch.cache.flat import unpack_ops
     from repro_torch.cache.replay import classify_inflight, lru_sweep
-    from repro_torch.core.harness import coin_stream, measure_cache, zipf_trace
-    from repro_torch.core.policy_models import lru_network
+    from repro_torch.core.harness import coin_stream, zipf_trace
     from repro_torch.kernels import event_sim as es
     from repro_torch.kernels import replay as kr
 
@@ -3771,10 +4002,6 @@ def full_size(rec):
     grid = kr.grid_lanes("lru", trace, us, IMPL_CAPS, key_space=4096,
                          window=8, device="cuda")
     outs = outs_of["lru"]
-    plain, replay_plain_ms = timed_plain(
-        lambda: kr.replay_lanes_plain("lru", *grid.args, grid.key_space,
-                                      grid.pad))
-    hold_replay(f"lru {grid.shape}", outs, plain)
     hits, ops = lru_sweep(trace, IMPL_CAPS)
     if not (np.array_equal(outs[0].cpu().numpy(), hits)
             and np.array_equal(unpack_ops(outs[2]).cpu().numpy(), ops)):
@@ -3790,45 +4017,25 @@ def full_size(rec):
     replay_ops = 16 * n_l * n_t + 2 * grid.pad * evictions
 
     # event sim, one disk speed's (p_hit x seed) grid, 21 lanes x 16k
-    # requests, untraced and traced (lossless rings), held against one run
-    # of the traced plain version, whose throughput, completions and
-    # events are the untraced plain version's
-    spec, seeds, kw_t = es.grid_lanes(
-        lru_network(disk_us=100.0), np.asarray(P_GRID), SIM_REQUESTS,
-        SEEDS, 0.25, torch.device("cuda"), trace=TRACE_FULL)
+    # requests, untraced and traced (lossless rings); held against one run
+    # of the traced plain version in plain_event_sim_grid
+    spec, seeds, kw_t = full_size_grid()
     kw = untraced(kw_t)
     sim_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw), reps=5)
     traced_ms = cuda_ms(lambda: es.sim_lanes(spec, seeds, **kw_t), reps=5)
     out = es.sim_lanes(spec, seeds, **kw)
     out_t = es.sim_lanes(spec, seeds, **kw_t)
-    plain, traced_plain_ms = timed_plain(
-        lambda: es.sim_lanes_plain(spec, seeds, **kw_t))
-    grid_what = f"lru network {len(P_GRID)}x{len(SEEDS)} lanes"
-    err = hold_sim(f"{grid_what} (vs the traced plain version)", out, plain)
     for f in ("x", "completed", "events", "t_measured"):
         if not torch.equal(getattr(out_t, f), getattr(out, f)):
             raise AssertionError(f"traced kernel != untraced at full size: {f}")
-    hold_sim(f"traced {grid_what}", out_t, plain)
-    rec["event_sim_traced_max_abs_err"] = max(
-        rec["event_sim_traced_max_abs_err"],
-        hold_trace(f"{grid_what}, {TRACE_FULL}-record rings", out_t, plain,
-                   spec.visits[0], exact=False))
     print(f"event_sim_traced full size: {traced_ms:.3f} ms vs untraced "
           f"{sim_ms:.3f} ms; x/completed/events identical", flush=True)
     # one of the sweeps' measured-network lanes: 35 of the main path's 39
-    # untraced launches are one such lane
-    meas = measure_cache("lru", 384, key_space=4096, n_requests=60_000,
-                         device="cuda")
-    one = es.grid_lanes(meas.network, np.asarray([meas.hit_ratio]),
-                        SIM_REQUESTS, (0,), 0.25, torch.device("cuda"))
+    # untraced launches are one such lane (held in plain_event_sim_one)
+    one = full_size_one_lane()
     sim_one_lane_ms = cuda_ms(lambda: es.sim_lanes(one[0], one[1], **one[2]),
                               reps=5)
     out_one = es.sim_lanes(one[0], one[1], **one[2])
-    plain, sim_one_plain_ms = timed_plain(
-        lambda: es.sim_lanes_plain(one[0], one[1], **one[2]))
-    err = max(err, hold_sim("measured lru@384 network, 1 lane", out_one,
-                            plain))
-    rec["event_sim_max_abs_err"] = max(rec["event_sim_max_abs_err"], err)
     # one sweep's launch on the main path: the LRU sweep's five measured
     # networks as five lanes, bit for bit each network launched alone
     specs = sweep_specs("lru")
@@ -3883,6 +4090,25 @@ def full_size(rec):
                          + ring_bytes, sim_ops)
     lru = rec["lru_timing"]
     lb, lby = work_bound(lru["bytes"], 2 * lru["shape"][0] + lru["shape"][1])
+    # the three plain versions at these shapes, each a check too: side by
+    # side in worker processes, after every kernel above is timed; each
+    # worker's launch, held against its plain version, is the timed one
+    # here, byte for byte
+    plain_ms = run_workers(FULL_SIZE_PLAIN, len(FULL_SIZE_PLAIN), rec,
+                           "full_size_plain_seconds")
+    for key, timed in (("digest_replay_lru", (outs,)),
+                       ("digest_event_sim_grid", (out, out_t)),
+                       ("digest_event_sim_one", (out_one,))):
+        if plain_ms[key] != outputs_digest(*timed):
+            raise AssertionError(f"full_size: the timed launches' outputs != "
+                                 f"the launch held against the plain version "
+                                 f"({key})")
+    print("full_size: the timed replay and event-sim launches == the launches "
+          "held against their plain versions (sha256 of every output)",
+          flush=True)
+    replay_plain_ms = plain_ms["replay_plain_ms"]
+    traced_plain_ms = plain_ms["traced_plain_ms"]
+    sim_one_plain_ms = plain_ms["sim_one_lane_plain_ms"]
     rec["timing"] = {
         "replay_ms_per_policy": per_policy, "replay_plain_ms": replay_plain_ms,
         "replay_chain_steps": chains, "replay_chain_bound_ms": chain_ms,
@@ -4956,6 +5182,7 @@ PARALLEL_CHECKS = {
     "tiers_long_vs_plain": check_tiers_long,
     "sketch_ext_vs_plain": check_sketch_ext,
     "sketch_vs_plain": check_sketch,
+    "sketch_tiers_vs_plain": check_sketch_tiers,
     "replay_vs_plain": check_replay,
     "trace_ext_vs_plain": check_trace_ext,
     "cluster_vs_plain": check_cluster,
@@ -4978,33 +5205,46 @@ def _check_worker_init():
     torch.backends.cudnn.allow_tf32 = False
 
 
+WORKER_JOBS = {**PARALLEL_CHECKS, **FULL_SIZE_PLAIN}
+
+
 def _run_check(name):
     """One check in a worker: (name, seconds, what it recorded)."""
     rec = {}
     t0 = time.perf_counter()
-    PARALLEL_CHECKS[name](rec)
+    WORKER_JOBS[name](rec)
     seconds = time.perf_counter() - t0
     print(f"check {name}: {seconds:.3f} s", flush=True)
     return name, seconds, rec
 
 
-def parallel_checks(rec):
-    """Run ``PARALLEL_CHECKS`` in ``CHECK_WORKERS`` processes (spawned, so
-    each has its own CUDA context; the kernels are the build's), and merge
-    what each recorded: the largest of each ``*_max_abs_err``.  A check
-    that fails fails the phase; leaving the pool stops every worker."""
+def run_workers(jobs, n_workers, rec, seconds_key):
+    """Run the checks ``jobs`` (names of ``WORKER_JOBS``) in ``n_workers``
+    processes (spawned, so each has its own CUDA context; the kernels are
+    the build's), and merge what each recorded into ``rec``: the largest of
+    each ``*_max_abs_err``, the last of any other key; each check's seconds
+    under ``rec[seconds_key]``.  Returns what they recorded, merged.  A
+    check that fails fails the caller; leaving the pool stops every
+    worker."""
     import multiprocessing
 
-    seconds = {}
+    seconds, merged = {}, {}
     ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(CHECK_WORKERS, initializer=_check_worker_init) as pool:
-        for name, sec, got in pool.imap_unordered(_run_check,
-                                                  PARALLEL_CHECKS):
+    with ctx.Pool(n_workers, initializer=_check_worker_init) as pool:
+        for name, sec, got in pool.imap_unordered(_run_check, jobs):
             seconds[name] = sec
             for k, v in got.items():
+                merged[k] = v
                 rec[k] = (max(rec.get(k, 0.0), v)
                           if k.endswith("_max_abs_err") else v)
-    rec["check_seconds"] = seconds
+    rec[seconds_key] = seconds
+    return merged
+
+
+def parallel_checks(rec):
+    """Run ``PARALLEL_CHECKS`` in ``CHECK_WORKERS`` processes
+    (:func:`run_workers`); a check that fails fails the phase."""
+    run_workers(PARALLEL_CHECKS, CHECK_WORKERS, rec, "check_seconds")
 
 
 def main() -> int:

@@ -118,9 +118,11 @@
 //
 // The streaming sketch (sketch_cap > 0): the kernel template lives in
 // event_sim.cuh; this source instantiates it without the sketch, and
-// event_sim_sketch.cu with it (parameters Sketched<Ext>, Sketched<TierExt>),
-// so nvcc builds the two sets in parallel and these instantiations keep
-// their parameters and their code.
+// event_sim_sketch.cu with it (parameters Sketched<Ext, L>,
+// Sketched<TierExt, L>: L the sketch's device code, sketch.cuh's Lane in
+// place or SimLane, which logs each event and replays every 32), so nvcc
+// builds the two sets in parallel and these instantiations keep their
+// parameters and their code.
 //
 // Where bit-exactness with the JAX reference could break:
 //   * argmin ties: jnp.argmin returns the FIRST index.  Each thread keeps

@@ -183,16 +183,29 @@ struct TierExt : Ext {
 
 // The sketched instantiations' parameters: the mode's own (Ext or
 // TierExt) and the streaming sketch's, a type of its own, so that the
-// instantiations without it keep their parameters and their code.
-template <class Base>
+// instantiations without it keep their parameters and their code; L is
+// the sketch's device code (sketch::Lane in place, or sketch::SimLane,
+// which logs each event: LoggedLane, InPlaceLane, at the end).
+template <class Base, class L>
 struct Sketched : Base {
   SketchArgs sk;
+  using SkLane = L;
 };
 template <class E>
 struct is_sketched : std::false_type {};
-template <class Base>
-struct is_sketched<Sketched<Base>> : std::true_type {};
-struct NoSketch {};
+template <class Base, class L>
+struct is_sketched<Sketched<Base, L>> : std::true_type {};
+struct NoSketch {
+  static constexpr bool kLog = false;
+};
+template <class E, bool = is_sketched<E>::value>
+struct lane_of {
+  using type = NoSketch;
+};
+template <class E>
+struct lane_of<E, true> {
+  using type = typename E::SkLane;
+};
 
 // Register slots per thread for mpl jobs; 0: job state in shared memory.
 __host__ __device__ constexpr int reg_slots(int mpl) {
@@ -201,6 +214,9 @@ __host__ __device__ constexpr int reg_slots(int mpl) {
 
 // Events drawn at once, one per thread of the warp.
 constexpr int kBatch = 32;
+// The sketched instantiations' woken log: replayed once it holds more than
+// kWlogFlush branches (an event adds at most mpl)
+constexpr int kWlogFlush = 64;
 
 // Byte offsets of a lane's shared memory: (K) queue info {is_queue,
 // servers}, (K) laws, (kBatch events, 2 draws, K) service draws, (B, Lr)
@@ -215,10 +231,11 @@ constexpr int kBatch = 32;
 // per-level delayed counts and their snapshots, the freed-entry bitmap,
 // R = 0 job slots with kMaxHeld + 2 more arrays (held entries, parked
 // entry and level), and last the three (B, Lr) int8 tables.  A sketched
-// instantiation keeps the (B) miss classes in every mode.
+// instantiation keeps the (B) miss classes in every mode, and the woken
+// log of its sketch (kWlogFlush + mpl + 1 branches).
 struct Layout {
   int q, law, draw, vis, cum, miss, enter, leave, trash, rank, lead, fcum,
-      bcnt, dlv, freed, jobs, tab, bytes;
+      bcnt, dlv, freed, wlog, jobs, tab, bytes;
 };
 
 __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
@@ -259,6 +276,8 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
   o += tiers ? 8 * kMaxHeld : 0;
   s.freed = o;
   o += tiers ? 4 * ((n_lead + 32) / 32) : 0;
+  s.wlog = o;
+  o += sketch ? 4 * (kWlogFlush + mpl + 1) : 0;
   s.jobs = o;
   o += smem_jobs ? (tiers ? 4 * (10 + kMaxHeld) : ext ? 32 : 24) * mpl : 0;
   s.tab = o;
@@ -266,6 +285,59 @@ __host__ __device__ inline Layout layout(int n_k, int n_b, int n_l, int mpl,
   s.bytes = o;
   return s;
 }
+
+// The sketched kernel's log of events (kLog, sketch.cuh SimLane): event n
+// of a log of 32 logs its record in registers of thread n (t its time, a
+// its arrival bit and woken count, k its key, w j's completion word, which
+// j's owner shuffles into `word` at the end of the event and which is
+// logged at the top of the next), and the jobs' owners the woken jobs'
+// branches in the shared-memory log wlog, wpos of them.  The unsketched
+// instantiations hold none of it (NoLog).
+struct EventLog {
+  float t = 0.0f;
+  int a = 0, k = 0, w = 0;
+  int* wlog;
+  int n = 0, word = -1, wpos = 0;
+
+  // event n's record, by thread n
+  __device__ __forceinline__ void event(int me, float te, int ae, int ke) {
+    if (me == n) {
+      t = te;
+      a = ae;
+      k = ke;
+    }
+    ++n;
+  }
+  // the last event's completion word to its record
+  __device__ __forceinline__ void take_word(int me) {
+    if (me == n - 1) w = word;
+    word = -1;
+  }
+  __device__ __forceinline__ bool full() const { return n == 32; }
+
+  // the branches of the n jobs an event wakes, in job order (a ballot per
+  // slot round; is_woken(r): this thread's slot r holds one)
+  template <class J, class F>
+  __device__ __forceinline__ void woken(J& jobs, int me, int nw, F is_woken) {
+    const unsigned lower = (1u << me) - 1u;
+    int at = wpos;
+#pragma unroll
+    for (int r = 0; r < jobs.max_slots(); ++r) {
+      const bool wk = r < jobs.slots() && is_woken(r);
+      const unsigned m = __ballot_sync(FULL, wk);
+      if (wk) wlog[at + __popc(m & lower)] = jobs.br(r);
+      at += __popc(m);
+    }
+    wpos += nw;
+  }
+};
+struct NoLog {};
+
+// A logged event's own values: j's completion word (its owner's view) and
+// the jobs the event wakes
+struct SketchEvent {
+  int o_word = 0, nw = 0;
+};
 
 // A thread's jobs: slot r holds job me + 32 r.  Fields: absolute ready
 // time (mod 2**32), station, next station on the route (-1: the request
@@ -366,8 +438,15 @@ struct TierJobs<0> : Jobs<0> {
   __device__ __forceinline__ int& pl(int r) { return pl_[32 * r]; }
 };
 
+// One warp a block; the logged sketched instantiations at least one block
+// a multiprocessor too, so that ptxas may give the sketch's replay
+// registers (up to 255) rather than spill the simulation's around it (0:
+// no bound)
+template <class E>
+constexpr int kMinBlocks = lane_of<E>::type::kLog ? 1 : 0;
+
 template <int kTrace, int R, int kMode, class E = Ext>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32, kMinBlocks<E>)
     sim_kernel(const Args a, const Rings rings, const E ex) {
   constexpr bool kExt = kMode == kFlows || kMode == kOpen;  // coalescing state
   constexpr bool kOp = kMode == kOpen;
@@ -490,9 +569,16 @@ __global__ void __launch_bounds__(32)
     }
   }
 
-  // the lane's streaming sketch (kSk), in every thread
-  typename std::conditional<kSk, sketch::Lane, NoSketch>::type skl;
+  // the lane's streaming sketch (kSk), in every thread.  kLog: the event
+  // loop logs each event (EventLog lg) and is left when the log is full
+  // (or its woken log past kWlogFlush); the sketch replays the log outside
+  // the loop, so that no memory operation and none of its code lies in it
+  typename lane_of<E>::type skl;
   if constexpr (kSk) skl.init(ex.sk, lane_id, me);
+  constexpr bool kLog = kSk && lane_of<E>::type::kLog;
+  typename std::conditional<kLog, EventLog, NoLog>::type lg;
+  if constexpr (kLog) lg.wlog = reinterpret_cast<int*>(smem + lay.wlog);
+  typename std::conditional<kLog, SketchEvent, NoLog>::type ske;
 
   uint32_t clock = 0;
   int seq_ctr = 0, completed = 0, warm_completed = -1, events = 0;
@@ -601,6 +687,7 @@ __global__ void __launch_bounds__(32)
       }
     }
   };
+  do {
   while (completed < a.n_requests && events < max_events) {
     store_trace();
     if constexpr (kTrace > 0 && kOp) {
@@ -608,6 +695,7 @@ __global__ void __launch_bounds__(32)
       tr.done = false;
       tr.enter_at = tr.leave_at = trash + me;
     }
+    if constexpr (kLog) lg.take_word(me);
     if (slot == kBatch) {
       // draw the next kBatch events, event e = events + me here (its
       // counters 2 mpl + 3 e + {0, 1, 2})
@@ -649,7 +737,7 @@ __global__ void __launch_bounds__(32)
       clock += t;
       elapsed_us = __fmaf_rn(static_cast<float>(static_cast<int>(t)),
                              static_cast<float>(1e-3), elapsed_us);
-      if constexpr (kSk) skl.tick(elapsed_us);
+      if constexpr (kSk && !kLog) skl.tick(elapsed_us);
     } else {
       // the next event: an arrival, a burst toggle or j's departure
       const uint32_t t_dep = t == NEVER ? INF_REL : t;
@@ -661,13 +749,13 @@ __global__ void __launch_bounds__(32)
       clock += tt;
       const float dt = static_cast<float>(static_cast<int>(tt)) * static_cast<float>(1e-3);
       elapsed_us = elapsed_us + dt;
-      if constexpr (kSk) skl.tick(elapsed_us);
+      if constexpr (kSk && !kLog) skl.tick(elapsed_us);
 #pragma unroll
       for (int r = 0; r < jobs.slots(); ++r) {
         if (jobs.st(r) != NO_JOB) jobs.age(r) += dt;
       }
       if (is_arr) {
-        if constexpr (kSk) skl.arrival();  // every offered arrival
+        if constexpr (kSk && !kLog) skl.arrival();  // every offered arrival
         // the lowest free slot takes the request, or it is dropped
         int free_slot = -1;
 #pragma unroll
@@ -713,6 +801,10 @@ __global__ void __launch_bounds__(32)
       if (is_arr || is_tog) {
         events += 1;
         ++slot;
+        if constexpr (kLog) {  // the arrival's or the toggle's record
+          lg.event(me, elapsed_us, is_arr ? 1 : 0, -1);
+          if (lg.full()) break;  // the logged events to the sketch
+        }
         continue;
       }
     }
@@ -732,6 +824,9 @@ __global__ void __launch_bounds__(32)
         o_age = jobs.age(r);
       }
     });
+    // kLog: j's completion word, a hit unless its branch is a miss route
+    // (owner's view; read now, shuffled at the end of the event)
+    if constexpr (kLog) ske.o_word = 2 * o_br + (miss[min(o_br, n_b - 1)] == 0 ? 1 : 0);
     if constexpr (kTi) {
       // the fill: completing this visit frees the entry j holds at the
       // level it releases (the cascade never touches j, which is live).
@@ -890,11 +985,17 @@ __global__ void __launch_bounds__(32)
     // (as delayed hits) before j: in the closed loop each starts a fresh
     // request, counted under the branch it parked on; in the open loop
     // each leaves, recorded in job order.
+    if constexpr (kLog) ske.nw = 0;
     if constexpr (kExt) {
       if (fill) {
         const int n_woken = __reduce_add_sync(FULL, lwoken);
         if (n_woken > 0) {
           trace_woken([&](int r) { return jobs.fl(r) == f_cur && me + 32 * r != j; });
+          if constexpr (kLog) {
+            lg.woken(jobs, me, n_woken,
+                     [&](int r) { return jobs.fl(r) == f_cur && me + 32 * r != j; });
+            ske.nw = n_woken;
+          }
           int before = completed;  // the next woken job's record index
           const unsigned lower = (1u << me) - 1u;
 #pragma unroll
@@ -904,7 +1005,7 @@ __global__ void __launch_bounds__(32)
             if constexpr (kOp) {
               const unsigned m = __ballot_sync(FULL, w);
               if (w) {
-                if constexpr (kSk) skl.many_branch(jobs.br(r));
+                if constexpr (kSk && !kLog) skl.many_branch(jobs.br(r));
                 record(before + __popc(m & lower), jobs.age(r), CLS_DELAYED);
                 jobs.ready(r) = NEVER;
                 jobs.st(r) = NO_JOB;
@@ -918,7 +1019,7 @@ __global__ void __launch_bounds__(32)
                 atomicAdd(&bcnt[b], 1);
                 atomicAdd(&bcnt[n_b + b], 1);
               }
-              if constexpr (kSk) skl.many_branch(b);
+              if constexpr (kSk && !kLog) skl.many_branch(b);
               const uint32_t ci = c0 + 2u * static_cast<uint32_t>(i);
               const int wb = count_below(cum, n_b, u01(base2, ci));
               const int wst = visit(wb, 0);
@@ -933,7 +1034,7 @@ __global__ void __launch_bounds__(32)
           }
           completed += n_woken;
           delayed += n_woken;
-          if constexpr (kSk) skl.many(n_woken);
+          if constexpr (kSk && !kLog) skl.many(n_woken);
         }
       }
     }
@@ -943,6 +1044,10 @@ __global__ void __launch_bounds__(32)
     if constexpr (kTi) {
       if (n_woken_t > 0) {
         trace_woken([&](int r) { return jobs.st(r) == WOKEN; });
+        if constexpr (kLog) {
+          lg.woken(jobs, me, n_woken_t, [&](int r) { return jobs.st(r) == WOKEN; });
+          ske.nw = n_woken_t;
+        }
 #pragma unroll
         for (int r = 0; r < jobs.slots(); ++r) {
           if (jobs.st(r) == WOKEN) {
@@ -952,7 +1057,7 @@ __global__ void __launch_bounds__(32)
               atomicAdd(&bcnt[b], 1);
               atomicAdd(&bcnt[n_b + b], 1);
             }
-            if constexpr (kSk) skl.many_branch(b);
+            if constexpr (kSk && !kLog) skl.many_branch(b);
             atomicAdd(&dlv[jobs.pl(r)], 1);
             const uint32_t ci = c0 + 2u * static_cast<uint32_t>(i);
             const int wb = count_below(cum, n_b, u01(base2, ci));
@@ -972,7 +1077,7 @@ __global__ void __launch_bounds__(32)
         }
         completed += n_woken_t;
         delayed += n_woken_t;
-        if constexpr (kSk) skl.many(n_woken_t);
+        if constexpr (kSk && !kLog) skl.many(n_woken_t);
       }
     }
 
@@ -1081,7 +1186,17 @@ __global__ void __launch_bounds__(32)
       }
     }
 
-    if constexpr (kSk) {
+    if constexpr (kLog) {
+      // this event's record: its time, the jobs it woke, the key of a miss
+      // at a disk (kTiers: a request's flow, at its first acquire); j's
+      // completion word, logged at the top of the next event
+      int key = -1;
+      if constexpr (kExt) key = at_disk ? f_new : -1;
+      if constexpr (kTi) key = at_acq && f_cur < 0 ? f_new : -1;
+      lg.event(me, elapsed_us, ske.nw << 1, key);
+      const int w_sk = __shfl_sync(FULL, ske.o_word, owner);
+      lg.word = done ? w_sk : -1;
+    } else if constexpr (kSk) {
       // j's completion, a hit unless its branch is a miss route; then the
       // key of a miss at a disk (kTiers: a request's flow, at its first
       // acquire)
@@ -1114,7 +1229,19 @@ __global__ void __launch_bounds__(32)
     }
     events += 1;
     ++slot;
+    if constexpr (kLog) {
+      if (lg.full() || lg.wpos > kWlogFlush) break;  // the events to the sketch
+    }
   }
+  if constexpr (kLog) {  // the logged events, replayed by the sketch
+    lg.take_word(me);
+    __syncwarp();  // the woken log's writes are done
+    skl.replay_block(me < lg.n, lg.t, lg.a, lg.k, lg.w, lg.wlog);
+    lg.n = 0;
+    lg.wpos = 0;
+    __syncwarp();  // its reads are done before it is written again
+  }
+  } while (kLog && completed < a.n_requests && events < max_events);
   store_trace();
   if constexpr (kSk) skl.finish(ex.sk, lane_id);
   if constexpr (kCnt) {
@@ -1262,29 +1389,74 @@ static inline TE tiers_of(const ExtArgs& p) {
   return tx;
 }
 
-// The launch of the mode ext_mode(p) selects, one warp per lane on
-// `stream`, with parameters ex (kTiers: tx); closed, traced when
-// p.cap > 0.  Returns the cudaError_t.
+// The modes whose sketch observes keys or wakes jobs: coalescing, the open
+// loop and the tiers (their sketched instantiations log each event).
+static inline bool observes(int mode) {
+  return mode == kFlows || mode == kOpen || mode == kTiers;
+}
+
+// The launch of the observing mode ext_mode(p) selects, one warp per lane
+// on `stream`, with parameters ex (kTiers: tx).  Returns the cudaError_t.
 template <class E, class TE>
-static int launch_mode(const ExtArgs& p, const E& ex, const TE& tx,
-                       void* stream) {
+static int launch_observing(const ExtArgs& p, const E& ex, const TE& tx,
+                            void* stream) {
   const Args a = args_of(p);
   switch (ext_mode(p)) {
     case kOpen: return launch_ext<kOpen, E>(a, ex, p.lanes, stream);
     case kTiers:
       if (p.max_held > kMaxHeld || p.max_held < 1) return (int)cudaErrorInvalidValue;
       return launch_ext<kTiers, TE>(a, tx, p.lanes, stream);
-    case kFlows: return launch_ext<kFlows, E>(a, ex, p.lanes, stream);
-    case kCount: return launch_ext<kCount, E>(a, ex, p.lanes, stream);
-    default: {
-      if (p.cap <= 0) return launch_ext<kClosed, E>(a, ex, p.lanes, stream);
-      const Rings rings{p.bmiss, p.n_count, p.req, p.rbranch, p.rcls,
-                        p.nvis, p.parked, p.enter, p.leave, p.cap};
-      return p.n_l > 32 ? launch_ext<kClosed, E, 2>(a, ex, p.lanes, stream, rings)
-                        : launch_ext<kClosed, E, 1>(a, ex, p.lanes, stream, rings);
-    }
+    default: return launch_ext<kFlows, E>(a, ex, p.lanes, stream);
   }
 }
+
+// The launch of the counting mode, or of the closed loop, traced into the
+// rings of p when p.cap > 0, with parameters ex.  Returns the cudaError_t.
+template <class E>
+static int launch_closed(const ExtArgs& p, const E& ex, void* stream) {
+  const Args a = args_of(p);
+  if (ext_mode(p) == kCount) return launch_ext<kCount, E>(a, ex, p.lanes, stream);
+  if (p.cap <= 0) return launch_ext<kClosed, E>(a, ex, p.lanes, stream);
+  const Rings rings{p.bmiss, p.n_count, p.req, p.rbranch, p.rcls,
+                    p.nvis, p.parked, p.enter, p.leave, p.cap};
+  return p.n_l > 32 ? launch_ext<kClosed, E, 2>(a, ex, p.lanes, stream, rings)
+                    : launch_ext<kClosed, E, 1>(a, ex, p.lanes, stream, rings);
+}
+
+// The launch of the mode ext_mode(p) selects, one warp per lane on
+// `stream`, with parameters ex (kTiers: tx); closed, traced when
+// p.cap > 0.  Returns the cudaError_t.
+template <class E, class TE>
+static int launch_mode(const ExtArgs& p, const E& ex, const TE& tx,
+                       void* stream) {
+  return observes(ext_mode(p)) ? launch_observing(p, ex, tx, stream)
+                               : launch_closed(p, ex, stream);
+}
+
+// The sketched parameters of launch p with the sketch s and device code L
+// (E: Sketched<Ext, L>; TE: Sketched<TierExt, L>).
+template <class L>
+static inline Sketched<Ext, L> sketched_ext(const ExtArgs& p, const SketchArgs& s) {
+  Sketched<Ext, L> ex;
+  static_cast<Ext&>(ex) = ext_of(p);
+  ex.sk = s;
+  return ex;
+}
+template <class L>
+static inline Sketched<TierExt, L> sketched_tiers(const ExtArgs& p, const SketchArgs& s) {
+  auto tx = tiers_of<Sketched<TierExt, L>>(p);
+  tx.sk = s;
+  return tx;
+}
+
+// The sketch's device code: logged and replayed (sketch::SimLane, its
+// SpaceSaving table in device memory) in the modes that observe keys or
+// wake jobs; in place (sketch::Lane, at the reference's sites) in the
+// closed, counting and traced closed modes, which observe no key and wake
+// no job, and whose short loops a log costs more than it saves
+// (tools/event_sim_sketch_ablation.py).
+using LoggedLane = sketch::SimLane<>;
+using InPlaceLane = sketch::Lane;
 
 // event_sim_sketch.cu: launch_mode with the sketch s, every lane's state
 // updated in place.
@@ -1312,6 +1484,6 @@ static int launch_traced_mode(const ExtArgs& p, const E& ex, const TE& tx,
 }
 
 // event_sim_traced.cu and event_sim_traced_sketch.cu: launch_traced_mode
-// without the sketch, and with the sketch s.
+// without the sketch, and with the sketch s (LoggedLane).
 int traced_launch(const ExtArgs& p, void* stream);
 int traced_sketched_launch(const ExtArgs& p, const SketchArgs& s, void* stream);

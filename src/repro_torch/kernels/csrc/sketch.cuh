@@ -2,32 +2,33 @@
 // repro_torch/obs/streaming.py (the reference's src/repro/obs/streaming.py
 // stream_tick, stream_arrival, stream_done, stream_done_many, stream_key).
 //
-// Included by event_sim_sketch.cu (the sketched instantiations of the
-// event-sim kernel) and by sketch_trace.cu, so the sketch_trace kernel
-// runs the code the simulator runs (but for the SpaceSaving table, which
-// sketch_trace.cu keeps in registers: RegTable, at the end).
+// Included by event_sim.cuh (the sketched instantiations of the event-sim
+// kernel: Lane in place, or SimLane, at the end) and by sketch_trace.cu,
+// so the sketch_trace kernel runs the code the simulator runs (but for the
+// SpaceSaving table, which sketch_trace.cu keeps in registers: RegTable).
 //
 // Where the state lives: the SketchState tensors in device memory, the
 // lane's rows at lane * row length.  The current window's four counters
 // (completions, hits, delayed hits, arrivals) are registers, the same in
 // every thread, loaded when the ring enters a window (zero if its row was
-// stale) and stored back when it leaves it and at the end; the
-// per-branch window row and the count-min rows take reductions to device
-// memory (atomicAdd whose result is unused compiles to RED: the warp does
-// not wait for it, but on an H100 each costs a lone warp some 50 cycles,
-// in shared memory as in device memory, tools/sketch_trace_ablation.py's
-// adds probe; so staging the rows in shared memory gains nothing, and
-// sketch_trace.cu makes fewer adds instead).  The count-min row r is
-// written only by thread r (here; sketch_trace.cu's batched adds come
-// from every thread, atomically), and SpaceSaving slot i only by thread
-// i % 32: it reads its own slots' keys and counts, the warp reduces the
-// lowest matching slot
-// (or the lowest slot of the least count) by redux.sync, and the slot's
-// owner writes it.  So no word passes between threads through memory,
-// except at a window change, which zeroes a stale branch row: a
-// __syncwarp() orders the row's earlier adds, from any thread, before
-// the zeroing.  The EWMA scalars, the key count, the current window id
-// and its span of elapsed times, [lo, hi), are registers too: an event
+// stale) and stored back when it leaves it and at the end.  Lane::
+// completion and Lane::observe add to the per-branch window row and the
+// count-min rows in device memory by reductions (atomicAdd whose result is
+// unused compiles to RED): the warp does not wait for them, but on an H100
+// each costs a lone warp some 50 cycles, in shared memory as in device
+// memory (tools/sketch_trace_ablation.py's adds probe), so both kernels
+// make fewer of them: sketch_trace.cu batches a block's keys, and
+// SimLane keeps the window's per-branch completions in registers and
+// batches its keys' count-min adds (see there).  The count-min row r is
+// written only by thread r in Lane::observe; the batched adds come from
+// every thread, atomically.  SpaceSaving slot i belongs to thread i % 32:
+// it reads its own slots' keys and counts, the warp reduces the lowest
+// matching slot (or the lowest slot of the least count) by redux.sync,
+// and the slot's owner writes it.  So no word passes between threads
+// through memory, except at a window change, which zeroes a stale branch
+// row: a __syncwarp() orders the row's earlier adds, from any thread,
+// before the zeroing.  The EWMA scalars, the key count, the current window
+// id and its span of elapsed times, [lo, hi), are registers too: an event
 // inside the span needs two compares, and only an event outside it
 // computes its window (the division) and the new span.
 //
@@ -97,8 +98,11 @@ __device__ __forceinline__ void cm_add(int* cm, int width, int me, int k) {
   if (me < CM_DEPTH) atomicAdd(&cm[cm_offset(k, me, width)], 1);
 }
 
-// One lane's sketch, held by every thread of its warp.
+// One lane's sketch, held by every thread of its warp.  The event-sim
+// kernel calls it in place, at the reference's sites, in the modes that
+// observe no key (kLog false; SimLane, at the end, logs the others).
 struct Lane {
+  static constexpr bool kLog = false;
   int *win_id, *done, *hit, *dly, *arr, *br, *cm, *key, *cnt, *err;
   const float* decay;
   float window_us, s_hit, s_dly, s_norm, lo, hi;
@@ -157,11 +161,23 @@ struct Lane {
   // if it holds an older window.  An event in the same window as the
   // last tick's needs nothing (its row holds it).
   __device__ __forceinline__ void tick(float elapsed_us) {
-    if (elapsed_us >= lo && elapsed_us < hi) return;
-    const int w = window_of(elapsed_us);
+    int w;
+    if (leaves_window(elapsed_us, w)) enter_window(w);
+  }
+
+  // tick's test: false while elapsed_us lies in the current window, else
+  // its window w and span [lo, hi), and whether the ring must move
+  __device__ __forceinline__ bool leaves_window(float elapsed_us, int& w) {
+    if (elapsed_us >= lo && elapsed_us < hi) return false;
+    w = window_of(elapsed_us);
     lo = w == 0 ? -__int_as_float(0x7f800000) : edge(w);
     hi = edge(w + 1);
-    if (w == wid) return;
+    return w != wid;
+  }
+
+  // the ring's move to window w: the window it leaves stored, w's row
+  // reloaded (time went back) or zeroed
+  __device__ __forceinline__ void enter_window(int w) {
     store_window();  // the window the ring leaves
     wid = w;
     slot = w % W;
@@ -218,14 +234,16 @@ struct Lane {
     s_norm = __fmul_rn(s_norm, d);
   }
 
-  // stream_key: count-min row r by thread r; SpaceSaving slot i by
-  // thread i % 32 (its key and count read by it alone)
+  // stream_key: count-min row r by thread r, then the SpaceSaving search
   __device__ __forceinline__ void observe(int k) {
-    const uint32_t ku = static_cast<uint32_t>(k);
-    if (me < CM_DEPTH) {
-      const uint32_t h = mix32(ku * CM_MULT + cm_salt(me));
-      atomicAdd(&cm[me * (width + 1) + static_cast<int>(h % static_cast<uint32_t>(width))], 1);
-    }
+    cm_add(cm, width, me, k);
+    search(k);
+  }
+
+  // stream_key's SpaceSaving half on the table in device memory, and the
+  // key count: slot i by thread i % 32 (its key and count read by it
+  // alone), three warp reductions (match; least; its lowest slot)
+  __device__ __forceinline__ void search(int k) {
     int my_match = INT_MAX, my_min = INT_MAX, my_arg = INT_MAX;
     for (int i = me; i < K; i += 32) {
       const int c = cnt[i];
@@ -263,12 +281,12 @@ struct Lane {
   }
 };
 
-// The SpaceSaving table in registers, for sketch_trace.cu alone (the
-// event-sim kernel keeps Lane::observe).  Slot i belongs to thread i % 32
-// at register index i / 32, as in Lane::observe, so S slots a thread hold
-// caps up to 32 * S (the host's ladder: 1, 2, 4, 8, 16).  Slots at or past
-// K never match and are never least.  The arrays are indexed only by
-// unrolled constants: no stack, no local memory.
+// The SpaceSaving table in registers (sketch_trace.cu).  Slot i belongs
+// to thread i % 32 at register index i / 32, as in Lane::search, so S
+// slots a thread hold caps up to 32 * S
+// (the host's ladder: 1, 2, 4, 8, 16).  Slots at or past K never match
+// and are never least.  The arrays are indexed only by unrolled
+// constants: no stack, no local memory.
 //
 // PACKED: each slot's count is kept as the word a miss offers the warp,
 // PACK_MISS | count << PACK_SLOT_BITS | slot, and a match offers its slot
@@ -276,7 +294,7 @@ struct Lane {
 // lowest slot of the least count, with that count: stream_key's choice.
 // It needs every count below 2^PACK_COUNT_BITS, which a stream of fewer
 // keys than that keeps (the host chooses).  Unpacked: the count itself and
-// Lane::observe's three reductions (match; least; its lowest slot).
+// Lane::search's three reductions (match; least; its lowest slot).
 //
 // Per key the owner of the chosen slot writes nothing to device memory
 // but err on a replacement; keys and counts are written back by store().
@@ -372,6 +390,193 @@ struct RegTable {
                            : static_cast<int>(word[r]);
       }
     }
+  }
+};
+
+// The table in device memory, searched by Lane::search (three reductions):
+// SimLane's, at every cap.
+struct DeviceTable {
+  static constexpr bool kCountsMin = false;
+  __device__ __forceinline__ void load(const Lane&) {}
+  __device__ __forceinline__ void search(Lane& sk, int k) { sk.search(k); }
+  __device__ __forceinline__ void store(const Lane&) const {}
+};
+
+// The event-sim kernel's sketch in the modes that observe keys or wake
+// jobs (coalescing, the open loop, the tiers; traced or not): Lane, with
+// its work off the event's chain.
+//
+// What bounds the sketched kernel: the event sim's serial chain (each
+// event's argmin reads the ready times the last one wrote; event_sim.cu's
+// header), which the sketch lengthens by whatever it makes the warp issue
+// or wait for between two events.  On an H100 a lone warp pays for every
+// instruction it issues: some 50 cycles for an atomic add, ~28 for a
+// store (tools/sketch_trace_ablation.py's adds probe), and the code of
+// the sketch's rare paths, a window change's above all (a division,
+// loops, __syncwarp, the row's zeroing), costs the long loops of these
+// modes by its mere presence between the argmin and the owner's shuffles
+// (tools/event_sim_sketch_ablation.py times each step).  So:
+//
+// * each event only logs what the sketch needs, in registers of thread
+//   n % 32 for the n-th event of the log (event_sim.cuh EventLog: its
+//   time, whether it is an arrival, how many jobs it wakes, the key it
+//   observes, and j's completion as the word 2 b + hit, which j's owner
+//   shuffles at the end of the event and the thread takes at the top of
+//   the next one); the woken jobs' branches go to a log in shared memory,
+//   each at its owner's place (a ballot prefix).  The kernel leaves its
+//   event loop when 32 events are logged (or the woken log fills), and
+//   replay_block() runs Lane over them, in the reference's order where it
+//   matters, outside the loop.  The closed, counting and traced closed
+//   modes, whose short loops a log costs more than it saves, keep Lane in
+//   place at the reference's sites.
+// * the window's completions per branch are registers, branch b in thread
+//   b (every path runs at most 32 branches: fig_cluster's 16 shards); each
+//   thread adds its count to the row when the ring leaves the window
+//   (tick) and at the end, by one atomic add, so a window that comes back
+//   to a slot keeps its row.  A branch past 32 keeps thread 0's add, and
+//   the woken jobs' branches one atomic add per 32 of them.
+// * the n-th observed key of a block of 32 waits in thread n % 32; a full
+//   block, and the partial one at the end, makes four warp-wide atomic
+//   adds (row r's column of each thread's key).
+// * Table: the SpaceSaving table, DeviceTable at every cap (Lane::search,
+//   three reductions a key).  In the replay the table in registers
+//   (RegTable, sketch_trace.cu's) gains little on lanes that observe keys
+//   and nothing on lanes that observe none, such as fig_drift D's open
+//   loop, so the kernel keeps one form (the ablation times the others).
+template <class Table = DeviceTable>
+struct SimLane : Lane {
+  static constexpr bool kLog = true;
+  Table tab;
+  int br_n;          // completions on branch me not in the row
+  int cm_key, cm_n;  // this thread's waiting key; keys waiting
+
+  __device__ __forceinline__ void init(const SketchArgs& s, int lane, int thread) {
+    Lane::init(s, lane, thread);
+    tab.load(*this);
+    br_n = 0;
+    cm_key = 0;
+    cm_n = 0;
+  }
+
+  // this window's counts of branch me to its row
+  __device__ __forceinline__ void flush_branch() {
+    if (br_n != 0 && me < B) atomicAdd(&br[slot * B + me], br_n);
+    br_n = 0;
+  }
+
+  // Lane::tick, this window's per-branch counts to its row first
+  __device__ __forceinline__ void tick(float elapsed_us) {
+    int w;
+    if (leaves_window(elapsed_us, w)) {
+      flush_branch();
+      enter_window(w);
+    }
+  }
+
+  // the waiting keys' count-min columns, four adds of the warp
+  __device__ __forceinline__ void flush_cm() {
+    if (me < cm_n) {
+#pragma unroll
+      for (int r = 0; r < CM_DEPTH; ++r) atomicAdd(&cm[cm_offset(cm_key, r, width)], 1);
+    }
+    cm_n = 0;
+  }
+
+  // stream_key
+  __device__ __forceinline__ void observe(int k) {
+    if constexpr (!Table::kCountsMin) {
+      if (me == cm_n) cm_key = k;
+      if (++cm_n == 32) flush_cm();
+    }
+    tab.search(*this, k);
+  }
+
+  // 32 logged events in order, thread i holding event i's record (in: an
+  // event there): rt its elapsed time, ra its arrival (bit 0) and the jobs
+  // it woke (ra >> 1), rk the key it observed (-1: none), rw its
+  // completion word; the woken jobs' branches lie in wlog, event by event.
+  // The reference's order per event (tick, arrival, the woken batch, j's
+  // completion, the key) holds where it matters: the events are cut into
+  // runs of one window with a tick at the head of each (an event outside
+  // the span of the ring's current window, [lo, hi), heads a run: two
+  // compares of each event by its own thread); a run's integer counts are
+  // added at once (popcounts of ballots; its completions per branch by one
+  // ballot per branch present); its EWMA steps, which do not commute, are
+  // made event by event; the keys, whose counts do not depend on the
+  // window, after the runs, in order.
+  __device__ __forceinline__ void replay_block(bool in, float rt, int ra, int rk,
+                                               int rw, const int* wlog) {
+    const unsigned present = __ballot_sync(FULL_MASK, in);
+    const int nw = in ? ra >> 1 : 0;
+    const bool done_i = in && rw >= 0;
+    const int b_i = rw >> 1;
+    const unsigned arr_m = __ballot_sync(FULL_MASK, in && (ra & 1) != 0);
+    const unsigned done_m = __ballot_sync(FULL_MASK, done_i);
+    const unsigned hit_m = __ballot_sync(FULL_MASK, done_i && (rw & 1) != 0);
+    const unsigned many_m = __ballot_sync(FULL_MASK, nw > 0);
+    const float my_d = nw > 0 ? decay[nw] : 1.0f;
+    int wp = 0;  // the next woken job's place in wlog
+    // runs of one window: the events from `at` on in the span of the
+    // ring's current window, up to the first that is not, which ticks
+    const int end_all = 32 - __clz(present);
+    for (int at = __ffs(present) - 1; at < end_all;) {
+      const unsigned from = ~((1u << at) - 1u);
+      const unsigned out =
+          __ballot_sync(FULL_MASK, in && !(rt >= lo && rt < hi)) & from;
+      const int end = out ? __ffs(out) - 1 : end_all;
+      const unsigned below = end >= 32 ? FULL_MASK : (1u << end) - 1u;
+      const unsigned run = present & below & from;
+      const bool mine = (run >> me & 1u) != 0;
+      // its integer counts
+      const int woken = __reduce_add_sync(FULL_MASK, mine ? nw : 0);
+      c_arr += __popc(arr_m & run);
+      c_done += woken + __popc(done_m & run);
+      c_hit += __popc(hit_m & run);
+      c_dly += woken;
+      for (int q = me; q < woken; q += 32) {  // the woken jobs' branches
+        const int b = wlog[wp + q];
+        if (b < B) atomicAdd(&br[slot * B + b], 1);
+      }
+      wp += woken;
+      // the completions per branch: b < 32 to thread b, past it by an add
+      const bool reg = mine && done_i && b_i < min(B, 32);
+      if (mine && done_i && b_i >= 32 && b_i < B) atomicAdd(&br[slot * B + b_i], 1);
+      for (unsigned todo = __ballot_sync(FULL_MASK, reg); todo != 0u;) {
+        const int b = __shfl_sync(FULL_MASK, b_i, __ffs(todo) - 1);
+        const unsigned same = __ballot_sync(FULL_MASK, reg && b_i == b);
+        if (me == b) br_n += __popc(same);
+        todo &= ~same;
+      }
+      // the EWMA steps, event by event
+      for (unsigned ew = (done_m | many_m) & run; ew != 0u; ew &= ew - 1u) {
+        const int i = __ffs(ew) - 1;
+        if (many_m >> i & 1u) {
+          const float d = __shfl_sync(FULL_MASK, my_d, i);
+          s_hit = __fmul_rn(s_hit, d);
+          s_dly = __fmaf_rn(s_dly, d, 1.0f - d);
+          s_norm = __fmul_rn(s_norm, d);
+        }
+        if (done_m >> i & 1u) {
+          s_hit = __fmaf_rn(s_hit, one_minus, (hit_m >> i & 1u) ? alpha : 0.0f);
+          s_dly = __fmaf_rn(s_dly, one_minus, 0.0f);
+          s_norm = __fmul_rn(s_norm, one_minus);
+        }
+      }
+      if (end < end_all) tick(__shfl_sync(FULL_MASK, rt, end));
+      at = end;
+    }
+    // the keys, in order
+    for (unsigned km = __ballot_sync(FULL_MASK, in && rk >= 0); km != 0u; km &= km - 1u)
+      observe(__shfl_sync(FULL_MASK, rk, __ffs(km) - 1));
+  }
+
+  // the registers back to the state, after the last event (and its
+  // replay)
+  __device__ __forceinline__ void finish(const SketchArgs& s, int lane) {
+    flush_branch();
+    flush_cm();
+    tab.store(*this);
+    Lane::finish(s, lane);
   }
 };
 

@@ -69,6 +69,7 @@ its plain version is :func:`sim_lanes_plain` with ``tiers``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -1428,6 +1429,14 @@ def _check_shared(nbytes: int, what: str) -> None:
                          f"{_build.MAX_SHARED_BYTES}")
 
 
+@functools.lru_cache(maxsize=None)
+def _decay_table(n_jobs: int, device: torch.device) -> torch.Tensor:
+    """:func:`~repro_torch.obs.streaming.pow_table` up to ``n_jobs`` on
+    ``device``, made once: the sketched launches only read it, so no launch
+    waits for a copy from the host."""
+    return pow_table(n_jobs, device=device)
+
+
 def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
                 warmup: int, n_jobs: int, max_events: torch.Tensor,
                 n_flows: int, flow_theta: float, n_disks: int,
@@ -1516,8 +1525,7 @@ def _launch_ext(spec: _LaneSpec, seeds: torch.Tensor, *, n_requests: int,
     s_args = None
     if sketch is not None:
         state, window_us = sketch
-        decay = pow_table(n_jobs, device=dev)
-        keep.append(decay)
+        decay = _decay_table(n_jobs, dev)
         s_args = sketch_args(state, window_us, decay)
         s_args.bmiss = ptr(bmiss.to(torch.int32))
     lib = _build.load_library()

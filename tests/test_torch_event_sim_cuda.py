@@ -536,7 +536,13 @@ def test_tiered_kernel_refuses_too_many_levels(cuda_device):
 # (id, mode, lanes): the sketched instantiations, each mode at register
 # slots and in shared memory (mpl or slots 300), on deterministic service;
 # "trace" 64 runs the traced closed kernel (the long route: its
-# instantiation for routes over 32 visits)
+# instantiation for routes over 32 visits).  Caps up to 32 and past it
+# (a coalescing, an open-loop and a tiered case with more SpaceSaving
+# slots than the warp has threads); "wraps": windows short enough that
+# the ring comes back to its slots; "partial": some lane observes a number
+# of keys that is not a multiple of 32 (the count-min block flushed at
+# the end); "branches": B, the largest any path runs (fig_cluster's 16
+# shards: 32, one register a thread) and past it
 SKETCH_CASES = [
     ("closed-mpl24", "closed", dict(net=lambda: _lru(24, True), cap=16,
                                     window=20.0)),
@@ -576,6 +582,26 @@ SKETCH_CASES = [
                                          ps=(0.55,), cap=16, window=50.0)),
     ("tiers-small-mpl300-F4", "tiers", dict(kind="small", mpl=300, flows=4,
                                             ps=(0.5,), cap=8, window=50.0)),
+    ("closed-mpl24-wraps", "closed", dict(net=lambda: _lru(24, True), cap=8,
+                                          window=1.0, wraps=True)),
+    ("count-16shard-mpl64-B32", "count", dict(
+        net=lambda: det_network(cluster_model(16, 64).network), cap=16,
+        window=50.0, branches=32)),
+    ("count-17shard-mpl68-B34", "count", dict(
+        net=lambda: det_network(cluster_model(17, 68).network), cap=16,
+        window=20.0, branches=34)),
+    ("flows-mpl72-F64-zipf-cap48", "flows", dict(
+        net=lambda: _lru(72, True), flows=64, theta=0.99, cap=48,
+        window=20.0)),
+    ("flows-mpl24-F8-wraps-partial", "flows", dict(
+        net=lambda: _lru(24, True), flows=8, cap=8, window=2.0, wraps=True,
+        partial=True)),
+    ("open-N128-F64-cap40", "open", dict(net=lambda: _lru(1, True, 8),
+                                         slots=128, flows=64, cap=40,
+                                         window=20.0)),
+    ("tiers-fig-mpl96-F64-cap33", "tiers", dict(kind="fig", mpl=96,
+                                                flows=64, ps=(0.55,), cap=33,
+                                                window=50.0)),
 ]
 
 
@@ -618,6 +644,20 @@ def sketch_pair(case, device, n_requests=300):
             kern_fn(spec, seeds, **kw))
 
 
+def hold_sketch_case(case, kern) -> None:
+    """A ``SKETCH_CASES`` case's own property: its branches, ring wraps or
+    partial count-min block."""
+    c = case[2]
+    if "branches" in c:
+        assert kern.sketch.win_branch_count.shape[2] == c["branches"]
+        assert int((kern.sketch.win_branch_count[..., 32:] > 0).sum()) > 0 \
+            or c["branches"] <= 32
+    if c.get("wraps"):
+        assert int(kern.sketch.win_id.max()) >= tst.N_WINDOWS
+    if c.get("partial"):
+        assert bool((kern.sketch.key_count % 32 != 0).any())
+
+
 def hold_sketched(kern, plain, bare) -> int:
     """Every field of the kernel's sketch state identical to the plain
     version's, and every other output identical to the unsketched
@@ -647,6 +687,7 @@ def test_sketched_kernel_matches_plain(cuda_device, case):
     kern, plain, bare = sketch_pair(case, cuda_device)
     assert tes.sim_lanes.sketch_launches == before + 1
     hold_sketched(kern, plain, bare)
+    hold_sketch_case(case, kern)
     if case[1] in ("flows", "tiers") or case[2].get("flows"):
         assert int(kern.sketch.key_count.min()) > 0
 

@@ -1,22 +1,29 @@
 """The streaming sketch's cost per event, mode by mode, on one card.
 
-    python3 tools/sketch_timing.py [--out FILE] [--reps N]
+    python3 tools/sketch_timing.py [--out FILE] [--reps N] [--rounds N]
+                                   [--src DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit (or from an earlier checkout unpacked into ``build/``, to
 compare two versions of the kernels in one call: each run builds its own
-library).  On the lanes ``chip_smoke.py``'s ``ext_timing`` times — the
-closed loop and the traced closed loop on fig_drift D's lane (LRU, 100 us
-disk, p 0.55), the counting instantiation on fig_cluster C's 8-shard
-network, the coalescing one on fig_delayed_hits B's network (16 flows),
-the open loop on fig_latency C's, the tiered one on fig_hierarchy's, 1 500
-requests each — it times every launch with the sketch off and on
-(``sketch_cap`` 16, 1 ms windows; CUDA events, the mean of ``--reps``
-after a warm-up), holds the sketched outputs identical to the
-unsketched ones, and times the ``sketch_trace`` kernel on fig_drift A's
-24 000-key stream (``sketch_cap`` 96).  Prints ns per event off and on
-with the card's name and power limit, and writes them to ``--out``
-(default ``chiprun_out/sketch_timing.json``).
+library).  ``--src DIR`` times the package of the checkout at ``DIR``
+(its ``src/``, its kernels built there) on this checkout's lanes and
+timing, so that two versions are timed alike: run it in turns, this
+checkout's and the other's, in one call.  On the lanes ``chip_smoke.py``'s
+``ext_timing`` times — the closed loop and the traced closed loop on
+fig_drift D's lane (LRU, 100 us disk, p 0.55), the counting
+instantiation on fig_cluster C's 8-shard network, the coalescing one on
+fig_delayed_hits B's network (16 flows), the open loop on fig_latency
+C's, the tiered one on fig_hierarchy's, 1 500 requests each — it times
+every launch with the sketch off and on (``sketch_cap`` 16, 1 ms
+windows; CUDA events, the mean of ``--reps`` after a warm-up, host gaps
+included, as ``ext_timing``'s; ``--rounds`` rounds, off and on in turns,
+the fastest round kept and the rounds' spread written beside it), holds
+the sketched outputs identical to the unsketched ones, and times the
+``sketch_trace`` kernel on fig_drift A's 24 000-key stream
+(``sketch_cap`` 96).  Prints ns per event off and on with the card's
+name and power limit, and writes them to ``--out`` (default
+``chiprun_out/sketch_timing.json``).
 """
 
 from __future__ import annotations
@@ -84,7 +91,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"
                                          / "sketch_timing.json"))
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--src", default=None)
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve() / "src"))
     import torch
     from chip_smoke import (FD_CAP, FD_STREAM, FD_WINDOW_US, card_line,
                             cuda_ms, fig_drift_stream)
@@ -101,13 +112,19 @@ def main(argv=None) -> int:
             if isinstance(a, torch.Tensor) and not torch.equal(a, b):
                 raise AssertionError(f"{mode}: sketched {f} != unsketched")
         events = int(off.events.long().sum())
-        off_ms = cuda_ms(lambda: launch(**kw), reps=args.reps)
-        on_ms = cuda_ms(lambda: launch(**on_kw), reps=args.reps)
+        off_runs, on_runs = [], []
+        for _ in range(args.rounds):
+            off_runs.append(cuda_ms(lambda: launch(**kw), reps=args.reps))
+            on_runs.append(cuda_ms(lambda: launch(**on_kw), reps=args.reps))
+        off_ms, on_ms = min(off_runs), min(on_runs)
         rows[mode] = {"events": events, "off_ms": off_ms, "on_ms": on_ms,
                       "off_ns_per_event": off_ms * 1e6 / events,
-                      "on_ns_per_event": on_ms * 1e6 / events}
+                      "on_ns_per_event": on_ms * 1e6 / events,
+                      "off_rounds_ms": off_runs, "on_rounds_ms": on_runs}
+        spread = (max(on_runs) - min(on_runs)) * 1e6 / events
         print(f"{mode}: {rows[mode]['off_ns_per_event']:.1f} ns per event "
-              f"off, {rows[mode]['on_ns_per_event']:.1f} on", flush=True)
+              f"off, {rows[mode]['on_ns_per_event']:.1f} on (on: "
+              f"{len(on_runs)} rounds, spread {spread:.1f})", flush=True)
     keys, t, hits = fig_drift_stream(dev)
     st_ms = cuda_ms(lambda: ksk.sketch_trace_lanes(
         keys, t, hits, sketch_cap=FD_CAP, window_us=FD_WINDOW_US),
@@ -116,10 +133,14 @@ def main(argv=None) -> int:
                             "ns_per_key": st_ms * 1e6 / FD_STREAM}
     print(f"sketch_trace: {st_ms:.3f} ms ({st_ms * 1e6 / FD_STREAM:.1f} ns "
           f"per key)", flush=True)
-    print(card, flush=True)
+    import repro_torch
+
+    package = str(Path(repro_torch.__file__).resolve().parents[1])
+    print(f"{card}; the package timed: {package}", flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "root": str(ROOT),
+                               "package": package,
                                "rows": rows}, indent=1))
     return 0
 
